@@ -18,9 +18,11 @@ exit:
 4. The main path at full size: ``gemm_rowscale`` compiled by
    ``repro_torch.core.compiler.compile_kernel`` and run on
    ``ClusterRuntime(workers=2, device="cuda")`` at n=16384, k=m=2048 in
-   float64. Its matmul-shaped pfor must execute on the ``cuda`` twin
-   (the hand-written kernel in the workers) with no fallback, and match
-   numpy's ``2*A @ B`` within 1e-8.
+   float64, twice (cold, then with everything cached on the workers).
+   Its matmul-shaped pfor must execute on the ``cuda`` twin (the
+   hand-written kernel in the workers) with no fallback, count no fault
+   (no respawn, no expired heartbeat), and match numpy's ``2*A @ B``
+   within 1e-8.
 5. Summary: one JSON line with every kernel's numbers, the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -158,14 +160,10 @@ def main_path(torch, compile_kernel, ClusterRuntime, mm_kernel, obs):
     B = rng.normal(size=(K_DIM, M_DIM))
     t0 = time.perf_counter()
     # trace=True: worker run spans give the compute and idle phases.
-    # hb_miss_budget: a chunk's result here is ~134 MB of sparse-diff
-    # updates, and the worker's heartbeat waits behind it on the pipe;
-    # at the pipe rates measured on an H100 host (PERF.md) one such
-    # message can outlast the default 15 s of silence, and the head
-    # would then declare a live worker dead. 120 beats of 1 s bound the
-    # wait instead.
-    rt = ClusterRuntime(workers=WORKERS, device="cuda", trace=True,
-                        hb_interval_s=1.0, hb_miss_budget=120)
+    # Liveness is the runtime's default (1 s beats, 15 missed): a chunk
+    # result here is ~134 MB and takes seconds to cross its pipe, and no
+    # run may count a fault (a respawn, an expired heartbeat) for it.
+    rt = ClusterRuntime(workers=WORKERS, device="cuda", trace=True)
     print(f"fleet: {WORKERS} workers up in "
           f"{time.perf_counter() - t0:.2f} s "
           f"(start method {rt.start_method})", flush=True)
@@ -195,6 +193,9 @@ def main_path(torch, compile_kernel, ClusterRuntime, mm_kernel, obs):
               f"{json.dumps(faults)}; phases (s) {json.dumps(phases)}; "
               f"spans (s) {json.dumps(dict(sorted(spans.items())))}",
               flush=True)
+        if faults:
+            raise AssertionError(f"main path {label} counted faults: "
+                                 f"{json.dumps(faults)}")
         return C, wall
 
     try:

@@ -76,6 +76,12 @@ BLOB_MISSING = "blob-missing"
 # forgets its shipped-rows records for the worker so retries re-ship
 ROWS_MISSING = "rows-missing"
 
+# a cuda chunk error carrying this marker means "the kernel runtime
+# refuses this lowering" (kernels/api.py, e.g. integer operands): the
+# only cuda error that steps down to the np body on a CUDA fleet. Any
+# other one is a kernel build/launch failure and fails the task.
+CUDA_INFEASIBLE = "cuda-lowering-infeasible"
+
 
 class ClusterTaskError(RuntimeError):
     pass
@@ -177,6 +183,10 @@ class _WorkerHandle:
         # the hello carrying a failed-GPU-probe reason is counted into
         # the faults scope once per worker, not once per re-profile
         self.gpu_probe_fault_counted = False
+        # on a CUDA fleet: why this worker's GPU probe failed. Such a
+        # worker gets no task (it cannot run a kernel, and running its
+        # chunks on the CPU instead would hide the fault)
+        self.gpu_error = ""
         self.send_lock = threading.Lock()
 
     def note_clock(self, t_worker: float) -> None:
@@ -313,7 +323,7 @@ class ClusterRuntime:
                  reconnect_grace_s: float = 3.0,
                  task_deadline_s: Optional[float] = None,
                  quorum: int = 1,
-                 degrade_local: bool = True,
+                 degrade_local: Optional[bool] = None,
                  pipeline_depth: int = 2,
                  np_only: bool = False,
                  chaos: Optional[ChaosPlan] = None,
@@ -345,7 +355,11 @@ class ClusterRuntime:
         self.reconnect_grace_s = reconnect_grace_s
         self.task_deadline_s = task_deadline_s
         self.quorum = max(1, quorum)
-        self.degrade_local = degrade_local
+        # a failed chunk (or a fleet below quorum) runs in-process on the
+        # head's CPU only on a device="cpu" fleet by default: on a CUDA
+        # fleet it raises unless the caller opts in
+        self.degrade_local = (self.device == "cpu" if degrade_local is None
+                              else bool(degrade_local))
         # pfor pipelining: each worker's iteration share splits into
         # this many sub-chunks, gathered as-completed — ship(k+1) and
         # gather(k-1) overlap compute(k). Depth 1 restores the
@@ -433,7 +447,8 @@ class ClusterRuntime:
         self.resident_stages = 0       # host→device stagings performed
         self.resident_cells = 0        # distinct arrays made resident
         # head-local capability (the "stay local" side of profitability)
-        self.local_profile = measure_profile(-1)
+        # (the head runs np bodies only: its profile is the host's)
+        self.local_profile = measure_profile(-1, device="cpu")
         self.variant_cache = None
         if cache_dir is not None:
             from repro_torch.profiler.cache import VariantCache
@@ -478,6 +493,7 @@ class ClusterRuntime:
         # gets a fresh wid that would no longer match the env wid list,
         # and the replacement must inherit its predecessor's pose
         sim_gpu = sim_gpu or sim_gpu_for(wid)
+        hb_read = hb_write = None
         if self.transport == "tcp":
             # the child dials back in over the socket; its handle has no
             # conn until the accept loop attaches it
@@ -486,13 +502,22 @@ class ClusterRuntime:
         else:
             head_conn, worker_conn = self._ctx.Pipe(duplex=True)
             endpoint = worker_conn
+            if self.hb_interval_s > 0:
+                # heartbeats get a pipe of their own: on the task pipe
+                # they would queue behind a large result (a full-size
+                # chunk's updates take seconds to cross), and the head
+                # would count a busy worker's silence as a hang
+                hb_read, hb_write = self._ctx.Pipe(duplex=False)
         proc = self._ctx.Process(
             target=worker_main,
-            args=(endpoint, wid, sim_gpu, self.hb_interval_s, self.device),
+            args=(endpoint, wid, sim_gpu, self.hb_interval_s, self.device,
+                  hb_write),
             name=f"cluster-worker-{wid}", daemon=True)
         proc.start()
         if self.transport != "tcp":
             worker_conn.close()  # child's end lives in the child now
+            if hb_write is not None:
+                hb_write.close()
             head_conn = self._wrap_chaos(head_conn, wid)
         wh = _WorkerHandle(wid, proc, head_conn, sim_gpu=sim_gpu)
         with self._lock:
@@ -505,6 +530,9 @@ class ClusterRuntime:
             t = threading.Thread(target=self._recv_loop, args=(wh, head_conn),
                                  name=f"cluster-recv-{wid}", daemon=True)
             t.start()
+        if hb_read is not None:
+            threading.Thread(target=self._hb_loop, args=(wh, hb_read),
+                             name=f"cluster-hb-{wid}", daemon=True).start()
         return wh
 
     def _wrap_chaos(self, conn, wid: int):
@@ -615,6 +643,12 @@ class ClusterRuntime:
             if not wh.hello.wait(max(0.1, deadline - time.monotonic())):
                 raise TimeoutError(
                     f"worker {wh.wid} never said hello")
+        failed = [wh for wh in handles if wh.gpu_error]
+        if failed:
+            self.shutdown()
+            raise RuntimeError(
+                f"worker {failed[0].wid} on device {self.device!r} failed "
+                f"its GPU probe: {failed[0].gpu_error}")
 
     def _reprofile_sequentially(self) -> None:
         """Startup hellos carry profiles measured while every worker was
@@ -681,6 +715,23 @@ class ClusterRuntime:
                             wh.wid, msg)
         self._on_conn_lost(wh, conn)
 
+    def _hb_loop(self, wh: _WorkerHandle, conn) -> None:
+        """Receive one pipe worker's heartbeats (their own pipe). Only
+        stamps liveness: the worker's death is the task pipe's to
+        declare, so this loop just ends when the worker's end closes."""
+        try:
+            while True:
+                t_worker = conn.recv()
+                wh.last_msg = time.monotonic()
+                wh.note_clock(t_worker)
+        except (EOFError, OSError):
+            pass
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
     def _on_conn_lost(self, wh: _WorkerHandle, conn) -> None:
         """One receiver's connection died. On the pipe transport (or at
         shutdown/drain) that *is* the worker's death; on TCP the worker
@@ -726,6 +777,9 @@ class ClusterRuntime:
                                   reason=reason)
                 log.warning("worker %d GPU probe failed: %s",
                             wh.wid, reason)
+            # a CUDA worker without a working card fails its hello: it is
+            # handed no task until a later probe passes (see _views)
+            wh.gpu_error = reason if self.device != "cpu" else ""
             wh.hello.set()
         elif kind == "done":
             _, tid, oid, nbytes, payload = msg[:5]
@@ -797,8 +851,16 @@ class ClusterRuntime:
             if ts is None or ts.finished:
                 return
             ts.spec.attempts += 1
-            if ts.spec.attempts < self.max_attempts and not self._shutdown:
-                self._maybe_downgrade_backend(ts.spec)
+            kernel_failed = self._kernel_failed(ts.spec, message or "")
+            if kernel_failed:
+                self._fault_event("cuda_kernel_errors", task=tid,
+                                  wid=wh.wid)
+                message = (f"cuda chunk failed on worker {wh.wid} of a "
+                           f"{self.device!r} fleet (no CPU fallback "
+                           f"there): {message}")
+            if (ts.spec.attempts < self.max_attempts and not kernel_failed
+                    and not self._shutdown):
+                self._maybe_downgrade_backend(ts.spec, message or "")
                 self.resubmits += 1
                 self._fault_event("retries", task=tid, wid=wh.wid)
                 threading.Thread(target=self._dispatch, args=(ts,),
@@ -1026,18 +1088,35 @@ class ClusterRuntime:
                 ts.finished = True
                 ts.event.set()
 
-    def _maybe_downgrade_backend(self, spec: TaskSpec) -> None:
+    def _kernel_failed(self, spec: TaskSpec, message: str) -> bool:
+        """Did a cuda chunk of a CUDA fleet fail in its kernel (build,
+        launch, or the ``REPRO_CUDA_CHAOS`` knob)? Such an error fails
+        the task: only a refused lowering (:data:`CUDA_INFEASIBLE`)
+        steps down to the np body, and the blob/rows markers are
+        transport faults that retry the same body."""
+        return (self.device != "cpu" and spec.kind == "chunk"
+                and spec.backend == "cuda"
+                and CUDA_INFEASIBLE not in message
+                and BLOB_MISSING not in message
+                and ROWS_MISSING not in message)
+
+    def _maybe_downgrade_backend(self, spec: TaskSpec,
+                                 message: str) -> None:
         """A chunk that *errored* on a worker retries one step down its
         ``TaskSpec.alt`` degradation chain (registry-ordered, e.g.
-        cuda → np) — a worker whose accelerator runtime is
-        broken/missing, or a kernel launch that fails at run time,
-        must not burn every attempt on the same body.
+        cuda → np). On a ``device="cpu"`` fleet (the kernels' plain
+        versions, posing GPU workers) any error steps down, as in the
+        reference; on a CUDA fleet only a lowering the kernel runtime
+        refuses does (:meth:`_kernel_failed` fails the rest), so no
+        chunk of a card fleet quietly moves to the CPU.
 
         ``alt`` holds either a tuple of ``(backend, blob_id, parts)``
         steps (registry chains) or a single such triple (pre-registry
         single-step form, still accepted)."""
         if spec.kind != "chunk" or spec.backend == "np" \
                 or spec.alt is None:
+            return
+        if self.device != "cpu" and CUDA_INFEASIBLE not in message:
             return
         if spec.backend == "cuda":
             self.cuda_fallbacks += 1
@@ -1055,10 +1134,21 @@ class ClusterRuntime:
             handles = [wh for wh in self._handles.values()
                        if wh.alive and wh.profile is not None
                        and not wh.draining and wh.conn is not None
-                       and wh.suspect_deadline is None]
+                       and wh.suspect_deadline is None
+                       and not wh.gpu_error]
             return [WorkerView(wh.wid, wh.profile, len(wh.inflight),
                                self.plane.resident_on(wh.wid))
                     for wh in handles]
+
+    def _live_gpu_errors(self) -> List[str]:
+        """The GPU probe errors of the live workers, when every live,
+        profiled worker has one (else [])."""
+        with self._lock:
+            live = [wh for wh in self._handles.values()
+                    if wh.alive and wh.profile is not None]
+        if live and all(wh.gpu_error for wh in live):
+            return [wh.gpu_error for wh in live]
+        return []
 
     def _handle_for(self, wid: int) -> Optional[_WorkerHandle]:
         with self._lock:
@@ -1104,6 +1194,18 @@ class ClusterRuntime:
                         return
             views = self._views()
             if not views:
+                gpu_errors = self._live_gpu_errors()
+                if gpu_errors:
+                    # every live worker failed its GPU probe: no chunk
+                    # may run, and none may move to the CPU instead
+                    ts.error = (f"no worker has a working "
+                                f"{self.device!r} device: {gpu_errors[0]}")
+                    obs.end(ts.token, error=True)
+                    self.plane.fulfill_inline(spec.out.oid,
+                                              _TaskErr(ts.error))
+                    ts.finished = True
+                    ts.event.set()
+                    return
                 if not self.respawn and self.workers_alive() == 0:
                     # the whole fleet is gone and nothing will replace
                     # it: fail the task so waiters raise instead of
@@ -1662,9 +1764,12 @@ class ClusterRuntime:
             views = self._await_quorum(views)
         if len(views) < self.quorum or not views:
             if not self.degrade_local:
+                gpu_errors = self._live_gpu_errors()
                 raise ClusterTaskError(
                     f"no quorum for pfor: {len(views)} live workers "
-                    f"< quorum {self.quorum}")
+                    f"< quorum {self.quorum}"
+                    + (f"; GPU probe failed: {gpu_errors[0]}"
+                       if gpu_errors else ""))
             # fleet collapsed and nothing will replace it: degrade to
             # local in-process execution — the body's closure holds the
             # head's live arrays, so calling it directly is the

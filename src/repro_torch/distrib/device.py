@@ -76,8 +76,8 @@ def _probe_gpu(device: str) -> tuple:
     prices (PolyBench semantics): an f32 probe would read far too
     optimistic against them. ``torch.matmul`` is the probe's yardstick
     only, never the kernel a chunk runs. Probe failures are returned as
-    a reason string — the head records it on the profile and counts it
-    in the faults scope instead of silently reporting a bare CPU."""
+    a reason string — the head counts it in the faults scope, and on a
+    CUDA fleet fails the worker's hello instead of using it as a CPU."""
     if device == "cpu":
         return False, "", 0.0, 0.0, 0.0, ""
     try:
@@ -135,12 +135,12 @@ def sim_gpu_for(wid: int) -> bool:
 
 
 def measure_profile(wid: int, n: int = 128,
-                    sim_gpu: bool = None,
-                    device: str = "cpu") -> DeviceProfile:
+                    sim_gpu: bool = None, *,
+                    device: str) -> DeviceProfile:
     """Micro-benchmark this process. ``n`` keeps the host probe
     ~milliseconds. ``sim_gpu`` forces the simulated-GPU pose (None =
     consult the ``REPRO_DISTRIB_SIM_GPU`` env var); ``device`` is the
-    worker's device, probed when it is a CUDA device."""
+    caller's device (no default), probed when it is a CUDA device."""
     rng = np.random.default_rng(wid + 1)
     a = rng.normal(size=(n, n))
     b = rng.normal(size=(n, n))

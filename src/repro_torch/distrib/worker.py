@@ -24,7 +24,8 @@ the same framing a TCP transport would use):
                     spans_or_None, accel_stats_or_None)
                  | ("err", tid, message, traceback)
                  | ("obj", oid, payload) | ("pong", nbytes, t_mono)
-                 | ("hb", t_mono)
+                 | ("hb", t_mono)   # TCP; a pipe worker sends a bare
+                                    # t_mono on its heartbeat pipe
                  | ("attach", wid, attempts) | ("join", sim_gpu)
 
 where ``payload`` is ``("v", value)`` when the value travels with the
@@ -111,7 +112,7 @@ def _chunk_updates(body, lo: int, hi: int, written: Tuple[str, ...],
 
 class WorkerState:
     def __init__(self, wid: int, sim_gpu: bool = False,
-                 device: str = "cpu"):
+                 device: str = "cuda"):
         self.wid = wid
         self.sim_gpu = sim_gpu    # pose as a GPU worker (hetero CI/demo)
         self.device = device      # where the kernel runtime computes
@@ -244,30 +245,35 @@ def _make_link(conn, wid: Optional[int], sim_gpu: bool):
 
 
 def worker_main(conn, wid: Optional[int] = None, sim_gpu: bool = False,
-                hb_interval_s: float = 0.0, device: str = "cpu") -> None:
+                hb_interval_s: float = 0.0, device: str = "cuda",
+                hb_conn=None) -> None:
     """Entry point of the worker process. ``conn`` is an inherited pipe
     connection or a ``("tcp", (host, port), authkey)`` endpoint (the
     multi-host path — also reachable via ``python -m
     repro_torch.distrib.worker --connect host:port --authkey <hex>`` from any
     machine). ``device`` is where this worker's kernel runtime
     (:mod:`repro_torch.kernels.api`, bound as ``__cuk`` in cuda twins)
-    computes: ``"cuda"`` launches the hand-written kernels, ``"cpu"``
-    runs their plain torch versions. The kernel library is built by the
-    head before any worker starts; a worker only loads it. ``sim_gpu``
-    makes the profile pose as a GPU worker (CPU execution) so
-    heterogeneous routing is exercisable on GPU-less hosts; the env var
+    computes: ``"cuda"`` (the default) launches the hand-written
+    kernels and raises on a host without CUDA, ``"cpu"`` runs their
+    plain torch versions. The kernel library is built by the head
+    before any worker starts; a worker only loads it. ``sim_gpu`` makes
+    the profile pose as a GPU worker (CPU execution) so heterogeneous
+    routing is exercisable on GPU-less hosts; the env var
     ``REPRO_DISTRIB_SIM_GPU`` (see :mod:`.device`) does the same by wid.
 
-    With ``hb_interval_s > 0`` a daemon thread sends ``("hb", t_mono)``
-    liveness beacons; they are ``droppable`` — a disconnected TCP window
-    simply skips beats rather than queueing a burst for later."""
+    With ``hb_interval_s > 0`` a daemon thread sends liveness beacons:
+    a bare ``t_mono`` on ``hb_conn`` when the head gave the worker a
+    heartbeat pipe of its own (pipe fleets: a beat never waits behind a
+    large result), else ``("hb", t_mono)`` on the link, ``droppable`` —
+    a disconnected TCP window simply skips beats rather than queueing a
+    burst for later."""
     from .transport import WorkerFencedError
+    kernel_api.set_device(device)   # raises when the device is absent
     try:
         link = _make_link(conn, wid, sim_gpu)
     except (WorkerFencedError, OSError, EOFError):
         return   # head unreachable or this wid is fenced: nothing to do
     wid = getattr(link, "wid", wid) if wid is None else wid
-    kernel_api.set_device(device)
     state = WorkerState(wid, sim_gpu=sim_gpu, device=device)
     stop = threading.Event()
     hb_silenced = threading.Event()   # chaos: hang with silent beacons
@@ -276,7 +282,13 @@ def worker_main(conn, wid: Optional[int] = None, sim_gpu: bool = False,
         while not stop.wait(hb_interval_s):
             if hb_silenced.is_set():
                 continue
-            link.send(("hb", time.perf_counter()), droppable=True)
+            if hb_conn is None:
+                link.send(("hb", time.perf_counter()), droppable=True)
+                continue
+            try:
+                hb_conn.send(time.perf_counter())
+            except (OSError, ValueError):
+                return   # the head is gone: the task pipe ends the loop
 
     if hb_interval_s and hb_interval_s > 0:
         threading.Thread(target=_heartbeat, name=f"worker-hb-{wid}",
@@ -385,6 +397,8 @@ def worker_main(conn, wid: Optional[int] = None, sim_gpu: bool = False,
             break
     stop.set()
     link.close()
+    if hb_conn is not None:
+        hb_conn.close()
 
 
 def _main() -> None:   # pragma: no cover - exercised via subprocess

@@ -16,7 +16,9 @@ The device is the process's: a cluster worker binds its own with
 launch on the card, and a host without one raises; on ``"cpu"`` the
 kernels' plain torch versions run (the CPU tests). Nothing falls back
 from the card to the CPU. ``REPRO_CUDA_CHAOS=fail`` makes every entry
-point raise (deterministic fallback-path tests).
+point raise, as a failed kernel would: a ``device="cpu"`` fleet steps
+the chunk down to its np body (a counted fallback), a CUDA fleet fails
+the task.
 """
 
 from __future__ import annotations
@@ -38,15 +40,25 @@ _DEVICE = "cuda"
 
 
 def set_device(device: str) -> None:
-    """Bind this process's kernel device: ``"cuda"`` or ``"cpu"``."""
+    """Bind this process's kernel device: ``"cuda"`` or ``"cpu"``. A
+    CUDA device on a host without one raises here, at binding."""
     global _DEVICE
     if device != "cpu" and not str(device).startswith("cuda"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    if device != "cpu":
+        _check_cuda(device)
     _DEVICE = device
 
 
 def device() -> str:
     return _DEVICE
+
+
+def _check_cuda(device: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"the kernel runtime is bound to {device!r} but torch sees no "
+            f"CUDA device; bind 'cpu' to run the plain versions")
 
 
 def build() -> None:
@@ -83,10 +95,8 @@ def reset() -> None:
 
 
 def _target() -> torch.device:
-    if _DEVICE != "cpu" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"the kernel runtime is bound to {_DEVICE!r} but torch sees no "
-            f"CUDA device; bind 'cpu' to run the plain versions")
+    if _DEVICE != "cpu":
+        _check_cuda(_DEVICE)
     return torch.device(_DEVICE)
 
 

@@ -9,10 +9,12 @@ units keep their np body until their kernels are ported), and its
 variant-cache token differs from the reference's, so one cache
 directory never serves one package's source to the other.
 
-Each test loops over its cases (see ``tests/test_torch_matmul.py``).
+The reference's compile and its np variant initialise no JAX backend,
+so both packages run in the test process.
 """
 
 import numpy as np
+import pytest
 
 from benchmarks.fusion_chains import CHAINS
 from benchmarks.polybench_kernels import KERNELS, clone_args, to_lists
@@ -66,25 +68,34 @@ def _assert_same(fn, args, outs):
                                    err_msg=fn.__name__)
 
 
-def test_np_variant_matches_reference():
-    """quickstart's ``correlation_loops``, every PolyBench kernel in
-    both styles, every fusion chain."""
+def _np_parity_cases():
+    """(id, fn, args, outs): quickstart's ``correlation_loops``, every
+    PolyBench kernel in both styles, every fusion chain."""
     rng = np.random.default_rng(0)
     m, n = 10, 16
     data = rng.normal(size=(n, m))
     corr = [[0.0] * m for _ in range(m)]
-    _assert_same(correlation_loops.original,
-                 [float(n), data.tolist(), corr, m, n], [2])
+    yield ("quickstart", correlation_loops.original,
+           [float(n), data.tolist(), corr, m, n], [2])
     for name in sorted(KERNELS):
         k = KERNELS[name]
         args, meta = k["make_args"](N_SMALL, np.random.default_rng(42))
         for style in ("np", "list"):
             a = to_lists(args) if style == "list" else args
-            _assert_same(k[style], a, meta["out"])
+            yield (f"polybench-{name}-{style}", k[style], a, meta["out"])
     for name in sorted(CHAINS):
         c = CHAINS[name]
         args, meta = c["make_args"](N_SMALL, np.random.default_rng(7))
-        _assert_same(c["np"], args, meta["out"])
+        yield (f"chain-{name}", c["np"], args, meta["out"])
+
+
+NP_CASES = list(_np_parity_cases())
+
+
+@pytest.mark.parametrize("fn,args,outs", [c[1:] for c in NP_CASES],
+                         ids=[c[0] for c in NP_CASES])
+def test_np_variant_matches_reference(fn, args, outs):
+    _assert_same(fn, args, outs)
 
 
 def _pfor_units(units):
@@ -107,22 +118,27 @@ def _ref_matmul_units(ck) -> list:
     return out
 
 
-SHAPED = [gemm_rowscale, attn_kernel, scan_kernel] + \
-    [KERNELS[n]["np"] for n in sorted(KERNELS)] + \
-    [CHAINS[n]["np"] for n in sorted(CHAINS)]
+SHAPED = [("gemm_rowscale", gemm_rowscale), ("attention", attn_kernel),
+          ("scan", scan_kernel)] + \
+    [(f"polybench-{n}", KERNELS[n]["np"]) for n in sorted(KERNELS)] + \
+    [(f"chain-{n}", CHAINS[n]["np"]) for n in sorted(CHAINS)]
 
 
-def test_cuda_twin_exactly_where_reference_matches_matmul():
-    for fn in SHAPED:
-        ref_ck = ref_compile(fn)
-        port_ck = compile_kernel(fn)
-        want = _ref_matmul_units(ref_ck)
-        got = port_ck.pfor_twin_units().get("cuda", [])
-        assert got == want, fn.__name__
-        assert set(port_ck.pfor_twin_units()) <= {"cuda"}, fn.__name__
-        src = port_ck.source("np")
-        assert src.count("__cuk.matmul(") == len(want), fn.__name__
-        assert "__plk" not in src and "__jxp" not in src, fn.__name__
+@pytest.mark.parametrize("fn", [f for _, f in SHAPED],
+                         ids=[i for i, _ in SHAPED])
+def test_cuda_twin_exactly_where_reference_matches_matmul(fn):
+    ref_ck = ref_compile(fn)
+    port_ck = compile_kernel(fn)
+    want = _ref_matmul_units(ref_ck)
+    got = port_ck.pfor_twin_units().get("cuda", [])
+    assert got == want
+    assert set(port_ck.pfor_twin_units()) <= {"cuda"}
+    src = port_ck.source("np")
+    assert src.count("__cuk.matmul(") == len(want)
+    assert "__plk" not in src and "__jxp" not in src
+
+
+def test_gemm_rowscale_lowers_onto_the_cuda_kernel():
     ck = compile_kernel(gemm_rowscale)
     assert ck.pfor_twin_units() == {"cuda": [0]}
     assert "__cuk.matmul(2.0 * A[__lo:__hi, 0:k], B[0:k, 0:m])" \
