@@ -10,19 +10,30 @@ exit:
    torch and CUDA versions; TF32 off for float32 products.
 2. Build: every hand-written kernel from the sources in this checkout
    (one ``nvcc`` per source, started together), into ``build/kernels/``.
-3. Each kernel against its plain torch version on the card, at the main
-   path's chunk shape, an aligned square and a ragged shape, in every
-   dtype the kernel takes, with the time of the kernel, of the plain
-   version and of the one PyTorch call that computes the same function
-   (``torch.matmul``, a yardstick the port never calls).
-4. The main path at full size: ``gemm_rowscale`` compiled by
-   ``repro_torch.core.compiler.compile_kernel`` and run on
-   ``ClusterRuntime(workers=2, device="cuda")`` at n=16384, k=m=2048 in
-   float64, twice (cold, then with everything cached on the workers).
-   Its matmul-shaped pfor must execute on the ``cuda`` twin (the
-   hand-written kernel in the workers) with no fallback, count no fault
-   (no respawn, no expired heartbeat), and match numpy's ``2*A @ B``
-   within 1e-8.
+3. Each kernel against its plain torch version on the card, in every
+   dtype it takes, at its main path's chunk shape, at a language model's
+   widths where the repo has one that runs it, and at a ragged shape;
+   with the time of the kernel, of the plain version and, where one
+   PyTorch call computes the same function, of that call (a yardstick
+   the port never calls), beside the least time the card could take.
+4. The main paths at full size, each compiled by
+   ``repro_torch.core.compiler.compile_kernel`` and run twice (cold, then
+   with everything cached on the workers) on one
+   ``ClusterRuntime(workers=2, device="cuda")``, in float64:
+
+   * matmul: ``gemm_rowscale`` at n=16384, k=m=2048;
+   * attention: ``attn_kernel`` at n=16384 query rows, t=4096 keys,
+     d=128;
+   * scan: ``scan_kernel`` (c = 0.9) at 8192 rows x L=2048, a size at
+     which the router prices the scan's chunks to ``cuda`` with a
+     margin for a host with a fast copy (PERF.md, section 6).
+
+   Each path's pfor must run every chunk on the ``cuda`` twin (the
+   hand-written kernel in the workers) with no fallback and no plain
+   call, launch its own kernel, count no fault (no respawn, no expired
+   heartbeat), and match numpy within 1e-8 in both runs. Before each
+   path every count is set to 0; the router's prices (``t_np`` and
+   ``t_cuda`` per worker) are printed beside each worker's profile.
 5. Summary: one JSON line with every kernel's numbers, the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -35,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -43,16 +55,44 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 SEED = 0
-
-# main path size (float64): ~0.55 GB of operands, 137 GFLOP
-N_ROWS, K_DIM, M_DIM = 16384, 2048, 2048
 WORKERS = 2
+# the cluster splits each worker's share in two (pipeline depth 2)
+CHUNKS = 2 * WORKERS
+
+# main-path sizes (float64)
+N_ROWS, K_DIM, M_DIM = 16384, 2048, 2048       # matmul: ~0.55 GB, 137 GFLOP
+ATTN_N, ATTN_T, ATTN_D = 16384, 4096, 128      # attention: ~48 MB, 34 GFLOP
+SCAN_N, SCAN_L = 8192, 2048                    # scan: 2 x 134 MB
+SCAN_C = 0.9                                   # scan_kernel's coefficient
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet,
 # dense): float64 on the tensor cores (DMMA) 67 TFLOP/s, float32 outside
 # the tensor cores 67 TFLOP/s, bf16 989 TFLOP/s; HBM3 3.35 TB/s
 PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES_S = 3.35e12
+# operations of one selective-scan step per (b, t, i, n): the exp, the
+# dt*decay product, the state FMA (2) and the output FMA (2). float64
+# exp is a software routine (range reduction and a polynomial) of about
+# 20 double operations; float32 exp is counted as one (the SFU's ex2), a
+# count that can only lower the bound
+SCAN_OPS = {"float64": 20 + 5, "float32": 1 + 5, "bfloat16": 1 + 5}
+
+# phase 3 cases of the flash-attention kernel: (label, (B, Sq, H, KVH,
+# Skv, D), causal, window, softcap, dtype); H == 1 runs the kernel's own
+# (BH, S, D) layout, H > 1 the GQA dispatch
+FLASH_CASES = [
+    ("chunk", (1, ATTN_N // CHUNKS, 1, 1, ATTN_T, ATTN_D), False, 0, 0.0,
+     "float64"),
+    ("gemma2", (1, 8192, 8, 4, 8192, 288), True, 4096, 50.0, "bfloat16"),
+    ("gemma2", (1, 8192, 8, 4, 8192, 288), True, 4096, 50.0, "float32"),
+    ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float32"),
+    ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float64")]
+# phase 3 cases of the selective-scan kernel: (label, (B, L, I, N), dtype)
+SCAN_CASES = [
+    ("chunk", (1, SCAN_L, SCAN_N // CHUNKS, 1), "float64"),
+    ("jamba", (1, 2048, 16384, 16), "float32"),
+    ("ragged", (2, 1000, 77, 4), "float64"),
+    ("ragged", (2, 1000, 77, 4), "float32")]
 
 # max |kernel - plain| allowed, scaled like tests/test_kernels.py: the
 # f32/bf16 tolerance applies both absolutely and relative to |plain|
@@ -69,6 +109,27 @@ def gemm_rowscale(A: "ndarray[f64,2]", B: "ndarray[f64,2]",
         C[i, 0:m] = np.dot(r, B[0:k, 0:m])
 
 
+def attn_kernel(Q: "ndarray[f64,2]", K: "ndarray[f64,2]",
+                V: "ndarray[f64,2]", O: "ndarray[f64,2]",
+                n: int, t: int, d: int):
+    """The repo's attention-shaped pfor (tests/test_pallas_backend.py)."""
+    for i in range(0, n):
+        s = np.dot(K[0:t, 0:d], Q[i, 0:d])
+        p = np.exp(s)
+        o = np.dot(p, V[0:t, 0:d])
+        O[i, 0:d] = o / np.sum(p)
+
+
+def scan_kernel(X: "ndarray[f64,2]", Y: "ndarray[f64,2]",
+                n: int, L: int):
+    """The repo's scan-shaped pfor (tests/test_pallas_backend.py)."""
+    for i in range(0, n):
+        h = 0.0
+        for t in range(0, L):
+            h = 0.9 * h + X[i, t]
+            Y[i, t] = h
+
+
 def _nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -80,7 +141,7 @@ def _nvidia_smi() -> str:
 def _time_ms(torch, fn, reps: int = 20) -> float:
     """Mean device time of ``fn`` over ``reps`` launches (CUDA events,
     after a warm-up)."""
-    for _ in range(3):
+    for _ in range(min(3, reps)):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -93,20 +154,67 @@ def _time_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _bound(m: int, k: int, n: int, dtype: str, itemsize: int):
-    """(least ms, what bounds it) for one (m,k)@(k,n) product: each input
-    read once, the output written once, 2·m·k·n operations."""
-    ops_s = 2.0 * m * k * n / PEAK_FLOPS[dtype]
-    bytes_s = (m * k + k * n + m * n) * itemsize / PEAK_BYTES_S
+def _bound(ops: float, nbytes: float, dtype: str):
+    """(least ms, what bounds it): ``ops`` at the dtype's peak against
+    ``nbytes`` (each input read once, each output written once) at the
+    memory's."""
+    ops_s = ops / PEAK_FLOPS[dtype]
+    bytes_s = nbytes / PEAK_BYTES_S
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
 
 
+def _launch_once(kernel, fn):
+    """Run ``fn`` once; it must launch ``kernel`` exactly once."""
+    before = kernel.launches
+    out = fn()
+    if kernel.launches != before + 1:
+        raise AssertionError(f"{kernel.__name__} did not count its launch")
+    return out
+
+
+def _compare(torch, name, label, got, ref, dname):
+    """Max |got - ref|; raises past the tolerance."""
+    torch.cuda.synchronize()
+    diff = (got.double() - ref.double()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    tol = TOL[dname]
+    allowed = tol if dname == "float64" else tol + tol * ref.double().abs()
+    if not bool(torch.isfinite(got.double()).all()) \
+            or bool((diff > allowed).any()):
+        raise AssertionError(f"{name} {label} {dname}: max err {err:.3e} "
+                             f"over tolerance {tol:g}")
+    return err
+
+
+def _row(torch, name, label, shape, dname, err, kernel_fn, plain_fn,
+         library_fn, ops, nbytes, reps=20, **extra):
+    ms = _time_ms(torch, kernel_fn, reps)
+    plain_ms = _time_ms(torch, plain_fn, max(2, reps // 4))
+    lib_ms = _time_ms(torch, library_fn, reps) if library_fn else None
+    bound_ms, bound_by = _bound(ops, nbytes, dname)
+    row = {"case": label, "shape": shape, "dtype": dname,
+           "max_abs_err": err, "tol": TOL[dname], "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "gops": ops / (ms * 1e-3) / 1e9, **extra}
+    lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
+    print(f"{name} {label:9s} {dname:8s} {shape}: err {err:.3e} "
+          f"(tol {TOL[dname]:g})  kernel {ms:.3f} ms "
+          f"({row['gops']:.1f} GOP/s)  plain {plain_ms:.3f} ms  "
+          f"library {lib}  bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
+    return row
+
+
+def _dtypes(torch):
+    return {"float64": torch.float64, "float32": torch.float32,
+            "bfloat16": torch.bfloat16}
+
+
 def check_matmul(torch, mm_kernel, matmul_ref):
     """Phase 3: the matmul kernel against its plain version."""
-    dtypes = {"float64": torch.float64, "float32": torch.float32,
-              "bfloat16": torch.bfloat16}
-    chunk = (N_ROWS // (2 * WORKERS), K_DIM, M_DIM)   # main-path chunk
+    chunk = (N_ROWS // CHUNKS, K_DIM, M_DIM)   # main-path chunk
     cases = [("chunk", chunk, "float64"),
              ("square", (2048, 2048, 2048), "float64"),
              ("square", (2048, 2048, 2048), "float32"),
@@ -117,64 +225,159 @@ def check_matmul(torch, mm_kernel, matmul_ref):
     rng = np.random.default_rng(SEED)
     out = []
     for label, (m, k, n), dname in cases:
-        dt = dtypes[dname]
+        dt = _dtypes(torch)[dname]
         x = torch.from_numpy(rng.normal(size=(m, k))).to("cuda", dt)
         y = torch.from_numpy(rng.normal(size=(k, n))).to("cuda", dt)
-        before = mm_kernel.launches
-        got = mm_kernel.matmul(x, y)
-        torch.cuda.synchronize()
-        if mm_kernel.launches != before + 1:
-            raise AssertionError("matmul wrapper did not count its launch")
-        ref = matmul_ref(x, y)
-        diff = (got.double() - ref.double()).abs()
-        err = float(diff.max())
-        tol = TOL[dname]
-        allowed = tol if dname == "float64" else \
-            tol + tol * ref.double().abs()
-        if bool((diff > allowed).any()):
-            raise AssertionError(
-                f"matmul {label} {dname} {(m, k, n)}: max err {err:.3e} "
-                f"over tolerance {tol:g}")
-        ms = _time_ms(torch, lambda: mm_kernel.matmul(x, y))
-        plain_ms = _time_ms(torch, lambda: matmul_ref(x, y))
-        lib_ms = _time_ms(torch, lambda: torch.matmul(x, y))
-        bound_ms, bound_by = _bound(m, k, n, dname, x.element_size())
-        row = {"case": label, "shape": [m, k, n], "dtype": dname,
-               "max_abs_err": err, "tol": tol, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "tflops": 2.0 * m * k * n / (ms * 1e-3) / 1e12}
-        out.append(row)
-        print(f"matmul {label:6s} {dname:8s} {m}x{k}@{k}x{n}: "
-              f"err {err:.3e} (tol {tol:g})  kernel {ms:.3f} ms "
-              f"({row['tflops']:.2f} TFLOP/s)  plain {plain_ms:.3f} ms  "
-              f"torch.matmul {lib_ms:.3f} ms  bound {bound_ms:.3f} ms "
-              f"({bound_by})", flush=True)
+        got = _launch_once(mm_kernel, lambda: mm_kernel.matmul(x, y))
+        err = _compare(torch, "matmul", label, got, matmul_ref(x, y), dname)
+        out.append(_row(
+            torch, "matmul", label, [m, k, n], dname, err,
+            lambda: mm_kernel.matmul(x, y), lambda: matmul_ref(x, y),
+            lambda: torch.matmul(x, y), 2.0 * m * k * n,
+            (m * k + k * n + m * n) * x.element_size()))
     return out
 
 
-def main_path(torch, compile_kernel, ClusterRuntime, mm_kernel, obs):
-    """Phase 4: the compiler + cluster path at full size."""
-    rng = np.random.default_rng(SEED + 1)
-    A = rng.normal(size=(N_ROWS, K_DIM))
-    B = rng.normal(size=(K_DIM, M_DIM))
-    t0 = time.perf_counter()
-    # trace=True: worker run spans give the compute and idle phases.
-    # Liveness is the runtime's default (1 s beats, 15 missed): a chunk
-    # result here is ~134 MB and takes seconds to cross its pipe, and no
-    # run may count a fault (a respawn, an expired heartbeat) for it.
-    rt = ClusterRuntime(workers=WORKERS, device="cuda", trace=True)
-    print(f"fleet: {WORKERS} workers up in "
-          f"{time.perf_counter() - t0:.2f} s "
-          f"(start method {rt.start_method})", flush=True)
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the attention of one head computes: the valid
+    keys of each row, or every key for a row with none (it averages
+    all of v, as the kernel and the reference do)."""
+    q = np.arange(sq)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros_like(q)
+    hi = np.minimum(skv - 1, q) if causal else np.full_like(q, skv - 1)
+    n = np.maximum(0, hi - lo + 1)
+    return int(np.where(n > 0, n, skv).sum())
+
+
+def check_flash(torch, fa_kernel, fa_ops, fa_ref):
+    """Phase 3: the flash-attention kernel against its plain version:
+    (a) the attention path's chunk, (b) one gemma2_2b attention layer
+    (B=1, S=8192, H=8, KVH=4, D=288, causal, window 4096, softcap 50;
+    src/repro/configs/gemma2_2b.py) through the GQA dispatch, (c) a
+    ragged case."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(SEED + 2)
+    out = []
+    for label, (b, sq, h, kvh, skv, d), causal, window, cap, dname \
+            in FLASH_CASES:
+        dt = _dtypes(torch)[dname]
+        std = d ** -0.25          # unscaled scores q.k / sqrt(d) are O(1)
+        q = torch.from_numpy(std * rng.normal(size=(b, sq, h, d)))
+        k = torch.from_numpy(std * rng.normal(size=(b, skv, kvh, d)))
+        v = torch.from_numpy(rng.normal(size=(b, skv, kvh, d)))
+        opts = dict(causal=causal, window=window, softcap=cap)
+        if h == 1:                # one head: the kernel's own layout
+            q, k, v = (t[:, :, 0].to("cuda", dt).contiguous()
+                       for t in (q, k, v))
+            kernel_fn = lambda: fa_kernel.flash_attention_bhsd(  # noqa: E731
+                q, k, v, **opts)
+            plain_fn = lambda: fa_ref.flash_attention_bhsd_ref(  # noqa: E731
+                q, k, v, **opts)
+            library_fn = None if (causal or window or cap) else \
+                (lambda: sdpa(q, k, v))
+        else:                     # a GQA layer through the dispatch
+            q, k, v = (t.to("cuda", dt) for t in (q, k, v))
+            kernel_fn = lambda: fa_ops.flash_attention(q, k, v,  # noqa: E731
+                                                       **opts)
+            plain_fn = lambda: fa_ref.attention_ref(q, k, v,  # noqa: E731
+                                                    **opts)
+            library_fn = None     # softcap and window: no single call
+        got = _launch_once(fa_kernel, kernel_fn)
+        err = _compare(torch, "flash_attention", label, got, plain_fn(),
+                       dname)
+        pairs = b * h * attention_pairs(sq, skv, causal, window)
+        nbytes = (2 * b * sq * h * d + 2 * b * skv * kvh * d) \
+            * q.element_size()
+        out.append(_row(
+            torch, "flash_attention", label, [b, sq, h, kvh, skv, d], dname,
+            err, kernel_fn, plain_fn, library_fn, 4.0 * pairs * d, nbytes,
+            reps=10, causal=causal, window=window, softcap=cap))
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_scan(torch, sc_kernel, plain):
+    """Phase 3: the selective-scan kernel against its plain version:
+    (a) the scan path's chunk through api.scan_rows's mapping (B=1,
+    I=rows, N=1, dt=1, B=C=1, a=log(-log c)), (b) one Jamba-1.5-Large
+    Mamba layer (d_model 8192, ssm_expand 2 -> I=16384, ssm_state 16;
+    src/repro/configs/jamba_1_5_large_398b.py) at L=2048 in float32, as
+    the reference's models/ssm.py scans, (c) a ragged case."""
+    rng = np.random.default_rng(SEED + 3)
+    out = []
+    for label, (b, length, inner, n), dname in SCAN_CASES:
+        dt_ = _dtypes(torch)[dname]
+        x = torch.from_numpy(rng.normal(size=(b, length, inner)))
+        if label == "chunk":
+            dt = torch.ones((b, length, inner), dtype=torch.float64)
+            bm = cm = torch.ones((b, length, 1), dtype=torch.float64)
+            a = torch.full((inner, 1), float(np.log(-np.log(SCAN_C))),
+                           dtype=torch.float64)
+            d_skip = torch.zeros((inner,), dtype=torch.float64)
+        else:
+            dt = torch.from_numpy(
+                0.1 * np.abs(rng.normal(size=(b, length, inner))))
+            bm = torch.from_numpy(rng.normal(size=(b, length, n)))
+            cm = torch.from_numpy(rng.normal(size=(b, length, n)))
+            a = torch.from_numpy(
+                np.log(np.abs(rng.normal(size=(inner, n))) + 0.5))
+            d_skip = torch.from_numpy(rng.normal(size=(inner,)))
+        args = [t.to("cuda", dt_).contiguous()
+                for t in (x, dt, bm, cm, a, d_skip)]
+        kernel_fn = lambda: sc_kernel.mamba_scan(*args)  # noqa: E731
+        plain_fn = lambda: plain(*args)  # noqa: E731
+        got = _launch_once(sc_kernel, kernel_fn)
+        err = _compare(torch, "mamba_scan", label, got, plain_fn(), dname)
+        nbytes = sum(t.numel() for t in args) * args[0].element_size() \
+            + got.numel() * got.element_size()
+        out.append(_row(
+            torch, "mamba_scan", label, [b, length, inner, n], dname, err,
+            kernel_fn, plain_fn, None,
+            float(b * length * inner * n * SCAN_OPS[dname]), nbytes,
+            reps=10))
+    return out
+
+
+def _record_pricing(cost):
+    """Wrap the router's pricing table so each pfor round's per-worker
+    prices (t_np, t_cuda and the pick) can be printed."""
+    seen = []
+    table = cost.unit_backend_table
+
+    def recording(flops, nbytes, profiles, allow_jnp=True, candidates=None):
+        profiles = list(profiles)
+        picks = table(flops, nbytes, profiles, allow_jnp, candidates)
+        seen.append([{
+            "wid": p.wid, "flops": flops, "bytes": nbytes,
+            "t_np": cost.chunk_backend_seconds(flops, nbytes, p, "np"),
+            "t_cuda": cost.chunk_backend_seconds(flops, nbytes, p, "cuda"),
+            "pick": pick} for p, pick in zip(profiles, picks)])
+        return picks
+
+    cost.unit_backend_table = recording
+    return seen
+
+
+def run_path(rt, compile_kernel, obs, kernel, pricing, *, name, fn, twin,
+             inputs, out_index, want, rows):
+    """Phase 4, one path: compile ``fn``, zero every count, run it cold
+    and warm on the fleet, check the counts and the results."""
+    ck = compile_kernel(fn, runtime=rt, workers=WORKERS)
+    if twin not in ck.source("np"):
+        raise AssertionError(f"{name}: compiler emitted no {twin} twin")
+    ck.pfor_config.distribute_threshold = 0
+    key = f"{name}_launches"
 
     def run(label):
         before = rt.phase_breakdown()
         st0 = rt.stats()
         obs.recorder().clear()
-        C = np.zeros((N_ROWS, M_DIM))
+        args = list(inputs)
+        args[out_index] = np.zeros_like(inputs[out_index])
+        del pricing[:]
         t0 = time.perf_counter()
-        ck.call_variant("np", A, B, C, N_ROWS, K_DIM, M_DIM)
+        ck.call_variant("np", *args)
         wall = time.perf_counter() - t0
         phases = {k: round(v - before.get(k, 0.0), 4)
                   for k, v in sorted(rt.phase_breakdown().items())}
@@ -187,62 +390,127 @@ def main_path(torch, compile_kernel, ClusterRuntime, mm_kernel, obs):
         faults = {k: v - st0["faults"].get(k, 0)
                   for k, v in st1["faults"].items()
                   if v != st0["faults"].get(k, 0)}
-        print(f"main path {label}: {wall:.3f} s "
-              f"({N_ROWS / wall:.1f} rows/s); bytes shipped "
+        print(f"{name} path {label}: {wall:.3f} s ({rows / wall:.1f} "
+              f"rows/s); bytes shipped "
               f"{st1['bytes_shipped'] - st0['bytes_shipped']}; faults "
-              f"{json.dumps(faults)}; phases (s) {json.dumps(phases)}; "
-              f"spans (s) {json.dumps(dict(sorted(spans.items())))}",
-              flush=True)
+              f"{json.dumps(faults)}; router {json.dumps(pricing)}; "
+              f"phases (s) {json.dumps(phases)}; spans (s) "
+              f"{json.dumps(dict(sorted(spans.items())))}", flush=True)
         if faults:
-            raise AssertionError(f"main path {label} counted faults: "
+            raise AssertionError(f"{name} path {label} counted faults: "
                                  f"{json.dumps(faults)}")
-        return C, wall
+        return args[out_index], wall
 
-    try:
-        for p in rt.profiles():
-            print(f"worker {p.wid}: gpu {p.gpu_kind} f64 GEMM probe "
-                  f"{p.gpu_gflops:.1f} GFLOP/s, h2d {p.h2d_gbs:.1f} GB/s, "
-                  f"d2h {p.d2h_gbs:.1f} GB/s, host {p.gflops:.1f} GFLOP/s",
-                  flush=True)
-        ck = compile_kernel(gemm_rowscale, runtime=rt, workers=WORKERS)
-        if "__cuk.matmul(" not in ck.source("np"):
-            raise AssertionError("compiler emitted no cuda twin")
-        ck.pfor_config.distribute_threshold = 0
-        # every count to 0 just before the counted run
-        mm_kernel.launches = 0
-        for key in ("matmul_launches", "cuda_calls", "cuda_plain_calls",
-                    "cuda_chunks", "cuda_fallbacks"):
-            setattr(rt, key, 0)
-        rt.chunks_executed.clear()
-        C, wall = run("cold")
-        st = rt.stats()
-        launches = int(st["matmul_launches"]) + mm_kernel.launches
-        # a second run: bodies and broadcast cells already cached
-        C2, warm = run("warm")
-    finally:
-        rt.shutdown()
-    ref = (2.0 * A) @ B
-    err = float(np.abs(C - ref).max())
-    err2 = float(np.abs(C2 - ref).max())
+    # every count to 0 just before the path's runs
+    kernel.launches = 0
+    for k in (key, "cuda_calls", "cuda_plain_calls", "cuda_chunks",
+              "cuda_fallbacks"):
+        setattr(rt, k, 0)
+    rt.chunks_executed.clear()
+    out, wall = run("cold")
+    out2, warm = run("warm")
+    st = rt.stats()
+    launches = int(st[key]) + kernel.launches
+    err = float(np.abs(out - want).max())
+    err2 = float(np.abs(out2 - want).max())
     executed = dict(st["chunks_executed"])
-    print(f"main path: n={N_ROWS} k={K_DIM} m={M_DIM} float64; counted "
-          f"run: chunks executed {executed}, cuda_fallbacks "
-          f"{st['cuda_fallbacks']}, cuda_calls {st['cuda_calls']}, matmul "
-          f"launches {launches}; max err {err:.3e} / {err2:.3e}",
-          flush=True)
-    if not executed.get("cuda", 0) > 0:
-        raise AssertionError(f"no chunk executed on cuda: {executed}")
+    print(f"{name} path: cold + warm: chunks executed {executed}, "
+          f"cuda_fallbacks {st['cuda_fallbacks']}, cuda_calls "
+          f"{st['cuda_calls']}, plain calls {st['cuda_plain_calls']}, "
+          f"{key} {launches}; max err {err:.3e} / {err2:.3e}", flush=True)
+    if set(executed) != {"cuda"}:
+        raise AssertionError(f"{name}: not every chunk ran on cuda: "
+                             f"{executed}")
     if st["cuda_fallbacks"] != 0:
-        raise AssertionError(f"{st['cuda_fallbacks']} cuda fallbacks")
+        raise AssertionError(f"{name}: {st['cuda_fallbacks']} cuda "
+                             f"fallbacks")
     if not st["cuda_calls"] > 0 or st["cuda_plain_calls"] != 0:
-        raise AssertionError(f"cuda_calls {st['cuda_calls']}, plain "
-                             f"{st['cuda_plain_calls']}")
+        raise AssertionError(f"{name}: cuda_calls {st['cuda_calls']}, "
+                             f"plain {st['cuda_plain_calls']}")
     if launches <= 0:
-        raise AssertionError("the main path launched no matmul kernel")
-    if not (np.isfinite(C).all() and err <= 1e-8 and err2 <= 1e-8):
-        raise AssertionError(f"main path max err {err:.3e} / {err2:.3e}")
+        raise AssertionError(f"the {name} path launched no {name} kernel")
+    if not (np.isfinite(out).all() and err <= 1e-8 and err2 <= 1e-8):
+        raise AssertionError(f"{name} path max err {err:.3e} / {err2:.3e}")
     return {"launches": launches, "wall_s": wall, "warm_s": warm,
             "max_abs_err": max(err, err2), "chunks_executed": executed}
+
+
+def _attention_reference(Q, K, V):
+    O = np.empty_like(Q)
+    for i in range(0, len(Q), 2048):
+        p = np.exp(Q[i:i + 2048] @ K.T)
+        O[i:i + 2048] = (p @ V) / p.sum(axis=1, keepdims=True)
+    return O
+
+
+def _scan_reference(X):
+    Y = np.empty_like(X)
+    h = np.zeros(len(X))
+    for t in range(X.shape[1]):
+        h = SCAN_C * h + X[:, t]
+        Y[:, t] = h
+    return Y
+
+
+def main_paths(rt, compile_kernel, obs, cost, kernels):
+    """Phase 4: the three paths on one fleet."""
+    for p in rt.profiles():
+        print(f"worker {p.wid}: gpu {p.gpu_kind} f64 GEMM probe "
+              f"{p.gpu_gflops:.1f} GFLOP/s, h2d {p.h2d_gbs:.2f} GB/s, "
+              f"d2h {p.d2h_gbs:.2f} GB/s, host {p.gflops:.1f} GFLOP/s, "
+              f"host copy {p.membw_gbs:.2f} GB/s", flush=True)
+    pricing = _record_pricing(cost)
+    rng = np.random.default_rng(SEED + 1)
+    out = {}
+
+    A = rng.normal(size=(N_ROWS, K_DIM))
+    B = rng.normal(size=(K_DIM, M_DIM))
+    out["matmul"] = run_path(
+        rt, compile_kernel, obs, kernels["matmul"], pricing, name="matmul",
+        fn=gemm_rowscale, twin="__cuk.matmul(",
+        inputs=(A, B, np.zeros((N_ROWS, M_DIM)), N_ROWS, K_DIM, M_DIM),
+        out_index=2, want=(2.0 * A) @ B, rows=N_ROWS)
+    del A, B
+
+    std = ATTN_D ** -0.25
+    Q = std * rng.normal(size=(ATTN_N, ATTN_D))
+    K = std * rng.normal(size=(ATTN_T, ATTN_D))
+    V = rng.normal(size=(ATTN_T, ATTN_D))
+    out["flash_attention"] = run_path(
+        rt, compile_kernel, obs, kernels["flash_attention"], pricing,
+        name="flash_attention", fn=attn_kernel,
+        twin="__cuk.attention_rows(",
+        inputs=(Q, K, V, np.zeros((ATTN_N, ATTN_D)), ATTN_N, ATTN_T,
+                ATTN_D),
+        out_index=3, want=_attention_reference(Q, K, V), rows=ATTN_N)
+    del Q, K, V
+
+    X = rng.normal(size=(SCAN_N, SCAN_L))
+    out["mamba_scan"] = run_path(
+        rt, compile_kernel, obs, kernels["mamba_scan"], pricing,
+        name="mamba_scan", fn=scan_kernel, twin="__cuk.scan_rows(",
+        inputs=(X, np.zeros((SCAN_N, SCAN_L)), SCAN_N, SCAN_L),
+        out_index=1, want=_scan_reference(X), rows=SCAN_N)
+    return out
+
+
+def _summary(name, source, replaces, cases, path):
+    """The kernel's entry of the ``{"kernels": [...]}`` line: the
+    numbers of its main path's chunk case (the first), the worst error
+    per dtype, every case, and its path's run."""
+    chunk = cases[0]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": path["launches"],
+        "max_abs_err": chunk["max_abs_err"], "ms": chunk["ms"],
+        "plain_ms": chunk["plain_ms"], "bound_ms": chunk["bound_ms"],
+        "bound_by": chunk["bound_by"], "library_ms": chunk["library_ms"],
+        "shape": chunk["shape"], "dtype": chunk["dtype"],
+        "dtypes": {c["dtype"]: max(d["max_abs_err"] for d in cases
+                                   if d["dtype"] == c["dtype"])
+                   for c in cases},
+        "cases": cases, "main_path": path,
+    }
 
 
 def main() -> int:
@@ -256,19 +524,26 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    t_start = time.perf_counter()
 
     # 1. environment
     card = _nvidia_smi()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}", flush=True)
+          f"python {sys.version.split()[0]}; {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch import obs
+    from repro_torch.core import cost
     from repro_torch.core.compiler import compile_kernel
     from repro_torch.distrib import ClusterRuntime
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels.matmul import matmul as mm_kernel
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.mamba_scan import mamba_scan as sc
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_promoted_ref
+    from repro_torch.kernels.matmul import matmul as mm
     from repro_torch.kernels.matmul.ref import matmul_ref
 
     if any(m == "jax" or m.startswith("jax.") or m == "repro"
@@ -276,44 +551,58 @@ def main() -> int:
         raise AssertionError("the port loaded jax or the JAX package")
 
     # 2. build, one nvcc per source, all started together
-    sources = [mm_kernel.SOURCE]
+    kernels = {"matmul": mm, "flash_attention": fa, "mamba_scan": sc}
+    sources = [k.SOURCE for k in kernels.values()]
     t0 = time.perf_counter()
-    from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(kbuild.build, sources))
     for src, (lib, log, secs) in zip(sources, built):
         print(f"built {src.relative_to(ROOT)} -> "
               f"{lib.relative_to(ROOT)} in {secs:.1f} s", flush=True)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. kernels against their plain versions
-    cases = check_matmul(torch, mm_kernel, matmul_ref)
+    cases = {"matmul": check_matmul(torch, mm, matmul_ref),
+             "flash_attention": check_flash(torch, fa, fa_ops, fa_ref),
+             "mamba_scan": check_scan(torch, sc,
+                                            mamba_scan_promoted_ref)}
+    print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
-    # 4. the main path
-    res = main_path(torch, compile_kernel, ClusterRuntime, mm_kernel, obs)
+    # 4. the main paths
+    t0 = time.perf_counter()
+    # trace=True: worker run spans give the compute and idle phases.
+    # Liveness is the runtime's default (1 s beats, 15 missed): no run
+    # may count a fault (a respawn, an expired heartbeat).
+    rt = ClusterRuntime(workers=WORKERS, device="cuda", trace=True)
+    print(f"fleet: {WORKERS} workers up in "
+          f"{time.perf_counter() - t0:.2f} s "
+          f"(start method {rt.start_method})", flush=True)
+    try:
+        paths = main_paths(rt, compile_kernel, obs, cost, kernels)
+    finally:
+        rt.shutdown()
 
     # 5. summary
-    chunk = cases[0]
-    kernels = [{
-        "name": "matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/matmul/csrc/matmul.cu",
-        "replaces": "src/repro/kernels/matmul/matmul.py:37",
-        "launches": res["launches"],
-        "max_abs_err": chunk["max_abs_err"],
-        "ms": chunk["ms"], "plain_ms": chunk["plain_ms"],
-        "bound_ms": chunk["bound_ms"], "bound_by": chunk["bound_by"],
-        "library_ms": chunk["library_ms"],
-        "shape": chunk["shape"], "dtype": chunk["dtype"],
-        "dtypes": {c["dtype"]: max(d["max_abs_err"] for d in cases
-                                   if d["dtype"] == c["dtype"])
-                   for c in cases},
-        "cases": cases,
-        "main_path": res,
-    }]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    base = "src/repro_torch/kernels"
+    summary = [
+        _summary("matmul", f"{base}/matmul/csrc/matmul.cu",
+                 "src/repro/kernels/matmul/matmul.py:37", cases["matmul"],
+                 paths["matmul"]),
+        _summary("flash_attention",
+                 f"{base}/flash_attention/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention/flash_attention.py:75",
+                 cases["flash_attention"], paths["flash_attention"]),
+        _summary("mamba_scan", f"{base}/mamba_scan/csrc/mamba_scan.cu",
+                 "src/repro/kernels/mamba_scan/mamba_scan.py:55",
+                 cases["mamba_scan"], paths["mamba_scan"]),
+    ]
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

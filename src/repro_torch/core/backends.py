@@ -25,7 +25,7 @@ This slice registers two backends: ``np`` (the base body) and ``cuda``
 (pattern-matched pfor units lowered onto the hand-written kernels), so
 the degradation chain is ``cuda → np``. The registry is the port's own:
 nothing here touches the reference package's registry, and the cache
-token (``cuda1+np1``) differs from every token the reference files
+token (``cuda2+np1``) differs from every token the reference files
 variants under, so a shared cache directory never serves one package's
 source to the other.
 """
@@ -161,7 +161,7 @@ def cache_token(accel_ok: bool) -> str:
     with its codegen version. Twin backends are earned only when the
     accelerator runtime is actually importable (``accel_ok``), so a
     torch-less host files twin-less variants under the np-only token and
-    recompiles with twins once torch appears. ``cuda1+np1`` differs from
+    recompiles with twins once torch appears. ``cuda2+np1`` differs from
     every token of the reference package, so neither package is ever
     served the other's cached source."""
     active = [b for b in _REGISTRY.values() if accel_ok or not b.twin]
@@ -288,7 +288,8 @@ register(Backend(
     name="cuda",
     xp_binding="__cuk",
     module="repro_torch.kernels.api",
-    codegen_version=1,
+    # 2: twins for attention- and scan-shaped units besides matmul
+    codegen_version=2,
     device_pref="gpu",
     priority=30,
     twin=True,

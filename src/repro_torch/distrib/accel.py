@@ -36,7 +36,8 @@ __all__ = ["remember", "device_tensor", "take_stats", "stats", "reset",
 # cluster's head-side aggregation derives its key set from this tuple,
 # so adding a worker-side counter is a one-place change.
 WIRE_STAT_KEYS = ("resident_hits", "resident_stages", "resident_cells",
-                  "cuda_calls", "cuda_plain_calls", "matmul_launches")
+                  "cuda_calls", "cuda_plain_calls", "matmul_launches",
+                  "flash_attention_launches", "mamba_scan_launches")
 
 # (data ptr, shape, strides, dtype) → [host array (strong ref),
 # {device: tensor}]. Keyed by buffer layout, not object id, because

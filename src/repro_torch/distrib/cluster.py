@@ -300,6 +300,8 @@ class ClusterRuntime:
     cuda_plain_calls = obs.MetricAttr("cuda_plain_calls")
     # launches of each hand-written kernel, counted by its wrapper
     matmul_launches = obs.MetricAttr("matmul_launches")
+    flash_attention_launches = obs.MetricAttr("flash_attention_launches")
+    mamba_scan_launches = obs.MetricAttr("mamba_scan_launches")
 
     # keys of the per-chunk accel stats dict the head aggregates
     # (declared by the accel module so worker-side counters — residency,
@@ -2128,6 +2130,8 @@ class ClusterRuntime:
             "cuda_calls": self.cuda_calls,
             "cuda_plain_calls": self.cuda_plain_calls,
             "matmul_launches": self.matmul_launches,
+            "flash_attention_launches": self.flash_attention_launches,
+            "mamba_scan_launches": self.mamba_scan_launches,
             "device": self.device,
             "pipeline_depth": self.pipeline_depth,
             "cached_blobs": len(self._blob_cache),

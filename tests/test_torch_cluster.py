@@ -1,9 +1,11 @@
-"""The slice end to end on the CPU: ``gemm_rowscale`` compiled by the
-port and run on a port ``ClusterRuntime`` whose two workers pose as GPU
-workers on ``device="cpu"``. Its matmul-shaped pfor routes every chunk
-to the ``cuda`` twin, which runs the kernel's plain torch version there,
-with no fallback; the result equals the reference package's cluster
-result (run in a subprocess, ``tests/torch_reference.py``) and an
+"""The slice end to end on the CPU: ``gemm_rowscale``, ``attn_kernel``
+and ``scan_kernel`` compiled by the port and run on a port
+``ClusterRuntime`` whose two workers pose as GPU workers on
+``device="cpu"``. Each kernel-shaped pfor (matmul, attention, scan)
+routes every chunk to the ``cuda`` twin, which runs the kernel's plain
+torch version there, with no fallback; the results equal the reference
+package's cluster results (run in a subprocess,
+``tests/torch_reference.py``), numpy's and, for the matmul, an
 ``np_only`` control at float64 atol 1e-8.
 
 One port fleet serves the whole file (``rt.shutdown()`` in the
@@ -29,6 +31,51 @@ from torch_reference import run_reference
 
 N, K, M = 192, 48, 40
 
+KERNEL_COUNTERS = ("matmul_launches", "flash_attention_launches",
+                   "mamba_scan_launches")
+
+
+def attn_kernel(Q: "ndarray[f64,2]", K: "ndarray[f64,2]",
+                V: "ndarray[f64,2]", O: "ndarray[f64,2]",
+                n: int, t: int, d: int):
+    for i in range(0, n):
+        s = np.dot(K[0:t, 0:d], Q[i, 0:d])
+        p = np.exp(s)
+        o = np.dot(p, V[0:t, 0:d])
+        O[i, 0:d] = o / np.sum(p)
+
+
+def scan_kernel(X: "ndarray[f64,2]", Y: "ndarray[f64,2]",
+                n: int, L: int):
+    for i in range(0, n):
+        h = 0.0
+        for t in range(0, L):
+            h = 0.9 * h + X[i, t]
+            Y[i, t] = h
+
+
+def _shaped(name):
+    """(kernel, args with a zero output, index of the output, numpy's
+    result) of the attention- or scan-shaped pfor."""
+    rng = np.random.default_rng(11)
+    if name == "attention":
+        n, t, d = 40, 24, 8
+        Q, K, V = (0.3 * rng.normal(size=(r, d)) for r in (n, t, t))
+        p = np.exp(Q @ K.T)
+        return (attn_kernel, [Q, K, V, np.zeros((n, d)), n, t, d], 3,
+                (p @ V) / p.sum(axis=1, keepdims=True))
+    n, L = 24, 16
+    X = rng.normal(size=(n, L))
+    Y = np.zeros((n, L))
+    h = np.zeros(n)
+    for t in range(L):
+        h = 0.9 * h + X[:, t]
+        Y[:, t] = h
+    return scan_kernel, [X, np.zeros((n, L)), n, L], 1, Y
+
+
+SHAPED = ("attention", "scan")
+
 _REFERENCE = """
 from benchmarks.stap import gemm_rowscale
 from repro.core.compiler import compile_kernel
@@ -47,6 +94,31 @@ try:
     outputs["C"] = C
     outputs["pallas_chunks"] = np.asarray(
         rt.stats()["chunks_executed"].get("pallas", 0))
+finally:
+    rt.shutdown()
+"""
+
+# the attention- and scan-shaped pfors on one reference fleet; the
+# kernels are tests/test_pallas_backend.py's, the same text as above
+_REFERENCE_SHAPED = """
+from repro.core.compiler import compile_kernel
+from repro.distrib import ClusterRuntime
+from tests.test_pallas_backend import attn_kernel, scan_kernel
+rt = ClusterRuntime(workers=2, sim_gpu_workers=(0, 1))
+try:
+    for name, fn in (("attention", attn_kernel), ("scan", scan_kernel)):
+        args = [inputs[f"{name}/{i}"] for i in range(int(inputs[name]))]
+        args = [int(a) if a.ndim == 0 else a for a in args]
+        ck = compile_kernel(fn)
+        ck.pfor_config.runtime = rt
+        ck.pfor_config.workers = 2
+        ck.pfor_config.distribute_threshold = 0
+        executed = dict(rt.stats()["chunks_executed"])
+        ck.call_variant("np", *args)
+        outputs[name] = args[int(inputs[name + "/out"])]
+        outputs[name + "/pallas_chunks"] = np.asarray(
+            rt.stats()["chunks_executed"].get("pallas", 0)
+            - executed.get("pallas", 0))
 finally:
     rt.shutdown()
 """
@@ -82,9 +154,17 @@ def _run(ck, rt, A, B):
 
 def _reset(rt):
     for key in ("cuda_chunks", "cuda_fallbacks", "cuda_calls",
-                "cuda_plain_calls", "matmul_launches"):
+                "cuda_plain_calls") + KERNEL_COUNTERS:
         setattr(rt, key, 0)
     rt.chunks_executed.clear()
+
+
+def _run_shaped(rt, name):
+    fn, args, out, want = _shaped(name)
+    ck = compile_kernel(fn, runtime=rt, workers=2)
+    ck.pfor_config.distribute_threshold = 0
+    ck.call_variant("np", *args)
+    return args[out], want
 
 
 def test_matmul_pfor_routes_to_cuda_twin(fleet, operands):
@@ -103,6 +183,38 @@ def test_matmul_pfor_routes_to_cuda_twin(fleet, operands):
     assert st["cuda_plain_calls"] == st["cuda_calls"]
     assert st["matmul_launches"] == 0
     np.testing.assert_allclose(C, (2.0 * A) @ B, atol=1e-8, rtol=0)
+
+
+@pytest.mark.parametrize("name", SHAPED)
+def test_attention_and_scan_pfors_route_to_cuda_twin(fleet, name):
+    _reset(fleet)
+    got, want = _run_shaped(fleet, name)
+    st = fleet.stats()
+    assert set(st["chunks_executed"]) == {"cuda"}
+    assert st["cuda_chunks"] > 0 and st["cuda_fallbacks"] == 0
+    # the workers' kernel runtime ran, through the plain versions on CPU
+    assert st["cuda_calls"] == st["chunks_executed"]["cuda"]
+    assert st["cuda_plain_calls"] == st["cuda_calls"]
+    assert all(st[key] == 0 for key in KERNEL_COUNTERS)
+    np.testing.assert_allclose(got, want, atol=1e-8, rtol=0)
+
+
+def test_attention_and_scan_match_reference_cluster(fleet, tmp_path):
+    inputs = {}
+    for name in SHAPED:
+        _, args, out, _ = _shaped(name)
+        inputs[name] = np.asarray(len(args))
+        inputs[name + "/out"] = np.asarray(out)
+        for i, a in enumerate(args):
+            inputs[f"{name}/{i}"] = np.asarray(a)
+    ref = run_reference(_REFERENCE_SHAPED, inputs, tmp_path)
+    for name in SHAPED:
+        got, want = _run_shaped(fleet, name)
+        assert int(ref[name + "/pallas_chunks"]) > 0
+        np.testing.assert_allclose(got, ref[name], atol=1e-8, rtol=0,
+                                   err_msg=name)
+        np.testing.assert_allclose(got, want, atol=1e-8, rtol=0,
+                                   err_msg=name)
 
 
 def test_matches_reference_cluster_and_np_only_control(fleet, operands,

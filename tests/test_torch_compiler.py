@@ -4,10 +4,11 @@
 must compute what the reference's np variant computes, at float64 atol
 1e-8, for the quickstart kernel, the PolyBench kernels and the fusion
 chains. The port emits a ``cuda`` twin for exactly the pfor units the
-reference's matcher recognizes as a matmul (attention- and scan-shaped
-units keep their np body until their kernels are ported), and its
-variant-cache token differs from the reference's, so one cache
-directory never serves one package's source to the other.
+reference's matcher recognizes (matmul-, attention- and scan-shaped),
+each calling the ``__cuk`` entry point of its shape where the reference
+calls ``__plk``'s, and its variant-cache token differs from the
+reference's, so one cache directory never serves one package's source
+to the other.
 
 The reference's compile and its np variant initialise no JAX backend,
 so both packages run in the test process.
@@ -108,14 +109,19 @@ def _pfor_units(units):
             yield from _pfor_units(u.body)
 
 
-def _ref_matmul_units(ck) -> list:
-    out = []
+def _ref_matched_units(ck) -> dict:
+    """unit index → the kind the reference's matcher recognizes."""
+    out = {}
     for idx, u in enumerate(_pfor_units(ck.sched.units)):
         m = ref_patterns.match_pfor_unit(u)
-        if getattr(u, "jnp_feasible", True) and m is not None \
-                and m.kind == "matmul":
-            out.append(idx)
+        if getattr(u, "jnp_feasible", True) and m is not None:
+            out[idx] = m.kind
     return out
+
+
+# the api entry point each matched kind calls
+ENTRY = {"matmul": "matmul", "attention": "attention_rows",
+         "scan": "scan_rows"}
 
 
 SHAPED = [("gemm_rowscale", gemm_rowscale), ("attention", attn_kernel),
@@ -127,15 +133,33 @@ SHAPED = [("gemm_rowscale", gemm_rowscale), ("attention", attn_kernel),
 @pytest.mark.parametrize("fn", [f for _, f in SHAPED],
                          ids=[i for i, _ in SHAPED])
 def test_cuda_twin_exactly_where_reference_matches_matmul(fn):
+    """Every shape the reference lowers onto a kernel, matmul and the
+    attention and scan shapes alike, gets a cuda twin, and only those."""
     ref_ck = ref_compile(fn)
     port_ck = compile_kernel(fn)
-    want = _ref_matmul_units(ref_ck)
+    want = _ref_matched_units(ref_ck)
     got = port_ck.pfor_twin_units().get("cuda", [])
-    assert got == want
+    assert got == sorted(want)
     assert set(port_ck.pfor_twin_units()) <= {"cuda"}
     src = port_ck.source("np")
-    assert src.count("__cuk.matmul(") == len(want)
+    ref_src = ref_ck.source("np")
+    for kind, entry in ENTRY.items():
+        n = sum(1 for k in want.values() if k == kind)
+        assert src.count(f"__cuk.{entry}(") == n
+        assert ref_src.count(f"__plk.{entry}(") == n
     assert "__plk" not in src and "__jxp" not in src
+
+
+def test_attention_and_scan_lower_onto_their_cuda_kernels():
+    attn = compile_kernel(attn_kernel)
+    assert attn.pfor_twin_units() == {"cuda": [0]}
+    assert ("O[__lo:__hi, 0:d] = __cuk.attention_rows(Q[__lo:__hi, 0:d], "
+            "K[0:t, 0:d], V[0:t, 0:d])") in attn.source("np")
+    scan = compile_kernel(scan_kernel)
+    assert scan.pfor_twin_units() == {"cuda": [0]}
+    # the statically known coefficient is baked into the call
+    assert "Y[__lo:__hi, 0:L] = __cuk.scan_rows(X[__lo:__hi, 0:L], 0.9)" \
+        in scan.source("np")
 
 
 def test_gemm_rowscale_lowers_onto_the_cuda_kernel():
@@ -148,7 +172,7 @@ def test_gemm_rowscale_lowers_onto_the_cuda_kernel():
 def test_registry_tokens_and_shared_cache_dir(tmp_path):
     assert backends.names() == ["np", "cuda"]
     assert backends.degradation_chain("cuda") == ["np"]
-    assert backends.cache_token(True) == "cuda1+np1"
+    assert backends.cache_token(True) == "cuda2+np1"
     assert backends.cache_token(False) == "np1"
     assert backends.cache_token(True) != ref_backends.cache_token(True)
 

@@ -1,7 +1,8 @@
 """Import guard of the PyTorch/CUDA port: ``repro_torch`` and every one
 of its modules load neither jax nor any module of the JAX package
-``repro``, and no source file of the port imports them. The matmul
-kernel's wrapper and source call no library GEMM for the product."""
+``repro``, and no source file of the port imports them. No kernel's
+wrapper or source calls a library kernel for its work (a GEMM, fused
+attention, cuDNN)."""
 
 import json
 import os
@@ -9,6 +10,8 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -40,7 +43,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     # the slice's modules are all there
     for name in ("repro_torch.core.compiler", "repro_torch.core.patterns",
                  "repro_torch.distrib.cluster", "repro_torch.kernels.api",
-                 "repro_torch.kernels.matmul.matmul"):
+                 "repro_torch.kernels.matmul.matmul",
+                 "repro_torch.kernels.flash_attention.flash_attention",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.mamba_scan.mamba_scan",
+                 "repro_torch.kernels.mamba_scan.ops"):
         assert name in res["modules"]
 
 
@@ -55,13 +62,24 @@ def test_no_port_source_imports_jax_or_repro():
     assert offenders == []
 
 
-def test_matmul_kernel_calls_no_library_gemm():
-    kdir = PORT / "kernels" / "matmul"
-    wrapper = (kdir / "matmul.py").read_text()
-    source = (kdir / "csrc" / "matmul.cu").read_text()
-    for word in ("torch.matmul", "torch.mm", "cublas", "cutlass"):
+def _assert_calls_no_library_kernel(name):
+    kdir = PORT / "kernels" / name
+    wrapper = (kdir / f"{name}.py").read_text()
+    source = (kdir / "csrc" / f"{name}.cu").read_text()
+    for word in ("torch.matmul", "torch.mm", "torch.bmm", "einsum",
+                 "scaled_dot_product", "torch.nn", "cublas", "cudnn",
+                 "cutlass"):
         assert word not in wrapper.lower()
     code = "\n".join(ln for ln in source.splitlines()
                      if not ln.lstrip().startswith("//"))
-    for word in ("cublas", "cutlass", "#include <mma"):
+    for word in ("cublas", "cudnn", "cutlass", "#include <mma"):
         assert word not in code.lower()
+
+
+def test_matmul_kernel_calls_no_library_gemm():
+    _assert_calls_no_library_kernel("matmul")
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "mamba_scan"])
+def test_kernel_calls_no_library_kernel(name):
+    _assert_calls_no_library_kernel(name)
