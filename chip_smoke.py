@@ -9,13 +9,16 @@ exit:
 1. Environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions; TF32 off for float32 products.
 2. Build: every hand-written kernel from the sources in this checkout
-   (one ``nvcc`` per source, started together), into ``build/kernels/``.
+   (one ``nvcc`` per source, started together), into ``build/kernels/``;
+   fails if ptxas reports spill bytes for a float64 (DMMA) kernel.
 3. Each kernel against its plain torch version on the card, in every
    dtype it takes, at its main path's chunk shape, at a language model's
    widths where the repo has one that runs it, and at a ragged shape;
    with the time of the kernel, of the plain version and, where one
    PyTorch call computes the same function, of that call (a yardstick
    the port never calls), beside the least time the card could take.
+   The float64 matmul and flash attention, redesigned on the tensor
+   cores, are printed beside their times before the redesign.
 4. The main paths at full size, each compiled by
    ``repro_torch.core.compiler.compile_kernel`` and run twice (cold, then
    with everything cached on the workers) on one
@@ -43,6 +46,7 @@ and nothing of the JAX package ``repro``.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -85,6 +89,8 @@ FLASH_CASES = [
      "float64"),
     ("gemma2", (1, 8192, 8, 4, 8192, 288), True, 4096, 50.0, "bfloat16"),
     ("gemma2", (1, 8192, 8, 4, 8192, 288), True, 4096, 50.0, "float32"),
+    # the widest float64 tile (D = 288) at a shorter sequence
+    ("gemma2", (1, 2048, 8, 4, 2048, 288), True, 4096, 50.0, "float64"),
     ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float32"),
     ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float64")]
 # phase 3 cases of the selective-scan kernel: (label, (B, L, I, N), dtype)
@@ -93,6 +99,14 @@ SCAN_CASES = [
     ("jamba", (1, 2048, 16384, 16), "float32"),
     ("ragged", (2, 1000, 77, 4), "float64"),
     ("ragged", (2, 1000, 77, 4), "float32")]
+
+# kernels with float64 functions on the tensor cores (DMMA): ptxas must
+# report no spill byte for them
+F64_DMMA = ("matmul", "flash_attention")
+# their f64 main-path chunk times before the redesign (PERF.md section
+# 6), printed beside this run's
+EARLIER = "PR 12 run 4, H100 80GB HBM3, 700 W"
+EARLIER_MS = {"matmul": 2.271, "flash_attention": 1.347}
 
 # max |kernel - plain| allowed, scaled like tests/test_kernels.py: the
 # f32/bf16 tolerance applies both absolutely and relative to |plain|
@@ -162,6 +176,22 @@ def _bound(ops: float, nbytes: float, dtype: str):
     bytes_s = nbytes / PEAK_BYTES_S
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
+
+
+def f64_spills(log: str) -> dict:
+    """{kernel: (spill store bytes, spill load bytes)} from ``ptxas -v``
+    for every function of the float64 (DMMA) kernels, whose mangled
+    names hold their namespace ``f64``."""
+    spills, fn = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in line and fn is not None \
+                and re.search(r"3f64\d+\w*_kernel", fn):
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spills[fn] = (nums[1], nums[2])   # stack, stores, loads
+    return spills
 
 
 def _launch_once(kernel, fn):
@@ -556,13 +586,21 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(kbuild.build, sources))
-    for src, (lib, log, secs) in zip(sources, built):
+    for name, src, (lib, log, secs) in zip(kernels, sources, built):
         print(f"built {src.relative_to(ROOT)} -> "
               f"{lib.relative_to(ROOT)} in {secs:.1f} s", flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line \
                     or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
+        if name in F64_DMMA:
+            spills = f64_spills(log)
+            print(f"  f64 kernels of {name}: {len(spills)}, spill bytes "
+                  f"(stores, loads) {sorted(set(spills.values()))}",
+                  flush=True)
+            if not spills or any(v != (0, 0) for v in spills.values()):
+                raise AssertionError(f"{name}: ptxas reports spills (or "
+                                     f"no f64 kernel): {spills}")
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. kernels against their plain versions
@@ -570,6 +608,11 @@ def main() -> int:
              "flash_attention": check_flash(torch, fa, fa_ops, fa_ref),
              "mamba_scan": check_scan(torch, sc,
                                             mamba_scan_promoted_ref)}
+    for name, before in EARLIER_MS.items():
+        chunk = cases[name][0]
+        print(f"{name} chunk {chunk['dtype']} {chunk['shape']}: "
+              f"{chunk['ms']:.3f} ms on the f64 tensor cores, "
+              f"{before:.3f} ms before ({EARLIER})", flush=True)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

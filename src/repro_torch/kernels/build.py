@@ -2,9 +2,12 @@
 
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with :mod:`ctypes` — no PyTorch headers, so a build
-takes seconds. Libraries land in ``build/kernels/`` at the root of the
-checkout, named by a hash of the source and the flags, so an edited
-source never loads a stale library. A build runs under a file lock:
+takes seconds. A source may include the headers of the shared
+``kernels/csrc/`` (the float64 tensor-core and ``cp.async`` helpers) and
+of its own ``csrc/``; both are on the include path. Libraries land in
+``build/kernels/`` at the root of the checkout, named by a hash of the
+source, every header it may include and the flags, so an edited source
+or header never loads a stale library. A build runs under a file lock:
 the cluster head builds before any worker starts, and a process that
 finds the library already built only loads it.
 
@@ -27,6 +30,8 @@ from typing import Tuple
 # src/repro_torch/kernels/build.py → the checkout's root
 ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = ROOT / "build" / "kernels"
+# headers (``*.cuh``) shared by every kernel's source
+SHARED_INCLUDE = Path(__file__).resolve().parent / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,10 +49,20 @@ def _nvcc() -> str:
                        "host with the CUDA toolkit")
 
 
+def _include_dirs(src: Path) -> Tuple[Path, ...]:
+    return (src.parent, SHARED_INCLUDE)
+
+
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}-{h}.so"
+    """The library's path, named by a hash of the source, of every header
+    in its include directories (by name and content) and of the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for inc in _include_dirs(src):
+        for hdr in sorted(inc.iterdir()) if inc.is_dir() else ():
+            if hdr.suffix == ".cuh":
+                h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(src: Path) -> Tuple[Path, str, float]:
@@ -63,8 +78,9 @@ def build(src: Path) -> Tuple[Path, str, float]:
             return lib, log.read_text() if log.exists() else "", 0.0
         tmp = lib.with_suffix(f".tmp{os.getpid()}")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(src)],
+        includes = [f"-I{inc}" for inc in _include_dirs(src)]
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *includes, "-o",
+                               str(tmp), str(src)],
                               capture_output=True, text=True)
         secs = time.perf_counter() - t0
         out = proc.stdout + proc.stderr

@@ -26,7 +26,9 @@ launches = 0
 _ENTRY = {torch.float64: "matmul_f64", torch.float32: "matmul_f32",
           torch.bfloat16: "matmul_bf16"}
 
-# the kernel's grid has one block row per 64 output rows
+# the FMA kernel (float32, bfloat16) has one grid row (grid.y, at most
+# 65535) per 64 output rows; the float64 kernel puts its row tiles on
+# grid.x and takes any M
 _MAX_ROWS = 65535 * 64
 
 _lib = None
@@ -60,9 +62,6 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     (float64, float32 or bfloat16; f64 accumulates in f64, the others in
     f32)."""
     global launches
-    if not (x.is_cuda and y.is_cuda) or x.device != y.device:
-        raise ValueError(f"matmul kernel needs both operands on one CUDA "
-                         f"device, got {x.device} and {y.device}")
     if x.dtype != y.dtype or x.dtype not in _ENTRY:
         raise TypeError(f"matmul kernel takes float64, float32 or "
                         f"bfloat16 operands of one dtype, got {x.dtype} "
@@ -70,13 +69,16 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[0]:
         raise ValueError(f"matmul kernel needs (M, K) @ (K, N), got "
                          f"{tuple(x.shape)} @ {tuple(y.shape)}")
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("matmul kernel needs row-major contiguous operands")
     m, k = x.shape
     n = y.shape[1]
-    if m > _MAX_ROWS:
-        raise ValueError(f"matmul kernel takes at most {_MAX_ROWS} rows, "
-                         f"got {m}")
+    if x.dtype != torch.float64 and m > _MAX_ROWS:
+        raise ValueError(f"matmul kernel takes at most {_MAX_ROWS} rows "
+                         f"in {x.dtype}, got {m}")
+    if not (x.is_cuda and y.is_cuda) or x.device != y.device:
+        raise ValueError(f"matmul kernel needs both operands on one CUDA "
+                         f"device, got {x.device} and {y.device}")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("matmul kernel needs row-major contiguous operands")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out                                  # nothing to compute

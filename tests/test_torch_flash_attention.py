@@ -49,6 +49,13 @@ CASES = [
     # rows 44.. of the 50 have no key inside the window: they average v
     ("ragged-window-masked-rows", (1, 50, 37, 2, 1, 24), False, 8, 30.0,
      False),
+    # Sq over several 64-row query blocks; the window masks whole KV
+    # tiles, which the kernel skips
+    ("blocks-window", (1, 200, 200, 2, 1, 24), True, 40, 0.0, False),
+    # rows 115.. have no key in the window: the block of rows 64-127
+    # holds valid rows and such rows, and the next block only such rows
+    ("blocks-masked-rows", (1, 150, 100, 2, 1, 40), False, 16, 20.0,
+     False),
 ]
 CASE_IDS = [c[0] for c in CASES]
 
@@ -271,10 +278,12 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [1, 72, 128, 200, 288])
+@pytest.mark.parametrize("d", [1, 24, 72, 128, 200, 288])
 def test_cuda_kernel_head_dims(cuda_device, d, dtype):
-    """Every register tile width the kernel instantiates, up to
-    gemma2_2b's 288, ragged and windowed, through the bhsd layout."""
+    """Every tile class the kernels instantiate (the float64 tile's
+    D-classes 32, 64, 128, 192, 288 included; D = 1 and 24 are
+    zero-filled to 32), up to gemma2_2b's 288, ragged and windowed,
+    through the bhsd layout."""
     rng = np.random.default_rng(d)
     q, k, v = (torch.from_numpy(rng.normal(size=(2, s, d)) * d ** -0.25)
                .to(cuda_device, TORCH_DT[dtype]) for s in (100, 77, 77))

@@ -33,6 +33,12 @@ TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 # tile by nothing the kernels use
 SHAPES = [(64, 32, 16), (100, 300, 64), (128, 128, 200), (16, 300, 16),
           (33, 20, 15), (130, 77, 101)]
+# on the card also: smaller than one tile, an odd K that is no multiple
+# of the K step (every odd row of X then starts 8 bytes off 16), exact
+# multiples of the float64 tile (128 x 128, K step 16) and the main
+# path's chunk
+CUDA_SHAPES = SHAPES + [(1000, 777, 1001), (1, 1, 1), (7, 3, 5),
+                        (256, 64, 384), (4096, 2048, 2048)]
 DTYPES = sorted(TOL)
 
 # rows [LO, HI) of the (40, 12) operand form a worker's chunk
@@ -176,9 +182,30 @@ def test_api_refuses_integer_operands_and_div_block(cpu_api):
     assert not hasattr(api, "_div_block")
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wrapper_row_limit_follows_the_grid(dtype):
+    """The FMA kernel's grid (float32, bfloat16) has 65535 block rows of
+    64 output rows: the wrapper refuses one row more before it launches,
+    and at the limit goes on to the device check. The float64 kernel
+    puts its row tiles on grid.x and takes any M: one row past what 65535
+    of its 128-row tiles hold also goes on to the device check. Operands
+    of width 0 cost no memory."""
+    dt = TORCH_DT[dtype]
+    y = torch.empty((0, 3), dtype=dt)
+    if dt == torch.float64:
+        with pytest.raises(ValueError, match="CUDA device"):
+            kernel.matmul(torch.empty((65535 * 128 + 1, 0), dtype=dt), y)
+        return
+    limit = 65535 * 64
+    with pytest.raises(ValueError, match=f"at most {limit} rows"):
+        kernel.matmul(torch.empty((limit + 1, 0), dtype=dt), y)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kernel.matmul(torch.empty((limit, 0), dtype=dt), y)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("m,k,n", SHAPES + [(1000, 777, 1001)])
+@pytest.mark.parametrize("m,k,n", CUDA_SHAPES)
 def test_cuda_kernel_matches_plain_version(cuda_device, m, k, n, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     x, y = _mm_inputs(m, k, n, dtype)
@@ -192,3 +219,42 @@ def test_cuda_kernel_matches_plain_version(cuda_device, m, k, n, dtype):
     _close(got.double().cpu().numpy(),
            matmul_ref(tx, ty).double().cpu().numpy(), dtype,
            _mm_key(m, k, n, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(130, 64, 96), (129, 33, 130)])
+def test_cuda_f64_kernel_on_operands_8_bytes_off_16(cuda_device, m, k, n):
+    """Operands whose storage starts 8 bytes past a 16-byte boundary take
+    the kernel's 8-byte copies, even where K and N are even."""
+    x, y = _mm_inputs(m, k, n, "float64")
+    bx = torch.empty(m * k + 1, dtype=torch.float64, device=cuda_device)
+    by = torch.empty(k * n + 1, dtype=torch.float64, device=cuda_device)
+    tx = bx[1:].view(m, k).copy_(torch.from_numpy(x))
+    ty = by[1:].view(k, n).copy_(torch.from_numpy(y))
+    assert tx.data_ptr() % 16 == 8 and ty.data_ptr() % 16 == 8
+    got = kernel.matmul(tx, ty)
+    torch.cuda.synchronize()
+    _close(got.cpu().numpy(), matmul_ref(tx, ty).cpu().numpy(), "float64",
+           f"{m}x{k}x{n} offset")
+
+
+@pytest.mark.cuda
+def test_cuda_f64_kernel_grid_takes_any_rows_and_refuses_wide_n(cuda_device):
+    """The float64 kernel's row tiles run along grid.x: one row past what
+    65535 tiles of 128 rows hold is computed. Its column tiles run along
+    grid.y: one column past 65535 tiles is refused before the launch."""
+    m, k, n = 65535 * 128 + 1, 3, 5
+    x, y = _mm_inputs(m, k, n, "float64")
+    tx = torch.from_numpy(x).to(cuda_device)
+    ty = torch.from_numpy(y).to(cuda_device)
+    got = kernel.matmul(tx, ty)
+    torch.cuda.synchronize()
+    _close(got.cpu().numpy(), matmul_ref(tx, ty).cpu().numpy(), "float64",
+           f"{m}x{k}x{n}")
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernel.matmul(
+            torch.zeros((1, 0), dtype=torch.float64, device=cuda_device),
+            torch.zeros((0, 65535 * 128 + 1), dtype=torch.float64,
+                        device=cuda_device))
+    assert kernel.launches == before
