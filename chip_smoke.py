@@ -10,15 +10,20 @@ exit:
    torch and CUDA versions; TF32 off for float32 products.
 2. Build: every hand-written kernel from the sources in this checkout
    (one ``nvcc`` per source, started together), into ``build/kernels/``;
-   fails if ptxas reports spill bytes for a float64 (DMMA) kernel.
+   fails if ptxas reports spill bytes for a float64 (DMMA) kernel or for
+   any instantiation of the selective scan.
 3. Each kernel against its plain torch version on the card, in every
    dtype it takes, at its main path's chunk shape, at a language model's
    widths where the repo has one that runs it, and at a ragged shape;
-   with the time of the kernel, of the plain version and, where one
-   PyTorch call computes the same function, of that call (a yardstick
-   the port never calls), beside the least time the card could take.
-   The float64 matmul and flash attention, redesigned on the tensor
-   cores, are printed beside their times before the redesign.
+   with the time of the kernel (and the host time of one call), of the
+   plain version and, where one PyTorch call computes the same function,
+   of that call (a yardstick the port never calls), beside the least
+   time the card could take.
+   Each kernel redesigned for Hopper (the float64 matmul and flash
+   attention on the tensor cores, the selective scan as a chunked scan
+   parallel in L) is printed beside its time before the redesign; the
+   float32 scan's bound includes its SFU roof (its exps at the SFU's
+   rate), printed beside it.
 4. The main paths at full size, each compiled by
    ``repro_torch.core.compiler.compile_kernel`` and run twice (cold, then
    with everything cached on the workers) on one
@@ -74,12 +79,18 @@ SCAN_C = 0.9                                   # scan_kernel's coefficient
 # the tensor cores 67 TFLOP/s, bf16 989 TFLOP/s; HBM3 3.35 TB/s
 PEAK_FLOPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES_S = 3.35e12
-# operations of one selective-scan step per (b, t, i, n): the exp, the
-# dt*decay product, the state FMA (2) and the output FMA (2). float64
-# exp is a software routine (range reduction and a polynomial) of about
-# 20 double operations; float32 exp is counted as one (the SFU's ex2), a
-# count that can only lower the bound
-SCAN_OPS = {"float64": 20 + 5, "float32": 1 + 5, "bfloat16": 1 + 5}
+# the selective scan runs no product on the tensor cores: its float64
+# operations count at the FP64 units' 34 TFLOP/s; its float32 exps run on
+# the SFU, 16 a clock on each of 132 SMs at 1.98 GHz
+PEAK_FP64_FMA = 34e12
+SFU_EXP_S = 16 * 132 * 1.98e9
+# operations of one selective-scan step per (b, t, i, n) on the FMA
+# pipes: the dt*decay product, the state FMA (2) and the output FMA (2),
+# and in float64 the exp, a software routine (range reduction and a
+# polynomial) of about 20 double operations. float32 (and bf16, computed
+# in float32) takes its exp on the SFU, one per (b, t, i, n), counted at
+# SFU_EXP_S
+SCAN_OPS = {"float64": 20 + 5, "float32": 5, "bfloat16": 5}
 
 # phase 3 cases of the flash-attention kernel: (label, (B, Sq, H, KVH,
 # Skv, D), causal, window, softcap, dtype); H == 1 runs the kernel's own
@@ -98,15 +109,24 @@ SCAN_CASES = [
     ("chunk", (1, SCAN_L, SCAN_N // CHUNKS, 1), "float64"),
     ("jamba", (1, 2048, 16384, 16), "float32"),
     ("ragged", (2, 1000, 77, 4), "float64"),
-    ("ragged", (2, 1000, 77, 4), "float32")]
+    ("ragged", (2, 1000, 77, 4), "float32"),
+    # the Jamba-1.5-Large layer at a 16k prompt: ~3.2 GB, many chunks
+    ("jamba_long", (1, 16384, 16384, 16), "float32")]
 
-# kernels with float64 functions on the tensor cores (DMMA): ptxas must
-# report no spill byte for them
-F64_DMMA = ("matmul", "flash_attention")
-# their f64 main-path chunk times before the redesign (PERF.md section
-# 6), printed beside this run's
-EARLIER = "PR 12 run 4, H100 80GB HBM3, 700 W"
-EARLIER_MS = {"matmul": 2.271, "flash_attention": 1.347}
+# functions ptxas must report no spill byte for, by the pattern of their
+# mangled names: the float64 (DMMA) kernels of matmul and flash
+# attention (namespace f64) and every instantiation of the scan
+SPILL_FREE = {"matmul": r"3f64\d+\w*_kernel",
+              "flash_attention": r"3f64\d+\w*_kernel",
+              "mamba_scan": r"scan_kernel"}
+# main-path chunk times before each kernel's Hopper redesign (PERF.md
+# section 6), printed beside this run's: (ms, the commit and run of
+# chip_smoke.py they come from)
+EARLIER_MS = {
+    "matmul": (2.271, "commit a5ae05a run 4, H100 80GB HBM3, 700 W"),
+    "flash_attention": (1.347, "commit a5ae05a run 4, H100 80GB HBM3, "
+                               "700 W"),
+    "mamba_scan": (1.588, "commit d9c8578 run 6, H100 80GB HBM3, 700 W")}
 
 # max |kernel - plain| allowed, scaled like tests/test_kernels.py: the
 # f32/bf16 tolerance applies both absolutely and relative to |plain|
@@ -152,46 +172,55 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(torch, fn, reps: int = 20) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events,
-    after a warm-up)."""
-    for _ in range(min(3, reps)):
+def _time_ms(torch, fn, reps: int = 20, host=None) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
+    after a warm-up of at least 3 calls and 20 ms. A call whose host
+    side (checks, allocations, the launch) takes longer than its kernel
+    is timed at its host rate: with a list ``host``, the mean host
+    milliseconds a call are appended to it."""
+    t0 = time.perf_counter()
+    calls = 0
+    while calls < min(3, reps) or time.perf_counter() - t0 < 0.02:
         fn()
+        calls += 1
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
+    if host is not None:
+        host.append((time.perf_counter() - t0) * 1e3 / reps)
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
 
 
-def _bound(ops: float, nbytes: float, dtype: str):
-    """(least ms, what bounds it): ``ops`` at the dtype's peak against
-    ``nbytes`` (each input read once, each output written once) at the
-    memory's."""
-    ops_s = ops / PEAK_FLOPS[dtype]
+def _bound(ops: float, nbytes: float, dtype: str, peak=None, exps=0.0):
+    """(least ms, what bounds it): the larger of ``ops`` at ``peak`` (the
+    dtype's peak by default) and ``exps`` on the SFU (both operations)
+    against ``nbytes`` (each input read once, each output written once)
+    at the memory's."""
+    ops_s = max(ops / (peak or PEAK_FLOPS[dtype]), exps / SFU_EXP_S)
     bytes_s = nbytes / PEAK_BYTES_S
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
 
 
-def f64_spills(log: str) -> dict:
-    """{kernel: (spill store bytes, spill load bytes)} from ``ptxas -v``
-    for every function of the float64 (DMMA) kernels, whose mangled
-    names hold their namespace ``f64``."""
-    spills, fn = {}, None
+def spills(log: str, pattern: str) -> dict:
+    """{function: (spill store bytes, spill load bytes)} from ``ptxas -v``
+    for every function whose mangled name matches ``pattern``."""
+    found, fn = {}, None
     for line in log.splitlines():
         if "Function properties for" in line:
             fn = line.split("Function properties for", 1)[1].strip()
         elif "spill stores" in line and fn is not None \
-                and re.search(r"3f64\d+\w*_kernel", fn):
+                and re.search(pattern, fn):
             nums = [int(w) for w in line.replace(",", " ").split()
                     if w.isdigit()]
-            spills[fn] = (nums[1], nums[2])   # stack, stores, loads
-    return spills
+            found[fn] = (nums[1], nums[2])    # stack, stores, loads
+    return found
 
 
 def _launch_once(kernel, fn):
@@ -218,21 +247,25 @@ def _compare(torch, name, label, got, ref, dname):
 
 
 def _row(torch, name, label, shape, dname, err, kernel_fn, plain_fn,
-         library_fn, ops, nbytes, reps=20, **extra):
-    ms = _time_ms(torch, kernel_fn, reps)
+         library_fn, ops, nbytes, reps=20, peak=None, exps=0.0, **extra):
+    host = []
+    ms = _time_ms(torch, kernel_fn, reps, host)
     plain_ms = _time_ms(torch, plain_fn, max(2, reps // 4))
     lib_ms = _time_ms(torch, library_fn, reps) if library_fn else None
-    bound_ms, bound_by = _bound(ops, nbytes, dname)
+    bound_ms, bound_by = _bound(ops, nbytes, dname, peak, exps)
     row = {"case": label, "shape": shape, "dtype": dname,
            "max_abs_err": err, "tol": TOL[dname], "ms": ms,
            "plain_ms": plain_ms, "library_ms": lib_ms,
            "bound_ms": bound_ms, "bound_by": bound_by,
+           "host_ms": host[0],
            "gops": ops / (ms * 1e-3) / 1e9, **extra}
     lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
+    sfu = f"  (SFU roof {exps / SFU_EXP_S * 1e3:.4f} ms)" if exps else ""
     print(f"{name} {label:9s} {dname:8s} {shape}: err {err:.3e} "
           f"(tol {TOL[dname]:g})  kernel {ms:.3f} ms "
-          f"({row['gops']:.1f} GOP/s)  plain {plain_ms:.3f} ms  "
-          f"library {lib}  bound {bound_ms:.4f} ms ({bound_by})",
+          f"({row['gops']:.1f} GOP/s, host {host[0]:.3f} ms a call)  "
+          f"plain {plain_ms:.3f} ms  "
+          f"library {lib}  bound {bound_ms:.4f} ms ({bound_by}){sfu}",
           flush=True)
     return row
 
@@ -333,7 +366,9 @@ def check_scan(torch, sc_kernel, plain):
     I=rows, N=1, dt=1, B=C=1, a=log(-log c)), (b) one Jamba-1.5-Large
     Mamba layer (d_model 8192, ssm_expand 2 -> I=16384, ssm_state 16;
     src/repro/configs/jamba_1_5_large_398b.py) at L=2048 in float32, as
-    the reference's models/ssm.py scans, (c) a ragged case."""
+    the reference's models/ssm.py scans, (c) ragged cases, (d) the same
+    layer at L=16384. float64 operations count at the FP64 units' peak;
+    float32 and bf16 exps at the SFU's rate."""
     rng = np.random.default_rng(SEED + 3)
     out = []
     for label, (b, length, inner, n), dname in SCAN_CASES:
@@ -361,11 +396,14 @@ def check_scan(torch, sc_kernel, plain):
         err = _compare(torch, "mamba_scan", label, got, plain_fn(), dname)
         nbytes = sum(t.numel() for t in args) * args[0].element_size() \
             + got.numel() * got.element_size()
+        steps = float(b * length * inner * n)
         out.append(_row(
             torch, "mamba_scan", label, [b, length, inner, n], dname, err,
-            kernel_fn, plain_fn, None,
-            float(b * length * inner * n * SCAN_OPS[dname]), nbytes,
-            reps=10))
+            kernel_fn, plain_fn, None, steps * SCAN_OPS[dname], nbytes,
+            reps=10, peak=PEAK_FP64_FMA if dname == "float64" else None,
+            exps=0.0 if dname == "float64" else steps))
+        del args, got
+        torch.cuda.empty_cache()
     return out
 
 
@@ -593,14 +631,12 @@ def main() -> int:
             if "registers" in line or "spill" in line \
                     or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
-        if name in F64_DMMA:
-            spills = f64_spills(log)
-            print(f"  f64 kernels of {name}: {len(spills)}, spill bytes "
-                  f"(stores, loads) {sorted(set(spills.values()))}",
-                  flush=True)
-            if not spills or any(v != (0, 0) for v in spills.values()):
-                raise AssertionError(f"{name}: ptxas reports spills (or "
-                                     f"no f64 kernel): {spills}")
+        found = spills(log, SPILL_FREE[name])
+        print(f"  checked functions of {name}: {len(found)}, spill bytes "
+              f"(stores, loads) {sorted(set(found.values()))}", flush=True)
+        if not found or any(v != (0, 0) for v in found.values()):
+            raise AssertionError(f"{name}: ptxas reports spills (or no "
+                                 f"checked function): {found}")
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. kernels against their plain versions
@@ -608,11 +644,11 @@ def main() -> int:
              "flash_attention": check_flash(torch, fa, fa_ops, fa_ref),
              "mamba_scan": check_scan(torch, sc,
                                             mamba_scan_promoted_ref)}
-    for name, before in EARLIER_MS.items():
+    for name, (before, run) in EARLIER_MS.items():
         chunk = cases[name][0]
         print(f"{name} chunk {chunk['dtype']} {chunk['shape']}: "
-              f"{chunk['ms']:.3f} ms on the f64 tensor cores, "
-              f"{before:.3f} ms before ({EARLIER})", flush=True)
+              f"{chunk['ms']:.3f} ms redesigned for Hopper, {before:.3f} "
+              f"ms before ({run})", flush=True)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 

@@ -1,25 +1,33 @@
-"""Time this checkout's float64 kernels against another checkout's on one
-GPU, interleaved: other, this, this, other.
+"""Time this checkout's kernels against another checkout's on one GPU,
+interleaved: other, this, this, other.
 
     PYTHONPATH=src python3 -m repro_torch.kernels.ab OTHER_CHECKOUT
 
-Each checkout builds its own ``matmul.cu`` and ``flash_attention.cu``
-with its own ``kernels/build.py`` (in a subprocess, so its headers are
-its own) into its own ``build/kernels/``. This process loads both
-libraries and calls their C entries on the same inputs: the matmul main
-path's chunk (4096 x 2048 @ 2048 x 2048), a ragged matmul (odd K), the
-attention path's chunk (Sq = Skv = 4096, D = 128) and gemma2_2b's widest
-head (8 heads, S = 2048, D = 288, causal, window 4096, softcap 50), all
-float64. It prints one line per case and round (mean of CUDA-event
-times over 20 launches), the largest difference between the two
-checkouts' outputs, and the card's name and power limit. Nothing here
-runs at import time.
+Each checkout builds its own ``matmul.cu``, ``flash_attention.cu`` and
+``mamba_scan.cu`` with its own ``kernels/build.py`` (in a subprocess, so
+its headers are its own) into its own ``build/kernels/``. This process
+loads both sets of libraries and calls their C entries, each by its own
+signature, on the same inputs: the matmul main path's chunk (4096 x 2048
+@ 2048 x 2048), a ragged matmul (odd K), the attention path's chunk (Sq =
+Skv = 4096, D = 128) and gemma2_2b's widest head (8 heads, S = 2048, D =
+288, causal, window 4096, softcap 50), all float64; and the selective
+scan at the scan path's chunk (B = 1, L = 2048, I = 2048, N = 1, float64,
+through ``api.scan_rows``'s mapping), a Jamba-1.5-Large Mamba layer (L =
+2048, I = 16384, N = 16, float32), the same layer at a 16k prompt (L =
+16384) and a ragged case (B = 2, L = 1000, I = 77, N = 4, float64). A
+scan library whose entries take scratch (the chunked scan) gets a
+scratch allocated per call, as its wrapper does. It prints one line per case and round (mean of CUDA-event times over 20
+launches), the largest difference between the two checkouts' outputs,
+for the scan each checkout's largest difference from the recurrence in
+float64 on the same inputs, and the card's name and power limit.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -30,38 +38,77 @@ _BUILD = ("import json, sys; from pathlib import Path; "
           "print(json.dumps([str(build.build(Path(s))[0]) "
           "for s in sys.argv[1:]]))")
 _SOURCES = ("src/repro_torch/kernels/matmul/csrc/matmul.cu",
-            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu")
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu")
+_SCAN_ENTRY = {"float64": "mamba_scan_f64", "float32": "mamba_scan_f32"}
 
 
 def _libraries(root: Path):
-    """(matmul, flash attention) libraries of the checkout at ``root``,
-    built by that checkout's own build module."""
+    """(matmul, flash attention, scan) libraries of the checkout at
+    ``root``, built by that checkout's own build module."""
     env = {**os.environ, "PYTHONPATH": str(root / "src")}
     out = subprocess.run([sys.executable, "-c", _BUILD,
                           *(str(root / s) for s in _SOURCES)],
                          cwd=root, env=env, capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"build in {root} failed:\n{out.stderr}")
-    mm, fa = (ctypes.CDLL(p) for p in json.loads(out.stdout.splitlines()[-1]))
+    mm, fa, sc = (ctypes.CDLL(p)
+                  for p in json.loads(out.stdout.splitlines()[-1]))
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
     mm.matmul_f64.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
     fa.flash_attention_f64.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64,
                                        i64, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_double, ptr]
-    return mm, fa
+    # the serial kernel's signature (no scratch, no plan) is here only to
+    # time the chunked scan against the tree before it, commit d9c8578
+    chunked = hasattr(sc, "mamba_scan_scratch_bytes")
+    for name in _SCAN_ENTRY.values():
+        getattr(sc, name).argtypes = (
+            [ptr] * 8 + [i64] * 4 + [ptr] if chunked
+            else [ptr] * 7 + [i64] * 4 + [ptr])
+    if chunked:
+        sc.mamba_scan_scratch_bytes.argtypes = [i64] * 5
+        sc.mamba_scan_scratch_bytes.restype = i64
+    return mm, fa, sc
 
 
-def _cases(torch, mm, fa):
-    """{case: (launch, output)} calling this library pair's entries."""
+def _scan_call(torch, sc, args, y):
+    """A launch of ``sc``'s scan entry on ``args`` (x, dt, Bm, Cm, a,
+    d_skip), by the library's own signature."""
+    batch, length, inner = args[0].shape
+    n = args[2].shape[-1]
+    fn = getattr(sc, _SCAN_ENTRY[str(args[0].dtype).split(".")[-1]])
+    # the closures hold the tensors, not only their addresses, so that
+    # the operands outlive the cases built after them
+    ops = (*args, y)
+    if not hasattr(sc, "mamba_scan_scratch_bytes"):
+        return lambda: _check(fn(*(t.data_ptr() for t in ops), batch,
+                                 length, inner, n,
+                                 torch.cuda.current_stream().cuda_stream))
+    nbytes = sc.mamba_scan_scratch_bytes(
+        batch, length, inner, n,
+        torch.promote_types(args[0].dtype, torch.float32).itemsize)
+
+    def call():
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        _check(fn(*(t.data_ptr() for t in ops), scratch.data_ptr(), batch,
+                  length, inner, n, torch.cuda.current_stream().cuda_stream))
+    return call
+
+
+def _check(err):
+    if err != 0:
+        raise RuntimeError(f"launch failed ({err})")
+
+
+def _cases(torch, mm, fa, sc):
+    """{case: (launch, output, the scan's operands or None)} calling
+    this library set's entries."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def normal(*shape, std=1.0):
+    def normal(*shape, std=1.0, dtype=torch.float64):
         return std * torch.randn(*shape, generator=gen, device="cuda",
-                                 dtype=torch.float64)
-
-    def check(err):
-        if err != 0:
-            raise RuntimeError(f"launch failed ({err})")
+                                 dtype=dtype)
 
     cases = {}
     for label, (m, k, n) in (("matmul chunk", (4096, 2048, 2048)),
@@ -69,9 +116,9 @@ def _cases(torch, mm, fa):
         x, y = normal(m, k), normal(k, n)
         o = torch.empty(m, n, dtype=torch.float64, device="cuda")
         cases[label] = (
-            lambda mm=mm, x=x, y=y, o=o, m=m, n=n, k=k: check(mm.matmul_f64(
+            lambda mm=mm, x=x, y=y, o=o, m=m, n=n, k=k: _check(mm.matmul_f64(
                 x.data_ptr(), y.data_ptr(), o.data_ptr(), m, n, k,
-                torch.cuda.current_stream().cuda_stream)), o)
+                torch.cuda.current_stream().cuda_stream)), o, None)
     for label, (bh, s, d, causal, window, cap) in (
             ("flash chunk", (1, 4096, 128, 0, 0, 0.0)),
             ("flash gemma2 D=288", (8, 2048, 288, 1, 4096, 50.0))):
@@ -79,10 +126,30 @@ def _cases(torch, mm, fa):
         o = torch.empty_like(q)
         cases[label] = (
             lambda fa=fa, q=q, kk=kk, v=v, o=o, bh=bh, s=s, d=d, c=causal,
-            w=window, cap=cap: check(fa.flash_attention_f64(
+            w=window, cap=cap: _check(fa.flash_attention_f64(
                 q.data_ptr(), kk.data_ptr(), v.data_ptr(), o.data_ptr(), bh,
                 s, s, d, c, w, cap, torch.cuda.current_stream().cuda_stream)),
-            o)
+            o, None)
+    for label, (b, length, inner, n), dtype in (
+            ("scan chunk", (1, 2048, 2048, 1), torch.float64),
+            ("scan jamba f32", (1, 2048, 16384, 16), torch.float32),
+            ("scan jamba_long f32", (1, 16384, 16384, 16), torch.float32),
+            ("scan ragged", (2, 1000, 77, 4), torch.float64)):
+        x = normal(b, length, inner, dtype=dtype)
+        if label == "scan chunk":          # api.scan_rows's mapping, c = 0.9
+            dt = torch.ones_like(x)
+            bm = cm = torch.ones(b, length, 1, dtype=dtype, device="cuda")
+            a = torch.full((inner, 1), math.log(-math.log(0.9)),
+                           dtype=dtype, device="cuda")
+            d_skip = torch.zeros(inner, dtype=dtype, device="cuda")
+        else:
+            dt = 0.1 * normal(b, length, inner, dtype=dtype).abs()
+            bm, cm = (normal(b, length, n, dtype=dtype) for _ in range(2))
+            a = (normal(inner, n, dtype=dtype).abs() + 0.5).log()
+            d_skip = normal(inner, dtype=dtype)
+        args = (x, dt, bm, cm, a, d_skip)
+        y = torch.empty_like(x)
+        cases[label] = (_scan_call(torch, sc, args, y), y, args)
     return cases
 
 
@@ -112,18 +179,33 @@ def main(argv) -> int:
     runs = {name: _cases(torch, *pair) for name, pair in libs.items()}
     times = {label: {"this": [], "other": []} for label in runs["this"]}
     for name in ("other", "this", "this", "other"):
-        for label, (fn, _) in runs[name].items():
+        for label, (fn, _, _) in runs[name].items():
             times[label][name].append(_time_ms(torch, fn))
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+
+    errors = {}
     for label in times:
-        diff = float((runs["this"][label][1]
-                      - runs["other"][label][1]).abs().max())
-        print(f"{label}: this {times[label]['this']} ms, other "
-              f"{times[label]['other']} ms, max |this - other| {diff:.3e}",
-              flush=True)
+        line = f"{label}: this {times[label]['this']} ms"
+        if label in runs["other"]:
+            diff = float((runs["this"][label][1]
+                          - runs["other"][label][1]).abs().max())
+            line += (f", other {times[label]['other']} ms, max |this - "
+                     f"other| {diff:.3e}")
+        args = runs["this"][label][2]
+        if args is not None:             # the scan: both against float64
+            truth = mamba_scan_ref(*(t.double() for t in args))
+            errors[label] = {
+                name: float((run[label][1].double() - truth).abs().max())
+                for name, run in runs.items() if label in run}
+            del truth
+            line += ", max |y - float64 recurrence| " + ", ".join(
+                f"{name} {err:.3e}" for name, err in errors[label].items())
+        print(line, flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    print(json.dumps({"times_ms": times, "card": card}), flush=True)
+    print(json.dumps({"times_ms": times, "max_err_vs_float64": errors,
+                      "card": card}), flush=True)
     return 0
 
 

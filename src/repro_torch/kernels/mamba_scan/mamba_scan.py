@@ -1,12 +1,15 @@
 """Wrapper of the hand-written CUDA selective scan (``csrc/mamba_scan.cu``).
 
 Replaces the TPU kernel ``repro/kernels/mamba_scan/mamba_scan.py::
-mamba_scan``, without its chunking (any L is taken). :func:`mamba_scan`
-checks its operands, allocates the output, launches the kernel on
-PyTorch's current stream and counts the launch in :data:`launches`. It
-takes CUDA tensors only: a kernel that does not build or launch raises,
-it never falls back to the plain version (:mod:`.ref`), which
-:mod:`.ops` runs for CPU tensors.
+mamba_scan``: a chunked scan, parallel in L, in one grid (decoupled
+look-back between chunks of 64 steps; any L is taken). :func:`mamba_scan`
+checks its operands, allocates the output and the kernel's scratch (the
+flags and counter, which the launcher zeroes on the stream, and the
+chunks' records), launches the kernel on PyTorch's current stream and
+counts the call in :data:`launches`. It takes CUDA
+tensors only: a kernel that does not build or launch raises, it never
+falls back to the plain version (:mod:`.ref`), which :mod:`.ops` runs
+for CPU tensors.
 """
 
 from __future__ import annotations
@@ -27,10 +30,8 @@ launches = 0
 _ENTRY = {torch.float64: "mamba_scan_f64", torch.float32: "mamba_scan_f32",
           torch.bfloat16: "mamba_scan_bf16"}
 
-# the kernel keeps N state values per thread in registers; the grid
-# holds one block row per batch entry
+# the kernel keeps N state values per thread in registers
 MAX_N = 32
-_MAX_BATCH = 65535
 
 _lib = None
 
@@ -43,9 +44,11 @@ def _library() -> ctypes.CDLL:
         lib = _build.load(SOURCE)
         for name in _ENTRY.values():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4 + [
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.mamba_scan_scratch_bytes.argtypes = [ctypes.c_int64] * 5
+        lib.mamba_scan_scratch_bytes.restype = ctypes.c_int64
         lib.mamba_scan_error_string.argtypes = [ctypes.c_int]
         lib.mamba_scan_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -85,18 +88,25 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
             f"a (I, N), d_skip (I,), got {[tuple(t.shape) for t in ops]}")
     if not all(t.is_contiguous() for t in ops):
         raise ValueError("mamba scan kernel needs contiguous operands")
-    if not 1 <= n <= MAX_N or batch > _MAX_BATCH:
-        raise ValueError(f"mamba scan kernel takes 1 <= N <= {MAX_N} and "
-                         f"B <= {_MAX_BATCH}, got N={n}, B={batch}")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"mamba scan kernel takes 1 <= N <= {MAX_N}, got "
+                         f"N={n}")
     y = torch.empty_like(x)
     if batch == 0 or length == 0 or inner == 0:
         return y                                    # nothing to compute
     lib = _library()
     fn = getattr(lib, _ENTRY[x.dtype])
+    acc_bytes = torch.promote_types(x.dtype, torch.float32).itemsize
     with torch.cuda.device(x.device):
+        # the flags, the block counter and the chunks' records; the C
+        # launcher zeroes the flags and counter on the stream
+        scratch = torch.empty(
+            lib.mamba_scan_scratch_bytes(batch, length, inner, n,
+                                         acc_bytes),
+            dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in ops), y.data_ptr(), batch, length,
-                 inner, n, stream)
+        err = fn(*(t.data_ptr() for t in ops), y.data_ptr(),
+                 scratch.data_ptr(), batch, length, inner, n, stream)
     if err != 0:
         msg = lib.mamba_scan_error_string(err).decode()
         raise RuntimeError(f"mamba scan kernel launch failed: {msg} ({err})")

@@ -7,8 +7,14 @@ mode and to its jnp oracle, on the same inputs made from a numpy seed.
 The cases follow the L / I / N / chunk sweep of
 ``tests/test_kernels.py``, plus a ragged L that no chunk divides (the
 reference's dispatch shrinks its chunk to a divisor; the port's kernel
-takes any L). The oracles return the promoted dtype while the kernel
-and ``ops`` return ``x``'s: results are compared after casting to
+takes any L). The kernel's own decomposition, ``mamba_scan_chunked_ref``
+(walks from zero, the carry combined by exp(decay * S), walks again from
+the carry), is held to the same references at chunk lengths that do and
+do not divide L, and to ``mamba_scan_promoted_ref`` where a strong decay
+underflows the chunk's products in float32, where a weak one keeps
+nearly all of the state, and at the kernel's own chunk (64 steps) on the
+shapes of its ``cuda`` edge tests. The oracles return the promoted dtype
+while the kernel and ``ops`` return ``x``'s: results are compared after casting to
 float64. Tolerances, applied absolutely and relative to the reference:
 float64 1e-8, float32 2e-4, bfloat16 2e-2 (the oracles compute the
 decays of bf16 inputs in bf16, the Pallas kernel and the port's kernel
@@ -32,7 +38,8 @@ from repro_torch.distrib.serial import rebase_chunk
 from repro_torch.kernels import api
 from repro_torch.kernels.mamba_scan import mamba_scan as kernel
 from repro_torch.kernels.mamba_scan import ops
-from repro_torch.kernels.mamba_scan.ref import (mamba_scan_promoted_ref,
+from repro_torch.kernels.mamba_scan.ref import (mamba_scan_chunked_ref,
+                                              mamba_scan_promoted_ref,
                                               mamba_scan_ref)
 from torch_reference import run_reference
 
@@ -169,6 +176,76 @@ def test_plain_scan_matches_reference_pallas_and_oracle(reference, case,
         _close(g, reference[key + "/oracle"], dtype, key)
 
 
+# chunk lengths of the chunked decomposition: one step, lengths that do
+# not divide L, L itself and one past it
+CHUNKS = ["1", "5", "16", "L", "L+3"]
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_chunked_ref_matches_reference_pallas_and_oracle(reference, case,
+                                                         dtype, chunk):
+    length = case[1]
+    lc = {"L": length, "L+3": length + 3}.get(chunk) or int(chunk)
+    args = [torch.from_numpy(a).to(TORCH_DT[dtype]) for a in _inputs(case)]
+    got = mamba_scan_chunked_ref(*args, chunk=lc)
+    assert got.dtype == TORCH_DT[dtype]
+    assert tuple(got.shape) == case[:3]
+    key = _key(CASE_IDS[CASES.index(case)], dtype)
+    g = got.to(torch.float64).numpy()
+    _close(g, reference[key + "/pallas"], dtype, f"{key} chunk {lc}")
+    _close(g, reference[key + "/oracle"], dtype, f"{key} chunk {lc}")
+
+
+def _decay_inputs(kind):
+    """Strong decay: a = log 60 and dt = 1, so exp(dt * decay) = e^-60 and
+    the product of two steps underflows float32. Weak decay: dt = 1e-4
+    over L = 300, so the state barely decays."""
+    rng = np.random.default_rng(7)
+    b, l, inner, n = (1, 64, 8, 4) if kind == "strong" else (1, 300, 8, 4)
+    dt = np.ones((b, l, inner)) if kind == "strong" \
+        else np.full((b, l, inner), 1e-4)
+    a = np.full((inner, n), np.log(60.0)) if kind == "strong" \
+        else np.log(np.abs(rng.normal(size=(inner, n))) + 0.5)
+    return (rng.normal(size=(b, l, inner)), dt, rng.normal(size=(b, l, n)),
+            rng.normal(size=(b, l, n)), a, rng.normal(size=(inner,)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["strong", "weak"])
+def test_chunked_ref_holds_under_strong_and_weak_decay(kind, dtype):
+    args = [torch.from_numpy(a).to(TORCH_DT[dtype])
+            for a in _decay_inputs(kind)]
+    got = mamba_scan_chunked_ref(*args, chunk=16)
+    assert bool(torch.isfinite(got).all())
+    _close(got.double().numpy(),
+           mamba_scan_promoted_ref(*args).double().numpy(), dtype, kind)
+
+
+# the kernel's edges, (B, L, I, N): L around its chunk of LC = 64 steps
+# (LC in csrc/mamba_scan.cu) and one long L, I not a multiple of the
+# 32-channel tile, B = 3, and N from 1 to 32 (padded to 1, 4, 16, 32)
+LC = 64
+EDGES = [(1, 1, 40, 4), (1, LC - 1, 40, 4), (1, LC, 40, 4),
+         (1, LC + 1, 40, 4), (1, 4097, 40, 4), (2, 300, 77, 4),
+         (3, 300, 64, 4), (1, 300, 64, 1), (1, 300, 64, 2),
+         (1, 300, 64, 16), (1, 300, 64, 32)]
+EDGE_IDS = [f"B{b}-L{l}-I{i}-N{n}" for b, l, i, n in EDGES]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", EDGES, ids=EDGE_IDS)
+def test_chunked_ref_at_kernel_chunk_matches_plain_version(shape, dtype):
+    """The kernel's decomposition at its own chunk length, on the CPU,
+    at the shapes its cuda tests run."""
+    args = [torch.from_numpy(a).to(TORCH_DT[dtype])
+            for a in _inputs(shape + (0,))]
+    _close(mamba_scan_chunked_ref(*args, chunk=LC).double().numpy(),
+           mamba_scan_promoted_ref(*args).double().numpy(), dtype,
+           str(shape))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_api_scan_rows_matches_reference_api(reference, cpu_api, dtype):
     x = _api_inputs()[0][dtype]
@@ -226,3 +303,34 @@ def test_cuda_kernel_matches_plain_version(cuda_device, case, dtype):
     _close(got.double().cpu().numpy(),
            mamba_scan_promoted_ref(*args).double().cpu().numpy(), dtype,
            str(case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", EDGES, ids=EDGE_IDS)
+def test_cuda_kernel_edges_match_plain_version(cuda_device, shape, dtype):
+    """Each call must give the same bits as the call before it: a flag or
+    counter left from an earlier call would show as a difference."""
+    args = [torch.from_numpy(a).to(cuda_device, TORCH_DT[dtype])
+            for a in _inputs(shape + (0,))]
+    got = ops.mamba_scan(*args)
+    again = ops.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got.double().cpu().numpy(),
+           mamba_scan_promoted_ref(*args).double().cpu().numpy(), dtype,
+           str(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["strong", "weak"])
+def test_cuda_kernel_holds_under_strong_and_weak_decay(cuda_device, kind,
+                                                       dtype):
+    args = [torch.from_numpy(a).to(cuda_device, TORCH_DT[dtype])
+            for a in _decay_inputs(kind)]
+    got = ops.mamba_scan(*args)
+    assert bool(torch.isfinite(got).all())
+    _close(got.double().cpu().numpy(),
+           mamba_scan_promoted_ref(*args).double().cpu().numpy(), dtype,
+           kind)
