@@ -40,9 +40,26 @@ exit:
    hand-written kernel in the workers) with no fallback and no plain
    call, launch its own kernel, count no fault (no respawn, no expired
    heartbeat), and match numpy within 1e-8 in both runs. Before each
-   path every count is set to 0; the router's prices (``t_np`` and
-   ``t_cuda`` per worker) are printed beside each worker's profile.
-5. Summary: one JSON line with every kernel's numbers, the card's line,
+   path every count is set to 0; the router's prices (``t_np``,
+   ``t_torch`` and ``t_cuda`` per worker) are printed beside each
+   worker's profile.
+5. The STAP path on the same fleet: ``stap_adaptive``
+   (``examples/torch_stap.py``, the reference's flagship kernel) at the
+   example's widths (K = 64, DOF = 64, ITERS = 800, float64) over
+   GATES = 8192 range gates (268 MB of training cube, ~58 GFLOP), cold
+   and warm, then the worker-kill drill and one run on the replaced
+   fleet. Every chunk must run the ``torch`` twin (batched with
+   ``torch.func.vmap`` on the card) with no fallback, no eager-twin run
+   (``batch_fallbacks``) and ``batch_hits`` on the warm run; the output
+   must match, within 1e-8, an independent float64 batched recurrence on
+   the card for every gate and the sequential numpy ``stap_seq`` on a
+   strided sample of 256 gates. The replacement worker must run torch
+   twins on the card.
+6. The whole-kernel path: PolyBench ``gemm``
+   (``benchmarks/polybench_kernels.py``) at n = 4096 in float64 through
+   the dispatcher, which must pick the whole-kernel ``torch`` variant;
+   the result must be within 1e-8·max(1, |ref|) of numpy's.
+7. Summary: one JSON line with every kernel's numbers, the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the checkout's ``src/``; without either it
@@ -54,6 +71,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -73,6 +91,15 @@ N_ROWS, K_DIM, M_DIM = 16384, 2048, 2048       # matmul: ~0.55 GB, 137 GFLOP
 ATTN_N, ATTN_T, ATTN_D = 16384, 4096, 128      # attention: ~48 MB, 34 GFLOP
 SCAN_N, SCAN_L = 8192, 2048                    # scan: 2 x 134 MB
 SCAN_C = 0.9                                   # scan_kernel's coefficient
+# the STAP path: examples/torch_stap.py's widths (K = 64, DOF = 64,
+# ITERS = 800) over this many range gates (268 MB of training cube,
+# ~58 GFLOP); the gate count is the only cut. The output is checked for
+# every gate against a float64 recurrence on the card and for a strided
+# sample against the sequential numpy kernel
+STAP_GATES = 8192
+STAP_SAMPLE = 256
+# the whole-kernel path: PolyBench gemm at n = 4096 (float64)
+GEMM_N = 4096
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet,
 # dense): float64 on the tensor cores (DMMA) 67 TFLOP/s, float32 outside
@@ -409,22 +436,65 @@ def check_scan(torch, sc_kernel, plain):
 
 def _record_pricing(cost):
     """Wrap the router's pricing table so each pfor round's per-worker
-    prices (t_np, t_cuda and the pick) can be printed."""
+    prices (t_np, t_torch, t_cuda and the pick) can be printed."""
     seen = []
     table = cost.unit_backend_table
 
-    def recording(flops, nbytes, profiles, allow_jnp=True, candidates=None):
+    def recording(flops, nbytes, profiles, candidates=()):
         profiles = list(profiles)
-        picks = table(flops, nbytes, profiles, allow_jnp, candidates)
+        picks = table(flops, nbytes, profiles, candidates)
         seen.append([{
             "wid": p.wid, "flops": flops, "bytes": nbytes,
             "t_np": cost.chunk_backend_seconds(flops, nbytes, p, "np"),
+            "t_torch": cost.chunk_backend_seconds(flops, nbytes, p,
+                                                  "torch"),
             "t_cuda": cost.chunk_backend_seconds(flops, nbytes, p, "cuda"),
             "pick": pick} for p, pick in zip(profiles, picks)])
         return picks
 
     cost.unit_backend_table = recording
     return seen
+
+
+def timed_run(rt, obs, ck, pricing, *, name, label, inputs, out_index,
+              rows, during=None):
+    """One run of a path's compiled kernel on the fleet: its wall, the
+    bytes shipped, the router's prices, the head's phase seconds and the
+    traced spans, printed on one line. It fails on any fault counted in
+    the run unless ``during`` (started just before the run, e.g. a
+    worker kill) caused it."""
+    before = rt.phase_breakdown()
+    st0 = rt.stats()
+    obs.recorder().clear()
+    args = list(inputs)
+    args[out_index] = np.zeros_like(inputs[out_index])
+    del pricing[:]
+    if during is not None:
+        during.start()
+    t0 = time.perf_counter()
+    ck.call_variant("np", *args)
+    wall = time.perf_counter() - t0
+    phases = {k: round(v - before.get(k, 0.0), 4)
+              for k, v in sorted(rt.phase_breakdown().items())}
+    # seconds per span name, head and worker tracks together (the worker
+    # spans: deserialize, restore, run = the chunk body, diff)
+    spans = {}
+    for ev in obs.recorder().events():
+        spans[ev.name] = round(spans.get(ev.name, 0.0) + ev.dur, 4)
+    st1 = rt.stats()
+    faults = {k: v - st0["faults"].get(k, 0)
+              for k, v in st1["faults"].items()
+              if v != st0["faults"].get(k, 0)}
+    print(f"{name} path {label}: {wall:.3f} s ({rows / wall:.1f} "
+          f"rows/s); bytes shipped "
+          f"{st1['bytes_shipped'] - st0['bytes_shipped']}; faults "
+          f"{json.dumps(faults)}; router {json.dumps(pricing)}; "
+          f"phases (s) {json.dumps(phases)}; spans (s) "
+          f"{json.dumps(dict(sorted(spans.items())))}", flush=True)
+    if faults and during is None:
+        raise AssertionError(f"{name} path {label} counted faults: "
+                             f"{json.dumps(faults)}")
+    return args[out_index], wall
 
 
 def run_path(rt, compile_kernel, obs, kernel, pricing, *, name, fn, twin,
@@ -438,36 +508,8 @@ def run_path(rt, compile_kernel, obs, kernel, pricing, *, name, fn, twin,
     key = f"{name}_launches"
 
     def run(label):
-        before = rt.phase_breakdown()
-        st0 = rt.stats()
-        obs.recorder().clear()
-        args = list(inputs)
-        args[out_index] = np.zeros_like(inputs[out_index])
-        del pricing[:]
-        t0 = time.perf_counter()
-        ck.call_variant("np", *args)
-        wall = time.perf_counter() - t0
-        phases = {k: round(v - before.get(k, 0.0), 4)
-                  for k, v in sorted(rt.phase_breakdown().items())}
-        # seconds per span name, head and worker tracks together (the
-        # worker spans: deserialize, restore, run = the chunk body, diff)
-        spans = {}
-        for ev in obs.recorder().events():
-            spans[ev.name] = round(spans.get(ev.name, 0.0) + ev.dur, 4)
-        st1 = rt.stats()
-        faults = {k: v - st0["faults"].get(k, 0)
-                  for k, v in st1["faults"].items()
-                  if v != st0["faults"].get(k, 0)}
-        print(f"{name} path {label}: {wall:.3f} s ({rows / wall:.1f} "
-              f"rows/s); bytes shipped "
-              f"{st1['bytes_shipped'] - st0['bytes_shipped']}; faults "
-              f"{json.dumps(faults)}; router {json.dumps(pricing)}; "
-              f"phases (s) {json.dumps(phases)}; spans (s) "
-              f"{json.dumps(dict(sorted(spans.items())))}", flush=True)
-        if faults:
-            raise AssertionError(f"{name} path {label} counted faults: "
-                                 f"{json.dumps(faults)}")
-        return args[out_index], wall
+        return timed_run(rt, obs, ck, pricing, name=name, label=label,
+                         inputs=inputs, out_index=out_index, rows=rows)
 
     # every count to 0 just before the path's runs
     kernel.launches = 0
@@ -560,6 +602,238 @@ def main_paths(rt, compile_kernel, obs, cost, kernels):
         inputs=(X, np.zeros((SCAN_N, SCAN_L)), SCAN_N, SCAN_L),
         out_index=1, want=_scan_reference(X), rows=SCAN_N)
     return out
+
+
+def _stap_recurrence(torch, snap, train, steer, k, iters, alpha, loading):
+    """Every gate's STAP output on the card, in float64, computed apart
+    from the port: the Richardson solve batched over gates with
+    ``torch.bmm``, 1024 gates at a time."""
+    out = np.empty(len(snap))
+    s = torch.from_numpy(steer).cuda()
+    for lo in range(0, len(snap), 1024):
+        T = torch.from_numpy(train[lo:lo + 1024]).cuda()
+        R = torch.bmm(T.transpose(1, 2), T) / k
+        w = (alpha * s).expand(len(T), -1).clone()
+        for _ in range(iters):
+            Rw = torch.bmm(R, w[:, :, None])[:, :, 0]
+            w = w + alpha * (s - Rw - loading * w)
+        x = torch.from_numpy(snap[lo:lo + 1024]).cuda()
+        out[lo:lo + len(T)] = (w * x).sum(1).cpu().numpy()
+    return out
+
+
+def stap_path(rt, compile_kernel, obs, pricing, torch):
+    """Phase 5: the STAP flagship on the fleet through its torch twin."""
+    sys.path.insert(0, str(ROOT))
+    from examples.torch_stap import (ALPHA, DOF, ITERS, K_TRAIN, LOADING,
+                                     make_stap_data, stap_adaptive,
+                                     stap_seq)
+    snap, train, steer, out = make_stap_data(gates=STAP_GATES)
+    scalars = (STAP_GATES, K_TRAIN, DOF, ITERS, ALPHA, LOADING)
+    t0 = time.perf_counter()
+    want = _stap_recurrence(torch, snap, train, steer, K_TRAIN, ITERS,
+                            ALPHA, LOADING)
+    t1 = time.perf_counter()
+    sample = np.arange(0, STAP_GATES, STAP_GATES // STAP_SAMPLE)
+    seq = np.zeros(len(sample))
+    stap_seq(snap[sample], train[sample], steer, seq, len(sample),
+             *scalars[1:])
+    ref_gap = float(np.abs(want[sample] - seq).max())
+    print(f"stap references: card recurrence for {STAP_GATES} gates in "
+          f"{t1 - t0:.3f} s, numpy stap_seq for {len(sample)} gates in "
+          f"{time.perf_counter() - t1:.3f} s; they differ by "
+          f"{ref_gap:.3e}", flush=True)
+    if not ref_gap <= 1e-8:
+        raise AssertionError(f"stap references disagree: {ref_gap:.3e}")
+
+    ck = compile_kernel(stap_adaptive, runtime=rt, workers=WORKERS)
+    src = ck.source("np")
+    if "__pfor_body_0__torch" not in src or "__pfor_batch(" not in src:
+        raise AssertionError("stap: no torch twin with a batched path")
+    ck.pfor_config.distribute_threshold = 0
+    inputs = (snap, train, steer, out) + scalars
+    keys = ("torch_chunks", "torch_fallbacks", "cuda_fallbacks",
+            "batch_hits", "batch_builds", "batch_fallbacks",
+            "worker_deaths", "resubmits")
+
+    def run(label, during=None):
+        st0 = rt.stats()
+        got, wall = timed_run(rt, obs, ck, pricing, name="stap", label=label,
+                              inputs=inputs, out_index=3, rows=STAP_GATES,
+                              during=during)
+        st1 = rt.stats()
+        d = {k: st1[k] - st0[k] for k in keys}
+        ran = {b: n - st0["chunks_executed"].get(b, 0)
+               for b, n in st1["chunks_executed"].items()
+               if n != st0["chunks_executed"].get(b, 0)}
+        by_worker = {w: n - st0["chunks_executed_by_worker"].get(w, 0)
+                     for w, n in st1["chunks_executed_by_worker"].items()
+                     if n != st0["chunks_executed_by_worker"].get(w, 0)}
+        err = float(np.abs(got - want).max())
+        err_seq = float(np.abs(got[sample] - seq).max())
+        print(f"stap path {label}: chunks executed {ran} (by worker "
+              f"{by_worker}); {json.dumps(d)}; max err {err:.3e} (card "
+              f"recurrence), {err_seq:.3e} (stap_seq sample)", flush=True)
+        if set(ran) != {"torch"}:
+            raise AssertionError(f"stap {label}: not every chunk ran the "
+                                 f"torch twin: {ran}")
+        if d["torch_fallbacks"] or d["cuda_fallbacks"] \
+                or d["batch_fallbacks"]:
+            raise AssertionError(f"stap {label}: fallbacks {json.dumps(d)}")
+        if not (np.isfinite(got).all() and err <= 1e-8
+                and err_seq <= 1e-8):
+            raise AssertionError(f"stap {label}: max err {err:.3e} / "
+                                 f"{err_seq:.3e}")
+        return {"wall_s": wall, "max_abs_err": max(err, err_seq),
+                "chunks_executed": ran, "by_worker": by_worker, **d}
+
+    out_runs = {"cold": run("cold"), "warm": run("warm")}
+    if out_runs["warm"]["batch_hits"] <= 0:
+        raise AssertionError("stap warm: no batched-path hit")
+    # the kill drill: a worker dies a third of the way into a run
+    before = {p.wid for p in rt.profiles()}
+    killer = threading.Timer(max(0.05, out_runs["warm"]["wall_s"] / 3),
+                             rt.kill_worker)
+    out_runs["kill"] = run("kill drill", during=killer)
+    killer.cancel()
+    if out_runs["kill"]["worker_deaths"] != 1:
+        raise AssertionError("stap kill drill: no worker died")
+    t0 = time.perf_counter()
+    while rt.workers_alive() < WORKERS:
+        if time.perf_counter() - t0 > 180:
+            raise AssertionError("stap kill drill: no replacement worker")
+        time.sleep(0.5)
+    print(f"stap kill drill: replacement up {time.perf_counter() - t0:.1f}"
+          f" s after the drill's run", flush=True)
+    out_runs["after"] = run("after the drill")
+    new = {w: n for w, n in out_runs["after"]["by_worker"].items()
+           if w not in before}
+    if not new:
+        raise AssertionError("stap: the replacement worker ran no chunk")
+    out_runs["chunk"] = stap_chunk_profile(torch, ck, inputs,
+                                           STAP_GATES // CHUNKS)
+    return out_runs
+
+
+def stap_ops_per_gate(k, dof, iters):
+    """Operations one gate of stap_adaptive needs: R = TᵀT and its
+    scaling, each Richardson step's product R·w (2·dof²) and five vector
+    operations, and the beamforming dot."""
+    return 2 * k * dof * dof + dof * dof + iters * (2 * dof * dof
+                                                   + 5 * dof) + 2 * dof
+
+
+def stap_chunk_profile(torch, ck, inputs, rows):
+    """The torch twin of the STAP gate loop on one main-path chunk
+    (``rows`` gates) in this process, on the card, as a warm worker runs
+    it (its rows and cells already resident on the card): its wall (host
+    clock around a synchronised call), the device time and the number of
+    kernels in it (``torch.profiler``), against the least time the card
+    could take for the chunk's operations (float64 on the tensor cores)
+    and bytes (its training rows, snapshots and outputs)."""
+    from repro_torch.core import backends, txp
+    from repro_torch.distrib import accel
+
+    txp.set_device("cuda")
+    gen = ck.variants["np"].generated
+    ns = {"xp": np}
+    for b in gen.meta.pfor_twin_units:
+        ns.update(backends.get(b).namespace(gen.meta))
+    ns["__pfor_run"] = lambda body, lo, hi, tile: body.__torch__(0, rows)
+    exec(compile(gen.source, "<stap chunk>", "exec"), ns)
+    # the chunk's rows, kept resident as a worker keeps its row cache
+    # and broadcast cells
+    args = [inputs[0][:rows], inputs[1][:rows], inputs[2],
+            np.zeros(rows)] + list(inputs[4:])
+    args[4] = rows
+    accel.reset()
+    for a in args[:3]:
+        accel.remember(a)
+
+    def call():
+        ns[gen.fn_name](*args)
+        torch.cuda.synchronize()
+
+    call()                     # builds the batched entry, stages rows
+    t0 = time.perf_counter()
+    call()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        call()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # None: the profiler saw no kernel (not measured)
+    device_ms = (sum(e.device_time_total for e in kernels) / 1e3
+                 if kernels else None)
+    st = accel.take_stats()
+    snap, train = inputs[0], inputs[1]
+    _, k, dof, iters = inputs[4:8]
+    ops = rows * stap_ops_per_gate(k, dof, iters)
+    nbytes = (train[:rows].nbytes + snap[:rows].nbytes + 8 * rows)
+    bound_ms, bound_by = _bound(ops, nbytes, "float64")
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.device_time_total / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
+    device = ("not measured (the profiler saw no kernel)"
+              if device_ms is None else
+              f"{device_ms:.3f} ms in {len(kernels)} kernels (device busy "
+              f"{100 * device_ms / wall_ms:.1f} % of the wall; the most "
+              f"time: " + "; ".join(f"{name[:60]} {t:.3f} ms x{n}"
+                                    for name, (t, n) in top) + ")")
+    print(f"stap chunk ({rows} gates, torch twin in this process): wall "
+          f"{wall_ms:.3f} ms, device {device}, bound {bound_ms:.4f} ms "
+          f"({bound_by}; "
+          f"{ops:.3e} operations); batched hits {st.get('batch_hits', 0)}"
+          f", fallbacks {st.get('batch_fallbacks', 0)}", flush=True)
+    if st.get("batch_fallbacks") or not st.get("batch_hits"):
+        raise AssertionError("stap chunk: the batched path did not run")
+    return {"rows": rows, "wall_ms": wall_ms, "device_ms": device_ms,
+            "kernels": len(kernels), "bound_ms": bound_ms,
+            "bound_by": bound_by, "ops": ops}
+
+
+def whole_kernel_path(torch):
+    """Phase 6: a pfor-free kernel through the dispatcher's whole-kernel
+    torch variant on the card."""
+    sys.path.insert(0, str(ROOT))
+    from benchmarks.polybench_kernels import KERNELS
+    from repro_torch.core.compiler import compile_kernel
+
+    gemm = KERNELS["gemm"]
+    args, meta = gemm["make_args"](GEMM_N, np.random.default_rng(SEED + 4))
+    (out,) = meta["out"]
+    ck = compile_kernel(gemm["np"])
+    if "torch" not in ck.variants:
+        raise AssertionError("gemm: no whole-kernel torch variant")
+    want = [a.copy() if isinstance(a, np.ndarray) else a for a in args]
+    t0 = time.perf_counter()
+    gemm["ref"](*want)
+    t_np = time.perf_counter() - t0
+    walls = []
+    for _ in range(2):
+        got = [a.copy() if isinstance(a, np.ndarray) else a for a in args]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck(*got)
+        walls.append(time.perf_counter() - t0)
+    picked = ck.history[-1].variant
+    ref = want[out]
+    err = np.abs(got[out] - ref)
+    bad = bool((err > 1e-8 * np.maximum(1.0, np.abs(ref))).any())
+    print(f"whole-kernel path: gemm n={GEMM_N} float64: dispatcher picked "
+          f"{picked!r} ({ck.history[-1].flops:.3e} FLOP); wall "
+          f"{walls[0]:.3f} s cold, {walls[1]:.3f} s warm (copies to and "
+          f"from the card included); numpy {t_np:.3f} s; max err "
+          f"{float(err.max()):.3e}", flush=True)
+    if picked != "torch":
+        raise AssertionError(f"gemm: the dispatcher picked {picked!r}")
+    if bad or not np.isfinite(got[out]).all():
+        raise AssertionError(f"gemm: max err {float(err.max()):.3e}")
+    return {"variant": picked, "wall_s": walls, "numpy_s": t_np,
+            "max_abs_err": float(err.max())}
 
 
 def _summary(name, source, replaces, cases, path):
@@ -656,17 +930,33 @@ def main() -> int:
     t0 = time.perf_counter()
     # trace=True: worker run spans give the compute and idle phases.
     # Liveness is the runtime's default (1 s beats, 15 missed): no run
-    # may count a fault (a respawn, an expired heartbeat).
+    # may count a fault (a respawn, an expired heartbeat), but the STAP
+    # kill drill's.
     rt = ClusterRuntime(workers=WORKERS, device="cuda", trace=True)
     print(f"fleet: {WORKERS} workers up in "
           f"{time.perf_counter() - t0:.2f} s "
           f"(start method {rt.start_method})", flush=True)
     try:
         paths = main_paths(rt, compile_kernel, obs, cost, kernels)
+        print(f"phase 4 done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        # 5. the STAP path, every count to 0 first
+        pricing = _record_pricing(cost)
+        for k in ("torch_chunks", "torch_fallbacks", "cuda_chunks",
+                  "cuda_fallbacks", "batch_hits", "batch_builds",
+                  "batch_fallbacks"):
+            setattr(rt, k, 0)
+        rt.chunks_executed.clear()
+        stap = stap_path(rt, compile_kernel, obs, pricing, torch)
     finally:
         rt.shutdown()
+    print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
-    # 5. summary
+    # 6. the whole-kernel path
+    whole = whole_kernel_path(torch)
+
+    # 7. summary
     base = "src/repro_torch/kernels"
     summary = [
         _summary("matmul", f"{base}/matmul/csrc/matmul.cu",
@@ -680,6 +970,8 @@ def main() -> int:
                  "src/repro/kernels/mamba_scan/mamba_scan.py:55",
                  cases["mamba_scan"], paths["mamba_scan"]),
     ]
+    print(json.dumps({"stap_path": stap, "whole_kernel_path": whole}),
+          flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

@@ -5,29 +5,33 @@ A :class:`Backend` owns everything that makes codegen, pricing,
 serialization and the cluster backend-aware:
 
   * its **module binding** — the namespace symbol the generated twin
-    computes through (``__cuk`` → :mod:`repro_torch.kernels.api`, the
-    hand-written CUDA kernels) and the importable module behind it
-    (which is also how the twin ships to workers: a module global rides
-    the serializer's module-by-name marker);
+    computes through (``__txp`` → :mod:`repro_torch.core.txp`, the
+    numpy-compatible torch namespace; ``__cuk`` →
+    :mod:`repro_torch.kernels.api`, the hand-written CUDA kernels) and
+    the importable module behind it (which is also how the twin ships
+    to workers: a module global rides the serializer's module-by-name
+    marker);
   * its **dtype map** — how annotation dtypes land on the device;
   * its **pfor-body codegen idiom** — an ``emit_twin`` hook the emitter
     calls per accelerator-feasible pfor unit (returning None when the
     unit does not fit this backend's shape);
   * its **compile hook** — the exec-namespace bindings a generated
-    variant needs;
+    variant needs (``__pfor_batch`` is the torch backend's);
   * its **cost profile** — the gflops/membw/launch-overhead terms
     :func:`repro_torch.core.cost.pick_chunk_backend` prices a (unit,
     backend, worker) cell with;
   * its **serialization tag** — the token the variant-cache key and the
     cluster's per-chunk blob tagging derive from.
 
-This slice registers two backends: ``np`` (the base body) and ``cuda``
+Three backends are registered: ``np`` (the base body), ``torch`` (a
+twin of every accelerator-feasible pfor body, computed with torch on the
+worker's device — the role of the reference's jnp twin) and ``cuda``
 (pattern-matched pfor units lowered onto the hand-written kernels), so
-the degradation chain is ``cuda → np``. The registry is the port's own:
-nothing here touches the reference package's registry, and the cache
-token (``cuda2+np1``) differs from every token the reference files
-variants under, so a shared cache directory never serves one package's
-source to the other.
+the degradation chain is ``cuda → torch → np``. The registry is the
+port's own: nothing here touches the reference package's registry, and
+the cache token (``cuda2+np1+torch1``) differs from every token the
+reference files variants under, so a shared cache directory never
+serves one package's source to the other.
 """
 
 from __future__ import annotations
@@ -144,7 +148,7 @@ def twin_names() -> List[str]:
 def degradation_chain(name: str) -> List[str]:
     """Backends a failing chunk of ``name`` degrades through, ordered by
     descending priority and always ending at ``np`` — the
-    ``TaskSpec.alt`` chain (``cuda → np`` in this slice)."""
+    ``TaskSpec.alt`` chain (``cuda → torch → np``)."""
     start = _REGISTRY.get(name)
     pri = start.priority if start is not None else 0
     lower = sorted((b for b in _REGISTRY.values()
@@ -161,13 +165,11 @@ def cache_token(accel_ok: bool) -> str:
     with its codegen version. Twin backends are earned only when the
     accelerator runtime is actually importable (``accel_ok``), so a
     torch-less host files twin-less variants under the np-only token and
-    recompiles with twins once torch appears. ``cuda2+np1`` differs from
-    every token of the reference package, so neither package is ever
-    served the other's cached source."""
+    recompiles with twins once torch appears. ``cuda2+np1+torch1``
+    differs from every token of the reference package, so neither
+    package is ever served the other's cached source."""
     active = [b for b in _REGISTRY.values() if accel_ok or not b.twin]
     return "+".join(b.tag for b in sorted(active, key=lambda b: b.name))
-
-
 
 
 # ---------------------------------------------------------------------------
@@ -179,9 +181,9 @@ def cache_token(accel_ok: bool) -> str:
 # guesses that only order the backends, not estimates of real time.
 # ---------------------------------------------------------------------------
 
-# Per-chunk accelerator overhead of a generic per-op twin (host→device
-# staging + one launch per op); the torch twin that prices with it comes
-# in a later slice, cost re-exports it. Unmeasured prior.
+# Per-chunk accelerator overhead of the torch twin, a generic per-op
+# stream (host→device staging + one launch per op); cost re-exports it.
+# Unmeasured prior.
 GPU_CHUNK_OVERHEAD_S = 5e-3
 
 # Host↔device staging bandwidth fallback when the profile carries no
@@ -220,6 +222,14 @@ def _gpu_xfer_overhead(profile) -> tuple:
     return (measured if measured > 0 else GPU_XFER_GBS), True
 
 
+def _torch_chunk_seconds(flops: float, nbytes: float, profile) -> float:
+    rate = max(1e-3, getattr(profile, "gpu_gflops", 0.0))
+    xfer_gbs, real = _gpu_xfer_overhead(profile)
+    overhead = GPU_CHUNK_OVERHEAD_S if real else 0.0
+    return max(flops / (rate * 1e9),
+               nbytes / (xfer_gbs * 1e9)) + overhead
+
+
 def _cuda_chunk_seconds(flops: float, nbytes: float, profile) -> float:
     rate = max(1e-3, getattr(profile, "gpu_gflops", 0.0)) \
         * CUDA_FUSION_SPEEDUP
@@ -246,6 +256,30 @@ def _np_effective_gflops(profile) -> float:
 # ---------------------------------------------------------------------------
 # Built-in backends
 # ---------------------------------------------------------------------------
+
+def _torch_emit_twin(emitter, u, body_name: str, idx: int,
+                     pending_syms) -> Optional[str]:
+    return emitter._try_emit_torch_twin(u, body_name, idx, pending_syms)
+
+
+def _torch_namespace(meta) -> Dict[str, Any]:
+    """Exec bindings for variants with torch twin units: the
+    numpy-compatible torch namespace under ``__txp``, plus the batched
+    fast path (:func:`repro_torch.distrib.accel.pfor_batch`) for units
+    whose twin carries a per-iteration function."""
+    try:
+        from repro_torch.core import txp
+    except ImportError as exc:
+        raise BackendUnavailable(
+            f"torch twin references repro_torch.core.txp, which failed "
+            f"to import: {exc}")
+    ns: Dict[str, Any] = {"__txp": txp}
+    if getattr(meta, "pfor_batch_units", None):
+        from repro_torch.distrib.accel import pfor_batch
+
+        ns["__pfor_batch"] = pfor_batch
+    return ns
+
 
 def _cuda_emit_twin(emitter, u, body_name: str, idx: int,
                     pending_syms) -> Optional[str]:
@@ -282,6 +316,21 @@ register(Backend(
     chunk_seconds=_np_chunk_seconds,
     effective_gflops=_np_effective_gflops,
     feasible=lambda profile: True,
+))
+
+register(Backend(
+    name="torch",
+    xp_binding="__txp",
+    module="repro_torch.core.txp",
+    codegen_version=1,
+    device_pref="gpu",
+    priority=20,
+    twin=True,
+    emit_twin=_torch_emit_twin,
+    namespace=_torch_namespace,
+    chunk_seconds=_torch_chunk_seconds,
+    effective_gflops=_gpu_effective_gflops,
+    feasible=_accel_feasible,
 ))
 
 register(Backend(

@@ -1,33 +1,41 @@
 """Code generation: scheduled SCoP → optimized Python source.
 
 Two backends, mirroring the paper's §4.3 variants:
-  * ``np``  — optimized CPU code (NumPy library mapping);
-  * ``jnp`` — accelerator code (JAX; the TPU analogue of the paper's
-    NumPy→CuPy conversion). Functional semantics: arrays are rebuilt with
-    ``.at[]`` updates and written arrays are returned; the dispatcher
-    copies results back into the caller's buffers.
+  * ``np``    — optimized CPU code (NumPy library mapping);
+  * ``torch`` — accelerator code through the numpy-compatible torch
+    namespace :mod:`repro_torch.core.txp` (the port's counterpart of the
+    reference's jnp variant; the paper's NumPy→CuPy conversion). The
+    whole-kernel torch variant copies its array parameters to the device
+    in its preamble, writes those device tensors *in place* (no
+    functional ``.at[]`` rebuilds) and returns the written ones; the
+    dispatcher copies them home into the caller's buffers.
 
-The *whole-kernel* jnp variant is all-or-nothing, like the paper's CuPy
+The *whole-kernel* torch variant is all-or-nothing, like the paper's CuPy
 conversion: any black-box statement, loop fallback, or pfor makes it
 infeasible (EmitError) and the decision tree keeps the optimized-NumPy
 and original variants.
 
 Backend selection is additionally **per unit** (the heterogeneous-fleet
-refactor): when a kernel contains pfor units, the np variant emits *two*
-chunk bodies per pfor — the usual in-place NumPy body plus, when the
-unit's own body is accelerator-feasible, a jnp twin (``__pfor_body_N__jnp``)
-that computes through ``__jxp`` (jax.numpy) and lands its writes in place
-into the captured NumPy arrays (``xp.asarray`` at the store), so the
-cluster runtime's sparse-diff gather works unchanged. Both bodies are
-stamped ``__backend__`` and ``__sliceable__``, and the np body carries its
-twin as ``__jnp__`` — the cluster runtime routes each worker's chunks to
-whichever body its device profile prices cheaper.
+refactor): when a kernel contains pfor units, the np variant emits, next
+to the in-place NumPy chunk body, one twin per registered accelerator
+backend that takes the unit (:mod:`repro_torch.core.backends`):
 
-In this port the twins come from the port's own registry
-(:mod:`repro_torch.core.backends`), which so far holds only the ``cuda``
-twin: pattern-matched units lowered onto the hand-written kernels
-behind ``__cuk``. The ``jnp`` emitter is kept as the reference wrote it;
-no variant of the port reaches it until it becomes the torch twin.
+  * the ``torch`` twin (``__pfor_body_N__torch``) of every
+    accelerator-feasible body computes through ``__txp`` on the worker's
+    device and stores its writes into the captured NumPy arrays with an
+    explicit device→host copy (``__txp.host``), so the cluster runtime's
+    sparse-diff gather works unchanged. A row-parallel body also leads
+    with a batched fast path: its per-iteration function goes to
+    ``__pfor_batch`` (:func:`repro_torch.distrib.accel.pfor_batch`,
+    ``torch.func.vmap`` over the chunk), and the eager per-iteration loop
+    stays behind it on the same device;
+  * the ``cuda`` twin of a matmul-, attention- or scan-shaped body calls
+    a hand-written kernel behind ``__cuk``.
+
+Every body is stamped ``__backend__`` and ``__sliceable__``, and the np
+body carries each twin under its backend's attribute (``__torch__``,
+``__cuda__``) — the cluster runtime routes each worker's chunks to
+whichever body its device profile prices cheapest.
 """
 
 from __future__ import annotations
@@ -88,7 +96,7 @@ def affine_py(a: Affine) -> str:
 
 @dataclass
 class EmitMeta:
-    jax_ok: bool = True
+    accel_ok: bool = True
     uses_pfor: bool = False
     pfor_count: int = 0
     raised_ops: List[str] = field(default_factory=list)
@@ -96,23 +104,18 @@ class EmitMeta:
     # their own telemetry (fused statements / contracted intermediates)
     fused_units: int = 0
     contracted_arrays: List[str] = field(default_factory=list)
-    # pfor unit indices that got a jnp twin body (hybrid variant); the
-    # exec namespace must bind __jxp (jax.numpy) when this is non-empty
-    pfor_jnp_units: List[int] = field(default_factory=list)
-    # subset of pfor_jnp_units whose twin also carries a vmappable
-    # per-iteration function wired through __pfor_jit (compiled path);
-    # the exec namespace must additionally bind __jax and __pfor_jit
-    pfor_jit_units: List[int] = field(default_factory=list)
+    # torch-twin units whose twin also carries a per-iteration function
+    # for the batched path; the exec namespace must bind __pfor_batch
+    pfor_batch_units: List[int] = field(default_factory=list)
     # backend name → pfor unit indices that got that backend's twin
-    # (registry-driven; pfor_jnp_units is kept as the jnp projection so
-    # pre-registry cache entries and telemetry keep working). The exec
-    # namespace must merge each listed backend's namespace() bindings.
+    # (registry-driven). The exec namespace must merge each listed
+    # backend's namespace() bindings.
     pfor_twin_units: Dict[str, List[int]] = field(default_factory=dict)
 
 
 class Emitter:
     def __init__(self, sched: Schedule, backend: str):
-        assert backend in ("np", "jnp")
+        assert backend in ("np", "torch")
         self.s = sched
         self.backend = backend
         self.lines: List[str] = []
@@ -124,37 +127,38 @@ class Emitter:
         # after the defining statement: {array: [sym, …]}
         self.pending_syms: Dict[str, List[str]] = {}
         # name the backend module is bound to in the generated namespace
-        # ("xp" normally; "__jxp" for the jnp twin of a pfor body, which
+        # ("xp" normally; "__txp" for the torch twin of a pfor body, which
         # lives inside an np-variant whose "xp" is numpy)
         self.xp = "xp"
         # also emit each registered backend's twin for every pfor unit
         # (np variant only)
         self.pfor_twins = False
-        # hybrid chunk-body mode: compute with jnp but store in place
-        # into *captured* numpy arrays (xp.asarray at the store) so the
+        # eager twin mode: compute with torch on the device, read
+        # *captured* numpy arrays through a device copy of the slice
+        # read, and store into them with a device→host copy so the
         # worker's sparse-diff gather sees the writes; arrays fully
-        # assigned inside the body are locals (jnp values) and take the
-        # functional .at[] path instead
+        # assigned inside the body are locals (device tensors) written
+        # in place
         self.store_np_captured = False
         self.body_locals: Set[str] = set()
-        # jit-iteration mode: emit ONE pfor iteration as a pure function
-        # of (g, __offs, *arrays) for vmap/jit via __pfor_jit. Captured
-        # arrays indexed by the pfor var collapse to per-iteration row
-        # variables; every other captured array becomes an explicit
-        # parameter; writes land functionally in the row variables and
-        # are returned for the caller to scatter.
-        self.jit_iter = False
-        self.jit_pfor_var: Optional[str] = None
-        self.jit_params: Dict[str, int] = {}   # array name → arg position
-        self.jit_rows: Dict[str, str] = {}     # array name → row variable
-        self.jit_write_arrays: List[str] = []  # row arrays written (order)
+        # batch-iteration mode: emit ONE pfor iteration as a function of
+        # (g, __offs, *arrays) for torch.func.vmap via __pfor_batch.
+        # Captured arrays indexed by the pfor var collapse to
+        # per-iteration row variables; every other captured array
+        # becomes an explicit (read-only) parameter; writes land in the
+        # row variables and are returned for the caller to scatter.
+        self.batch_iter = False
+        self.batch_pfor_var: Optional[str] = None
+        self.batch_params: Dict[str, int] = {}   # array name → arg position
+        self.batch_rows: Dict[str, str] = {}     # array name → row variable
+        self.batch_write_arrays: List[str] = []  # row arrays written (order)
         self._assign_log: List[str] = []       # assignment events, in order
-        self._jit_future: List[Unit] = []      # units after current one
-        self._jit_loop_depth = 0
+        self._batch_future: List[Unit] = []      # units after current one
+        self._batch_loop_depth = 0
         # row captures first touched inside a sequential loop: their
         # prelude depends only on (g, __offs, params), so it hoists
-        # above the outermost loop instead of bailing the jit
-        self._jit_hoist: List[str] = []
+        # above the outermost loop instead of bailing the batched path
+        self._batch_hoist: List[str] = []
 
     def define_syms_for(self, arr: str) -> None:
         for sym in self.pending_syms.pop(arr, []):
@@ -235,9 +239,9 @@ class Emitter:
         extra_lo = extra_lo or {}
         extra_hi = extra_hi or {}
         base, idx_list = acc.array, list(acc.idx)
-        if self.jit_iter:
-            base, idx_list = self._jit_rebase(acc.array, idx_list,
-                                              is_write=False)
+        if self.batch_iter:
+            base, idx_list = self._batch_rebase(acc.array, idx_list,
+                                                is_write=False)
         comps: List[str] = []
         order: List[str] = []
         for idx in idx_list:
@@ -257,53 +261,62 @@ class Emitter:
             comps.append(f"{affine_py(lo)}:{affine_py(hi)}")
             order.append(v)
         sl = f"{base}[{', '.join(comps)}]" if comps else base
-        return sl, order
+        return self._read(acc.array, sl), order
 
-    # -- jit-iteration helpers ---------------------------------------------
-    def _jit_rebase(self, array: str, idx: List[Affine],
-                    is_write: bool) -> Tuple[str, List[Affine]]:
-        """Route one array access for the jit-iteration function: body
+    def _read(self, array: str, src: str) -> str:
+        """A read of ``array`` as emitted: in an eager torch twin a
+        captured numpy array is read through a device copy of the slice
+        (numpy and torch operands do not mix in one expression)."""
+        if self.store_np_captured and array not in self.body_locals:
+            return f"{self.xp}.asarray({src})"
+        return src
+
+    # -- batch-iteration helpers -------------------------------------------
+    def _batch_rebase(self, array: str, idx: List[Affine],
+                      is_write: bool) -> Tuple[str, List[Affine]]:
+        """Route one array access for the batch-iteration function: body
         locals pass through; g-free captured arrays become parameters;
         ``A[g, …]`` accesses collapse onto A's row variable. Anything
-        else (g in a later dim, non-identity g index) bails the jit."""
-        g = self.jit_pfor_var
+        else (g in a later dim, non-identity g index) bails the batched
+        path."""
+        g = self.batch_pfor_var
         if array in self.body_locals:
             return array, idx
         uses_g = [i for i, a in enumerate(idx) if g in a.vars()]
         if not uses_g:
-            if array in self.jit_rows:
-                raise EmitError("jit: whole-array access after row capture")
+            if array in self.batch_rows:
+                raise EmitError("batch: whole-array access after row capture")
             if is_write:
-                raise EmitError("jit: g-free write to captured array")
-            self._jit_param(array)
+                raise EmitError("batch: g-free write to captured array")
+            self._batch_param(array)
             return array, idx
         if uses_g != [0] or affine_py(idx[0]) != g:
-            raise EmitError("jit: non-row pfor indexing")
-        return self._jit_row(array), list(idx[1:])
+            raise EmitError("batch: non-row pfor indexing")
+        return self._batch_row(array), list(idx[1:])
 
     def _note_assign(self, name: str) -> None:
-        if self.jit_iter:
+        if self.batch_iter:
             self._assign_log.append(name)
 
-    def _jit_param(self, array: str) -> int:
-        if array not in self.jit_params:
-            self.jit_params[array] = len(self.jit_params)
-        return self.jit_params[array]
+    def _batch_param(self, array: str) -> int:
+        if array not in self.batch_params:
+            self.batch_params[array] = len(self.batch_params)
+        return self.batch_params[array]
 
-    def _jit_row(self, array: str) -> str:
-        row = self.jit_rows.get(array)
+    def _batch_row(self, array: str) -> str:
+        row = self.batch_rows.get(array)
         if row is not None:
             return row
-        pos = self._jit_param(array)
+        pos = self._batch_param(array)
         row = f"__row_{array}"
-        line = f"{row} = {array}[{self.jit_pfor_var} - __offs[{pos}]]"
-        if self._jit_loop_depth:
+        line = f"{row} = {array}[{self.batch_pfor_var} - __offs[{pos}]]"
+        if self._batch_loop_depth:
             # hoisted above the loop — not an in-loop assignment event
-            self._jit_hoist.append(line)
+            self._batch_hoist.append(line)
         else:
             self.w(line)
             self._note_assign(row)
-        self.jit_rows[array] = row
+        self.batch_rows[array] = row
         self.body_locals.add(row)
         return row
 
@@ -451,7 +464,7 @@ class Emitter:
         try:
             self._emit_raised_fast(stmt)
         except (RaiseError, EmitError):
-            if self.backend == "jnp":
+            if self.backend == "torch":
                 raise EmitError("loop fallback infeasible on accelerator")
             self._emit_loops(stmt)
         if stmt.write_full or stmt.write_is_temp:
@@ -460,13 +473,13 @@ class Emitter:
     def _emit_raised_fast(self, stmt: CanonStmt) -> None:
         dims = self.free_dims(stmt)
         hull = compute_hull(dims)
-        if self.jit_iter:
-            # a bound depending on the pfor var would become a traced
-            # slice extent — shapes must stay static under jit
-            gv = self.jit_pfor_var
+        if self.batch_iter:
+            # a bound depending on the pfor var would make the slice
+            # extent differ between the lanes of one vmap
+            gv = self.batch_pfor_var
             for d in dims:
                 if gv in d.lower.vars() or gv in d.upper.vars():
-                    raise EmitError("jit: pfor-var-dependent bound")
+                    raise EmitError("batch: pfor-var-dependent bound")
         # frame follows the WRITE's dim order (cov[j][i] = f(i,j) must
         # emit the rhs transposed), then any remaining domain iterators
         domain_order = [d.var for d in dims]
@@ -484,29 +497,43 @@ class Emitter:
         arr = stmt.write_array
         if plan.kind in ("full", "scalar"):
             # whole-name assignment inside a chunk body binds a body
-            # local (privatization) — later partial writes to it take
-            # the functional path in hybrid mode. That path emits
-            # ``.at[]``, so hybrid locals must *be* jnp values even when
-            # the defining expression is pure numpy arithmetic over
-            # captured arrays — force the conversion at the definition
-            # (free for values that are already jnp).
-            self.body_locals.add(arr)
-            self._note_assign(arr)
+            # local (privatization). torch code writes its locals in
+            # place, so a local defined as a bare slice is a copy, never
+            # a view of what it was sliced from (a captured array, a
+            # resident device operand); and in an eager twin every local
+            # is a device tensor, even one defined by a python scalar
             if stmt.aug is None:
                 rhs_src = expr
+                if self.backend == "torch" and isinstance(rhs, VAccess):
+                    rhs_src = f"{self.xp}.array({rhs_src})"
+                elif self.store_np_captured:
+                    rhs_src = f"{self.xp}.asarray({rhs_src})"
             else:
-                rhs_src = f"{arr} {stmt.aug} ({expr})"
-            if self.store_np_captured:
-                rhs_src = f"{self.xp}.asarray({rhs_src})"
+                rhs_src = f"{self._read(arr, arr)} {stmt.aug} ({expr})"
+                if self.store_np_captured:
+                    rhs_src = f"{self.xp}.asarray({rhs_src})"
+            self.body_locals.add(arr)
+            self._note_assign(arr)
             self.w(f"{arr} = {rhs_src}")
             return
 
+        if self.backend == "torch" and isinstance(rhs, VAccess) \
+                and rhs.array == arr:
+            # a view of the array it is stored into (cov[i:M, i] =
+            # cov[i, i:M]): numpy copies an overlapping store through a
+            # buffer, torch refuses it
+            expr = f"{self.xp}.array({expr})"
+
         if plan.kind == "diag":
-            if self.jit_iter:
-                raise EmitError("jit: diagonal write")
+            if self.batch_iter:
+                raise EmitError("batch: diagonal write")
             v = frame[0]
             iv = self.fresh("ix")
-            self.w(f"{iv} = {self.xp}.arange({affine_py(hull.lo[v])}, "
+            # an eager twin may index a captured numpy array with it:
+            # a host index (numpy's arange) serves both that and a
+            # device tensor
+            ar = "xp" if self.store_np_captured else self.xp
+            self.w(f"{iv} = {ar}.arange({affine_py(hull.lo[v])}, "
                    f"{affine_py(hull.hi[v])})")
             comps = []
             for idx in stmt.write_idx:
@@ -524,11 +551,11 @@ class Emitter:
 
         # slice / masked
         warr, widx = arr, list(stmt.write_idx)
-        if self.jit_iter:
-            warr, widx = self._jit_rebase(arr, widx, is_write=True)
+        if self.batch_iter:
+            warr, widx = self._batch_rebase(arr, widx, is_write=True)
             if arr not in self.body_locals and arr not in \
-                    self.jit_write_arrays:
-                self.jit_write_arrays.append(arr)
+                    self.batch_write_arrays:
+                self.batch_write_arrays.append(arr)
         comps = []
         for idx in widx:
             ivars = [x for x in idx.vars() if x in frame]
@@ -547,11 +574,12 @@ class Emitter:
             mask = self.write_mask_expr(plan.conds, frame, hull)
             mv = self.fresh("m")
             self.w(f"{mv} = {mask}")
+            cur = self._read(arr, tgt)
             if stmt.aug is None:
                 combined = expr
             else:
-                combined = f"{tgt} {stmt.aug} ({expr})"
-            where = f"{self.xp}.where({mv}, {combined}, {tgt})"
+                combined = f"{cur} {stmt.aug} ({expr})"
+            where = f"{self.xp}.where({mv}, {combined}, {cur})"
             self._store(warr, sl, tgt, where, None)
 
     def _store(self, arr: str, sl: str, tgt: str, expr: str,
@@ -559,37 +587,34 @@ class Emitter:
         self._note_assign(arr)
         if self.backend == "np" or (self.store_np_captured
                                     and arr not in self.body_locals):
-            # hybrid jnp body: partial writes to *captured* arrays stay
-            # in-place numpy stores (device→host at the boundary) so the
-            # worker's sparse-diff gather sees them unchanged
+            # eager torch twin: partial writes to *captured* arrays stay
+            # in-place numpy stores (an explicit device→host copy at the
+            # boundary) so the worker's sparse-diff gather sees them
             if self.backend != "np":
-                expr = f"xp.asarray({expr})"
+                expr = f"{self.xp}.host({expr})"
             if aug is None:
                 self.w(f"{tgt} = {expr}")
             else:
                 self.w(f"{tgt} {aug}= {expr}")
+        elif aug not in (None, "+", "*"):
+            raise EmitError(f"aug {aug} on accelerator")
         elif not sl:
-            # whole-value store on a row variable (jit-iteration mode):
-            # a plain functional rebind
+            # whole-value store on a row variable (batch-iteration
+            # mode): a plain rebind
             if aug is None:
                 self.w(f"{arr} = {expr}")
-            elif aug in ("+", "*"):
+            else:
                 self.w(f"{arr} = {arr} {aug} ({expr})")
-            else:
-                raise EmitError(f"aug {aug} on accelerator")
+        elif aug is None:
+            # torch writes device tensors (locals, rows, the whole-kernel
+            # variant's parameter copies) in place
+            self.w(f"{tgt} = {expr}")
         else:
-            if aug is None:
-                self.w(f"{arr} = {arr}.at[{sl}].set({expr})")
-            elif aug == "+":
-                self.w(f"{arr} = {arr}.at[{sl}].add({expr})")
-            elif aug == "*":
-                self.w(f"{arr} = {arr}.at[{sl}].multiply({expr})")
-            else:
-                raise EmitError(f"aug {aug} on accelerator")
+            self.w(f"{tgt} {aug}= {expr}")
 
     # -- loop fallback (np backend only) -----------------------------------
     def _emit_loops(self, stmt: CanonStmt) -> None:
-        self.meta.jax_ok = False
+        self.meta.accel_ok = False
         self.meta.raised_ops.append("loop-fallback")
         rhs = normalize(stmt.rhs)
         # A raised statement is atomic: the rhs is fully evaluated before
@@ -656,10 +681,10 @@ class Emitter:
     # -- other units ------------------------------------------------------
     def emit_fft(self, u: FFTUnit) -> None:
         st = u.stmt
-        if self.jit_iter and st.src not in self.body_locals:
-            if st.src in self.jit_rows:
-                raise EmitError("jit: whole-array access after row capture")
-            self._jit_param(st.src)
+        if self.batch_iter and st.src not in self.body_locals:
+            if st.src in self.batch_rows:
+                raise EmitError("batch: whole-array access after row capture")
+            self._batch_param(st.src)
         axis = st.axis if st.axis is not None else -1
         n = f", n={affine_py(st.n)}" if st.n is not None else ""
         fn = f"{self.xp}.fft." + st.fn.split(".")[-1]
@@ -670,16 +695,16 @@ class Emitter:
         self.define_syms_for(st.out)
 
     def emit_opaque(self, u: OpaqueUnit) -> None:
-        if self.backend == "jnp":
+        if self.backend == "torch":
             raise EmitError("black-box statement: accelerator infeasible")
-        self.meta.jax_ok = False
+        self.meta.accel_ok = False
         for s in u.item.stmts:
             for line in unparse_tir(s):
                 self.w(line)
 
     def emit_seq_loop(self, u: SeqLoopUnit) -> None:
-        if self.jit_iter:
-            self._emit_jit_seq_loop(u)
+        if self.batch_iter:
+            self._emit_batch_seq_loop(u)
             return
         d = u.dim
         self.w(f"for {d.var} in range({affine_py(d.lower)}, "
@@ -693,84 +718,77 @@ class Emitter:
         self.bound.discard(d.var)
         self.depth -= 1
 
-    def _emit_jit_seq_loop(self, u: SeqLoopUnit) -> None:
-        """Sequential loop inside the jit-iteration function →
-        ``lax.fori_loop`` with an explicit carry tuple: unrolling a
-        long convergence loop (STAP runs 800 Richardson steps) would
-        explode XLA compile time.
+    def _emit_batch_seq_loop(self, u: SeqLoopUnit) -> None:
+        """Sequential loop inside the batch-iteration function → a plain
+        ``for`` over its static range (vmap runs each step's ops on the
+        whole batch; STAP runs 800 Richardson steps this way).
 
         Two passes: probe-emit the body as straight-line code to learn
-        which names it assigns, then wrap those lines in a fori body
-        function threading every previously-defined assigned name as
-        carry. Names first defined inside the loop must not escape it —
-        if a later unit reads one, the jit bails (eager fallback)."""
+        which names it assigns, then emit those lines under the loop.
+        The loop must carry state (a name defined before it and assigned
+        in it), and names first defined inside the loop must not escape
+        it — if a later unit reads one, the batched path is not emitted
+        (eager twin only). These are the conditions under which the
+        reference emits its ``fori_loop``, so both packages batch the
+        same units."""
         d = u.dim
         if d.step != 1:
-            raise EmitError("jit: non-unit sequential loop step")
+            raise EmitError("batch: non-unit sequential loop step")
         if not u.body:
             return
         defined_before = (set(self.body_locals)
-                          | set(self.jit_rows.values())
+                          | set(self.batch_rows.values())
                           | set(self._assign_log))
         log_at = len(self._assign_log)
         save_lines = list(self.lines)
         save_depth = self.depth
         save_bound = set(self.bound)
-        pre_rows = len(self.jit_rows)
+        pre_rows = len(self.batch_rows)
         body_at = len(self.lines)
-        self._jit_loop_depth += 1
+        self._batch_loop_depth += 1
         self.bound.add(d.var)
         try:
-            self._emit_jit_units(u.body)
+            self._emit_batch_units(u.body)
         finally:
-            self._jit_loop_depth -= 1
+            self._batch_loop_depth -= 1
         body_lines = self.lines[body_at:]
         self.lines = save_lines
         self.depth = save_depth
         self.bound = save_bound
 
         # rows first captured during this loop hoist above it (their
-        # preludes are in _jit_hoist), so they count as defined-before
-        defined_before.update(list(self.jit_rows.values())[pre_rows:])
-        if self._jit_loop_depth == 0 and self._jit_hoist:
-            for ln in self._jit_hoist:
+        # preludes are in _batch_hoist), so they count as defined-before
+        defined_before.update(list(self.batch_rows.values())[pre_rows:])
+        if self._batch_loop_depth == 0 and self._batch_hoist:
+            for ln in self._batch_hoist:
                 self.w(ln)
-            self._jit_hoist = []
+            self._batch_hoist = []
 
         assigned_in = list(dict.fromkeys(self._assign_log[log_at:]))
         carry = [n for n in assigned_in if n in defined_before]
         fresh = [n for n in assigned_in
                  if n not in defined_before and not n.startswith("__")]
         if not carry:
-            raise EmitError("jit: sequential loop carries no state")
+            raise EmitError("batch: sequential loop carries no state")
         if fresh:
-            escapes = set(fresh) & self._unit_reads(self._jit_future)
+            escapes = set(fresh) & self._unit_reads(self._batch_future)
             if escapes:
                 raise EmitError(
-                    f"jit: loop-local names escape: {sorted(escapes)}")
+                    f"batch: loop-local names escape: {sorted(escapes)}")
 
-        cs = ", ".join(carry) + ","
-        cv = self.fresh("c")
-        fv = self.fresh("fori")
-        self.w(f"{cv} = ({cs})")
-        self.w(f"def {fv}({d.var}, __c):")
-        self.w(f"    ({cs}) = __c")
-        pad = "    "
-        self.lines.extend(pad + ln for ln in body_lines)
-        self.w(f"    return ({cs})")
-        self.w(f"{cv} = __jax.lax.fori_loop({affine_py(d.lower)}, "
-               f"{affine_py(d.upper)}, {fv}, {cv})")
-        self.w(f"({cs}) = {cv}")
+        self.w(f"for {d.var} in range({affine_py(d.lower)}, "
+               f"{affine_py(d.upper)}):")
+        self.lines.extend("    " + ln for ln in body_lines)
 
-    def _emit_jit_units(self, units: Sequence[Unit]) -> None:
-        """Emit a unit list keeping ``_jit_future`` pointed at every
+    def _emit_batch_units(self, units: Sequence[Unit]) -> None:
+        """Emit a unit list keeping ``_batch_future`` pointed at every
         unit that still runs after the current one (loop escape
         analysis needs the full continuation, not just siblings)."""
-        outer = self._jit_future
+        outer = self._batch_future
         for i, b in enumerate(units):
-            self._jit_future = list(units[i + 1:]) + outer
+            self._batch_future = list(units[i + 1:]) + outer
             self.emit_unit(b)
-        self._jit_future = outer
+        self._batch_future = outer
 
     def _unit_reads(self, units: Sequence[Unit]) -> Set[str]:
         """Every name (array, scalar, iterator bound) a unit list might
@@ -816,7 +834,7 @@ class Emitter:
                 for b in u.body:
                     unit(b)
             else:
-                raise EmitError("jit: opaque unit in continuation")
+                raise EmitError("batch: opaque unit in continuation")
 
         for u in units:
             unit(u)
@@ -841,39 +859,40 @@ class Emitter:
         self.bound.discard(d.var)
         self.depth -= 1
 
-    def _emit_jit_iter(self, u: PforUnit, iter_name: str) -> None:
-        """The per-iteration function for __pfor_jit: computes one pfor
-        iteration g functionally and returns the written rows."""
+    def _emit_batch_iter(self, u: PforUnit, iter_name: str) -> None:
+        """The per-iteration function for __pfor_batch: computes one pfor
+        iteration g and returns the written rows."""
         d = u.dim
         if d.step != 1:
-            raise EmitError("jit: non-unit pfor step")
+            raise EmitError("batch: non-unit pfor step")
         if not u.body:
-            raise EmitError("jit: empty pfor body")
+            raise EmitError("batch: empty pfor body")
         g = d.var
         entry_depth = self.depth
         self.depth += 1
         self.bound.add(g)
-        self._jit_future = []
-        self._emit_jit_units(u.body)
-        if not self.jit_write_arrays:
-            raise EmitError("jit: body writes no pfor rows")
-        rows = ", ".join(self.jit_rows[a] for a in self.jit_write_arrays)
+        self._batch_future = []
+        self._emit_batch_units(u.body)
+        if not self.batch_write_arrays:
+            raise EmitError("batch: body writes no pfor rows")
+        rows = ", ".join(self.batch_rows[a]
+                         for a in self.batch_write_arrays)
         self.w(f"return ({rows},)")
         self.bound.discard(g)
         self.depth = entry_depth
-        params = ", ".join(self.jit_params)
+        params = ", ".join(self.batch_params)
         self.lines.insert(0, "    " * entry_depth
                           + f"def {iter_name}({g}, __offs, {params}):")
 
     def emit_pfor(self, u: PforUnit) -> None:
-        if self.backend == "jnp":
+        if self.backend == "torch":
             raise EmitError("pfor: accelerator variant not generated")
         self.meta.uses_pfor = True
         idx = self.meta.pfor_count
         self.meta.pfor_count += 1
         d = u.dim
         body_name = f"__pfor_body_{idx}"
-        # the jnp twin re-emits the same units, so it needs the same
+        # the twins re-emit the same units, so they need the same
         # deferred shape symbols the np body is about to consume
         pending_before = {k: list(v) for k, v in self.pending_syms.items()}
         self._emit_pfor_body(u, body_name)
@@ -886,7 +905,7 @@ class Emitter:
         # unit label: lets obs spans / trace rows name which pfor unit
         # of the kernel a chunk belongs to
         self.w(f"{body_name}.__unit__ = {idx}")
-        if self.pfor_twins and getattr(u, "jnp_feasible", True):
+        if self.pfor_twins and getattr(u, "accel_feasible", True):
             # one twin per registered accelerator-feasible backend of
             # the port's own registry, in registration order
             for bk in backends_mod.twin_backends():
@@ -900,31 +919,29 @@ class Emitter:
                 self.w(f"{body_name}.{bk.attr} = {twin_name}")
                 self.meta.pfor_twin_units.setdefault(
                     bk.name, []).append(idx)
-                if bk.name == "jnp":
-                    self.meta.pfor_jnp_units.append(idx)
         tile = u.tile if u.tile is not None else "None"
         self.w(f"__pfor_run({body_name}, {affine_py(d.lower)}, "
                f"{affine_py(d.upper)}, {tile})")
         self.meta.raised_ops.append("pfor")
 
-    def _try_emit_jnp_twin(self, u: PforUnit, body_name: str, idx: int,
-                           pending_syms: Dict[str, List[str]]
-                           ) -> Optional[str]:
-        """Emit the accelerator twin of one pfor body, or None when the
-        unit's body is jnp-infeasible (loop fallback / black box). The
+    def _try_emit_torch_twin(self, u: PforUnit, body_name: str, idx: int,
+                             pending_syms: Dict[str, List[str]]
+                             ) -> Optional[str]:
+        """Emit the torch twin of one pfor body, or None when the unit's
+        body is accelerator-infeasible (loop fallback / black box). The
         twin is a separate function scope, so its temp names and body
         locals are independent of the np body's.
 
-        When the body additionally fits the stricter jit-iteration
-        shape (pure row-parallel over the pfor var), the twin leads
-        with a compiled fast path: a nested per-iteration function
-        handed to __pfor_jit, which vmaps + jits it per pow2 iteration
-        bucket and scatters the returned rows in place. The eager
-        per-iteration loop stays behind it as the always-correct
-        fallback (and as the path for workers without jax jit)."""
-        jnp_name = f"{body_name}__jnp"
-        sub = Emitter(self.s, "jnp")
-        sub.xp = "__jxp"
+        When the body additionally fits the stricter batch-iteration
+        shape (pure row-parallel over the pfor var), the twin leads with
+        a batched fast path: a nested per-iteration function handed to
+        __pfor_batch, which runs it under ``torch.func.vmap`` over the
+        chunk's (pow2-bucketed) iterations and scatters the returned
+        rows in place. The eager per-iteration loop stays behind it, on
+        the same device, for a chunk the batched path cannot run."""
+        name = f"{body_name}__torch"
+        sub = Emitter(self.s, "torch")
+        sub.xp = "__txp"
         sub.store_np_captured = True
         sub.depth = self.depth + 1
         sub.bound = set(self.bound)
@@ -934,34 +951,35 @@ class Emitter:
         except (EmitError, RaiseError):
             return None
 
-        jit = Emitter(self.s, "jnp")
-        jit.xp = "__jxp"
-        jit.jit_iter = True
-        jit.jit_pfor_var = u.dim.var
-        jit.depth = self.depth + 1
-        jit.bound = set(self.bound)
-        jit.pending_syms = {k: list(v) for k, v in pending_syms.items()}
+        bat = Emitter(self.s, "torch")
+        bat.xp = "__txp"
+        bat.batch_iter = True
+        bat.batch_pfor_var = u.dim.var
+        bat.depth = self.depth + 1
+        bat.bound = set(self.bound)
+        bat.pending_syms = {k: list(v) for k, v in pending_syms.items()}
         iter_name = f"__pfor_iter_{idx}"
         try:
-            jit._emit_jit_iter(u, iter_name)
-            jit_lines: Optional[List[str]] = jit.lines
+            bat._emit_batch_iter(u, iter_name)
+            batch_lines: Optional[List[str]] = bat.lines
         except (EmitError, RaiseError):
-            jit_lines = None
+            batch_lines = None
 
-        self.w(f"def {jnp_name}(__lo, __hi):")
+        self.w(f"def {name}(__lo, __hi):")
         self.depth += 1
-        if jit_lines:
-            self.lines.extend(jit_lines)
-            params = ", ".join(jit.jit_params)
-            trail = "," if len(jit.jit_params) == 1 else ""
-            wpos = tuple(jit.jit_params[a] for a in jit.jit_write_arrays)
-            self.w(f"if __pfor_jit({iter_name}, __lo, __hi, "
+        if batch_lines:
+            self.lines.extend(batch_lines)
+            params = ", ".join(bat.batch_params)
+            trail = "," if len(bat.batch_params) == 1 else ""
+            wpos = tuple(bat.batch_params[a]
+                         for a in bat.batch_write_arrays)
+            self.w(f"if __pfor_batch({iter_name}, __lo, __hi, "
                    f"({params}{trail}), {wpos!r}):")
             self.w("    return")
-            self.meta.pfor_jit_units.append(idx)
+            self.meta.pfor_batch_units.append(idx)
         self.lines.extend(sub.lines)
         self.depth -= 1
-        return jnp_name
+        return name
 
     def emit_unit(self, u: Unit) -> None:
         if isinstance(u, RaisedUnit):
@@ -1065,7 +1083,7 @@ class GeneratedVariant:
     fn_name: str
     backend: str
     meta: EmitMeta
-    returns_written: bool  # jnp variant returns tuple of written arrays
+    returns_written: bool  # torch variant returns its written arrays
     written: List[str]
 
 
@@ -1074,7 +1092,13 @@ def generate(sched: Schedule, backend: str,
     """``pfor_twins=True`` (np backend only) additionally emits, for
     every accelerator-feasible pfor body, the twin of each registered
     backend that takes it — the per-unit backend variants the
-    heterogeneous cluster routes between."""
+    heterogeneous cluster routes between.
+
+    ``backend="torch"`` generates the whole-kernel torch variant (run
+    with ``xp`` bound to :mod:`repro_torch.core.txp`). Its preamble
+    copies every array parameter to the device; it then writes those
+    device tensors in place rather than returning rebuilt arrays, and
+    returns the written parameters for the dispatcher to copy home."""
     fn = sched.program.fn
     param_names = [n for n, _ in fn.params]
     em = Emitter(sched, backend)
@@ -1087,7 +1111,7 @@ def generate(sched: Schedule, backend: str,
     # arrays defined in the body are deferred until their definition.
     list_params = [n for n, t in fn.params if t.kind == "list"]
     array_params = [n for n, t in fn.params if t.is_array_like]
-    for n in (array_params if backend == "jnp" else list_params):
+    for n in (array_params if backend == "torch" else list_params):
         em.w(f"{n} = xp.asarray({n})")
     shape_syms = sorted({
         v
@@ -1106,7 +1130,7 @@ def generate(sched: Schedule, backend: str,
         em.emit_unit(u)
 
     written_params = [wn for wn in sched.written if wn in param_names]
-    if backend == "jnp":
+    if backend == "torch":
         returned = written_params
     else:
         # np backend mutates ndarrays in place, but list-typed params were

@@ -12,10 +12,16 @@ scheduling (absorption / distribution / pfor) → operator raising → code
 generation (the np variant, whose pfor bodies carry one twin per
 registered accelerator backend) → multi-version dispatcher.
 
-In this port the accelerator twin is ``cuda``: pattern-matched pfor units
-run through the hand-written CUDA kernels on the cluster's workers. The
-head only compiles; it needs torch importable, not a GPU. The
-whole-kernel accelerator variant of the reference is not ported yet.
+In this port the accelerator backend is torch. Every accelerator-feasible
+pfor body gets a ``torch`` twin (computed through
+:mod:`repro_torch.core.txp` on a worker's device, batched with
+``torch.func.vmap`` where the body is row-parallel), and matmul-,
+attention- and scan-shaped bodies also get a ``cuda`` twin that runs a
+hand-written CUDA kernel. A pfor-free kernel gets a whole-kernel
+``torch`` variant, which the dispatcher picks above its FLOP threshold;
+it computes on the process's torch device (:func:`txp.set_device`, the
+card unless bound otherwise). Compiling needs torch importable, not a
+GPU.
 
 Hints can be hand-written (above) or harvested by the dynamic profiler
 (paper §1: "supplied by the programmer or obtained by dynamic profiler
@@ -89,8 +95,8 @@ def _resolved_type_sig(fn: Callable,
 
 
 def _torch_ok() -> bool:
-    """Is torch importable here? The cuda twin's runtime surface needs
-    it on the workers; the head that compiles needs no GPU."""
+    """Is torch importable here? The twins' runtime surfaces need it on
+    the workers; the head that compiles needs no GPU."""
     try:
         import torch  # noqa: F401
     except ImportError:
@@ -102,8 +108,8 @@ def _make_np_variant(gen_np: codegen.GeneratedVariant,
                      pfor_cfg: PforConfig) -> Variant:
     extra = {"__pfor_run": pfor_cfg.make_runner()}
     # hybrid variant: pfor bodies carry per-backend twins — each
-    # recorded backend contributes its exec-namespace bindings (__cuk)
-    # via its registry hook
+    # recorded backend contributes its exec-namespace bindings (__txp,
+    # __pfor_batch, __cuk) via its registry hook
     twin_units = dict(getattr(gen_np.meta, "pfor_twin_units", None) or {})
     for bname in twin_units:
         try:
@@ -117,6 +123,12 @@ def _make_np_variant(gen_np: codegen.GeneratedVariant,
     return Variant("np", np_fn, gen_np)
 
 
+def _make_torch_variant(gen: codegen.GeneratedVariant) -> Variant:
+    from . import txp
+
+    return Variant("torch", _exec_variant(gen, txp, {}), gen)
+
+
 def compile_kernel(
     fn: Callable,
     *,
@@ -126,7 +138,7 @@ def compile_kernel(
     tile: Optional[int] = None,
     workers: int = 4,
     accel_threshold: float = cost.ACCEL_FLOP_THRESHOLD,
-    enable_cuda: bool = True,
+    enable_accel: bool = True,
     hints: Optional[Dict[str, str]] = None,
     cache: Optional[Union[VariantCache, str]] = None,
     trace=None,
@@ -155,9 +167,9 @@ def compile_kernel(
     # importable: a twin-less compile on a torch-less host files under
     # the np-only token, so installing torch later recompiles with twins
     # instead of serving the twin-less entry forever.
-    twins_ok = enable_cuda and _torch_ok()
+    twins_ok = enable_accel and _torch_ok()
     backend_tag = backends.cache_token(twins_ok) \
-        + ("" if enable_cuda else ":nocuda") \
+        + ("" if enable_accel else ":noaccel") \
         + (":dist" if distribute else ":nodist") \
         + (":fuse" if fuse else ":nofuse")
     src_h = type_sig = None
@@ -179,8 +191,10 @@ def compile_kernel(
     t_parse = time.perf_counter()
     program = scop.extract(tir_fn)
     t_scop = time.perf_counter()
-    # np mutates in place: contract temps, keep aug statements
-    # distributed as library calls
+    # Each backend gets the fusion profile that matches its memory
+    # behaviour: np mutates in place (contract temps, keep aug statements
+    # distributed as library calls); the whole-kernel torch variant below
+    # takes the functional profile, as the reference's jnp variant does
     sched = schedule_mod.schedule(program, distribute=distribute, fuse=fuse,
                                   fusion_profile="inplace")
     t_sched = time.perf_counter()
@@ -202,17 +216,33 @@ def compile_kernel(
 
     # Optimized NumPy variant (always attempted; falls back statement-wise).
     # With pfor units and torch available it is a *hybrid*: seq units
-    # stay np, every pfor body the cuda matcher recognizes gets a cuda
-    # twin the cluster routes GPU workers to (per-unit backend
-    # variants). Twins are generated eagerly (not on first cluster
-    # dispatch) so the cached entry is self-contained and a runtime can
-    # be bound to the compiled kernel later.
+    # stay np, every accelerator-feasible pfor body gets a torch twin
+    # and every one the cuda matcher recognizes a cuda twin, which the
+    # cluster routes GPU workers to (per-unit backend variants). Twins
+    # are generated eagerly (not on first cluster dispatch) so the
+    # cached entry is self-contained and a runtime can be bound to the
+    # compiled kernel later.
     hybrid = twins_ok and sched.has_pfor
     t_cg0 = time.perf_counter()
     gen_np = codegen.generate(sched, "np", pfor_twins=hybrid)
     variants["np"] = _make_np_variant(gen_np, pfor_cfg)
     _stage(cscope, kname, "codegen", t_cg0, time.perf_counter(),
            tracing)
+
+    # Whole-kernel torch variant (pfor-free, opaque-free kernels only)
+    if twins_ok and not sched.has_opaque and not sched.has_pfor:
+        t_cg0 = time.perf_counter()
+        try:
+            # with fusion off both profiles schedule identically
+            sched_fn = sched if not fuse else schedule_mod.schedule(
+                program, distribute=distribute, fuse=fuse,
+                fusion_profile="functional")
+            variants["torch"] = _make_torch_variant(
+                codegen.generate(sched_fn, "torch"))
+        except codegen.EmitError:
+            pass
+        _stage(cscope, kname, "codegen", t_cg0, time.perf_counter(),
+               tracing)
 
     compile_s = time.perf_counter() - t0
 
@@ -259,6 +289,8 @@ def _rebuild_from_entry(fn: Callable, entry: CacheEntry,
         for name, gen in entry.generated.items():
             if name == "np":
                 variants["np"] = _make_np_variant(gen, pfor_cfg)
+            elif name == "torch":
+                variants["torch"] = _make_torch_variant(gen)
         ck = CompiledKernel(fn, entry.params, entry.sched, variants,
                             pfor_config=pfor_cfg,
                             accel_threshold=accel_threshold)

@@ -126,7 +126,7 @@ ACCEL_DISPATCH_OVERHEAD_S = 2e-3
 DISTRIBUTE_FLOP_THRESHOLD = 1e7
 
 # Per-chunk accelerator launch overhead on a worker (host→device staging
-# + kernel dispatch for the jnp twin of a pfor body); conservative so
+# + kernel dispatch for the torch twin of a pfor body); conservative so
 # tiny chunks stay on the np body. Owned by the backend registry (each
 # backend's cost profile rides its registration); re-exported here for
 # call sites that read the constants.
@@ -212,10 +212,10 @@ def chunk_backend_seconds(flops: float, nbytes: float, profile,
     table the cluster prices instead of one kernel-level threshold.
 
     The formula is the backend's own ``chunk_seconds`` cost profile
-    (:mod:`repro_torch.core.backends`): np prices against host gflops/membw,
-    jnp against the (real or simulated) GPU with staging bandwidth the
-    device probe measured, pallas like jnp with both roofline terms
-    scaled by its fused-kernel speedup."""
+    (:mod:`repro_torch.core.backends`): np prices against host
+    gflops/membw, torch against the (real or simulated) GPU with staging
+    bandwidth the device probe measured, cuda like torch with both
+    roofline terms scaled by its fused-kernel speedup."""
     bk = backends.get(backend)
     if bk.chunk_seconds is None:  # pragma: no cover — registry contract
         raise ValueError(f"backend {backend!r} has no cost profile")
@@ -227,19 +227,16 @@ def _feasible(bk, profile) -> bool:
 
 
 def pick_chunk_backend(flops: float, nbytes: float, profile,
-                       allow_jnp: bool = True,
-                       candidates: Optional[Tuple[str, ...]] = None) -> str:
+                       candidates: Tuple[str, ...] = ()) -> str:
     """Choose the cheapest body backend for one worker's chunk.
 
     ``candidates`` are the twin backends whose bodies actually exist for
-    the unit (None keeps the legacy jnp-or-np contract). Only workers
-    the backend declares itself feasible on (e.g. a real or simulated
-    GPU) are priced against it; a zero FLOP estimate (direct calls that
-    bypassed the dispatcher) degrades to capability tags — the
-    highest-priority feasible candidate wins. Ties price to np: a twin
-    must be *strictly* cheaper to leave the always-correct body."""
-    if candidates is None:
-        candidates = ("jnp",) if allow_jnp else ()
+    the unit (none: the np body). Only workers the backend declares
+    itself feasible on (e.g. a real or simulated GPU) are priced against
+    it; a zero FLOP estimate (direct calls that bypassed the dispatcher)
+    degrades to capability tags — the highest-priority feasible
+    candidate wins. Ties price to np: a twin must be *strictly* cheaper
+    to leave the always-correct body."""
     live = [backends.get(c) for c in candidates
             if backends.is_registered(c)]
     live = [bk for bk in live if _feasible(bk, profile)]
@@ -258,14 +255,13 @@ def pick_chunk_backend(flops: float, nbytes: float, profile,
 
 
 def unit_backend_table(flops_per_worker: float, nbytes_per_worker: float,
-                       profiles: Iterable, allow_jnp: bool = True,
-                       candidates: Optional[Tuple[str, ...]] = None
-                       ) -> List[str]:
+                       profiles: Iterable,
+                       candidates: Tuple[str, ...] = ()) -> List[str]:
     """Backend choice per worker profile for one pfor unit (in profile
     order) — the row of the (unit, backend, worker) pricing table the
     sharder consumes."""
     return [pick_chunk_backend(flops_per_worker, nbytes_per_worker, p,
-                               allow_jnp, candidates)
+                               candidates)
             for p in profiles]
 
 
@@ -316,6 +312,8 @@ def calibrate_accel_threshold(
 # plus first-touch page faults (disproportionately expensive for large
 # temps — the `elem_chain` np-vs-jnp anomaly in BENCH_fusion.json), while
 # jnp's arena allocator amortizes it almost entirely.
+# The "jnp" key is the functional fusion profile, under the name the
+# copied fusion module (core/fusion.py) gives it.
 ALLOC_BASE_S = {"np": 2e-6, "jnp": 5e-7}
 ALLOC_BW = {"np": 8e9, "jnp": 80e9}   # first-touch bytes/s
 

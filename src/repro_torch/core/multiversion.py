@@ -4,7 +4,7 @@ Builds the runtime decision tree around the generated variants:
 
     legality (types/ranks match the hints?)          — correctness
       └─ profitability (enough FLOPs for the accelerator variant?)
-           ├─ yes → jnp variant  (the NumPy→CuPy analogue)
+           ├─ yes → torch variant  (the NumPy→CuPy analogue)
            ├─ no  → optimized NumPy variant
       └─ mismatch → original user function (always correct)
 
@@ -34,7 +34,7 @@ from .types import (TypeInfo, matches, nested_list_shape,
 
 @dataclass
 class Variant:
-    name: str                    # 'jnp' | 'np' | 'original'
+    name: str                    # 'torch' | 'np' | 'original'
     fn: Callable
     generated: Optional[GeneratedVariant] = None
 
@@ -217,9 +217,9 @@ class CompiledKernel:
             return self.variants["original"], rec
         flops = self.estimate_flops(bound)
         profitable = cost.accel_profitable(flops, self.accel_threshold)
-        if profitable and "jnp" in self.variants:
-            rec = DispatchRecord("jnp", True, flops, True)
-            return self.variants["jnp"], rec
+        if profitable and "torch" in self.variants:
+            rec = DispatchRecord("torch", True, flops, True)
+            return self.variants["torch"], rec
         if "np" in self.variants:
             rec = DispatchRecord("np", True, flops, profitable)
             return self.variants["np"], rec
@@ -314,44 +314,37 @@ class CompiledKernel:
             "fused_units": getattr(fusion, "fused_units", 0),
             "contracted_arrays": len(
                 getattr(fusion, "contracted_arrays", ()) or ()),
-            "pfor_jnp_units": len(self.pfor_jnp_units()),
-            "pfor_jit_units": len(self.pfor_jit_units()),
+            "pfor_torch_units": len(self.pfor_torch_units()),
+            "pfor_batch_units": len(self.pfor_batch_units()),
             "pfor_twin_units": {name: len(units) for name, units
                                 in self.pfor_twin_units().items()},
             "from_cache": self.from_cache,
         }
 
-    def pfor_jnp_units(self) -> List[int]:
-        """pfor unit indices whose np body carries a jnp twin — the
-        per-unit backend variants the heterogeneous cluster routes
-        between (empty for pfor-free or np-only kernels)."""
-        v = self.variants.get("np")
-        if v is None or v.generated is None:
-            return []
-        return list(getattr(v.generated.meta, "pfor_jnp_units", ()) or ())
+    def pfor_torch_units(self) -> List[int]:
+        """pfor unit indices whose np body carries a torch twin — the
+        units the heterogeneous cluster may run on a worker's device
+        (empty for pfor-free or np-only kernels)."""
+        return self.pfor_twin_units().get("torch", [])
 
-    def pfor_jit_units(self) -> List[int]:
-        """Subset of :meth:`pfor_jnp_units` whose twin also carries a
-        vmappable per-iteration function wired through ``__pfor_jit``
-        (the compiled accelerator path)."""
+    def pfor_batch_units(self) -> List[int]:
+        """Subset of :meth:`pfor_torch_units` whose twin also carries a
+        per-iteration function wired through ``__pfor_batch`` (the
+        batched ``torch.func.vmap`` path)."""
         v = self.variants.get("np")
         if v is None or v.generated is None:
             return []
-        return list(getattr(v.generated.meta, "pfor_jit_units", ()) or ())
+        return list(getattr(v.generated.meta, "pfor_batch_units", ())
+                    or ())
 
     def pfor_twin_units(self) -> Dict[str, List[int]]:
-        """Backend name → pfor unit indices carrying that backend's twin
-        (registry-driven superset of :meth:`pfor_jnp_units`). Entries
-        generated before the registry recorded jnp twins only; they
-        project through unchanged."""
+        """Backend name → pfor unit indices carrying that backend's
+        twin."""
         v = self.variants.get("np")
         if v is None or v.generated is None:
             return {}
-        twins = getattr(v.generated.meta, "pfor_twin_units", None)
-        if twins:
-            return {name: list(units) for name, units in twins.items()}
-        jnp_units = self.pfor_jnp_units()
-        return {"jnp": jnp_units} if jnp_units else {}
+        twins = getattr(v.generated.meta, "pfor_twin_units", None) or {}
+        return {name: list(units) for name, units in twins.items()}
 
     def call_variant(self, name: str, *args, **kwargs):
         """Force a specific variant (benchmark harness hook)."""
@@ -377,6 +370,9 @@ class CompiledKernel:
 
     @staticmethod
     def _copy_back(orig, val):
+        if hasattr(val, "detach"):
+            # a device tensor of the torch variant: bring it home
+            val = val.detach().cpu().numpy()
         arr = np.asarray(val)
         if isinstance(orig, np.ndarray):
             np.copyto(orig, arr.astype(orig.dtype, copy=False))

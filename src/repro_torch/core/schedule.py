@@ -59,7 +59,7 @@ class PforUnit:
     ``sliceable`` names captured arrays the body provably indexes only by
     ``dim.var`` on their leading axis — the cluster runtime ships each
     worker just its chunk's rows of those instead of broadcasting them
-    (set by :func:`_pfor_sliceable` after fusion). ``jnp_feasible`` is
+    (set by :func:`_pfor_sliceable` after fusion). ``accel_feasible`` is
     the schedule-level pre-check for a per-unit accelerator twin body
     (no black-box statements anywhere in the body); codegen still owns
     the final word, since loop fallbacks only surface at emit time."""
@@ -68,7 +68,7 @@ class PforUnit:
     body: List["Unit"]
     tile: Optional[int] = None
     sliceable: Tuple[str, ...] = ()
-    jnp_feasible: bool = True
+    accel_feasible: bool = True
 
 
 Unit = Union[RaisedUnit, FFTUnit, OpaqueUnit, SeqLoopUnit, PforUnit]
@@ -272,7 +272,7 @@ def schedule(program: ScopProgram, distribute: bool = True,
     for u in _flatten(sched.units):
         if isinstance(u, PforUnit):
             u.sliceable = _pfor_sliceable(u)
-            u.jnp_feasible = not any(
+            u.accel_feasible = not any(
                 isinstance(b, OpaqueUnit) for b in _flatten(u.body))
     stage_spans.append(("dependence", t0, time.perf_counter()))
     sched.stage_spans = stage_spans

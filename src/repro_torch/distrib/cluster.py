@@ -27,12 +27,14 @@ process boundaries:
     directory so a fleet of runtimes warm-starts compilation from one
     store (:meth:`compile`).
 
-``device`` says where the workers' kernel runtime computes. The default
-``"cuda"`` needs a CUDA device: the head raises without one, builds the
-hand-written kernel library once (under a file lock) before any worker
-starts, and spawns the workers, since a forked child cannot initialise
-CUDA. ``device="cpu"`` runs the kernels' plain torch versions instead
-(the CPU tests).
+``device`` says where the workers' accelerator twins compute: torch
+twins through :mod:`repro_torch.core.txp`, cuda twins through the
+kernel runtime. The default ``"cuda"`` needs a CUDA device: the head
+raises without one, builds the hand-written kernel library once (under
+a file lock) before any worker starts, and spawns the workers, since a
+forked child cannot initialise CUDA. ``device="cpu"`` runs the torch
+twins and the kernels' plain torch versions on the CPU instead (the CPU
+tests).
 """
 
 from __future__ import annotations
@@ -78,8 +80,10 @@ ROWS_MISSING = "rows-missing"
 
 # a cuda chunk error carrying this marker means "the kernel runtime
 # refuses this lowering" (kernels/api.py, e.g. integer operands): the
-# only cuda error that steps down to the np body on a CUDA fleet. Any
-# other one is a kernel build/launch failure and fails the task.
+# only twin error that steps down its degradation chain (to the torch
+# twin, on the same device) on a CUDA fleet. Any other cuda error is a
+# kernel build/launch failure, and any torch twin error a failure of the
+# twin: both fail the task.
 CUDA_INFEASIBLE = "cuda-lowering-infeasible"
 
 
@@ -284,6 +288,11 @@ class ClusterRuntime:
     # off the cuda step of a TaskSpec.alt degradation chain
     cuda_chunks = obs.MetricAttr("cuda_chunks")
     cuda_fallbacks = obs.MetricAttr("cuda_fallbacks")
+    # chunks shipped with a torch twin body, and chunks that fell off
+    # the torch step (device="cpu" fleets only: on a card a torch twin
+    # error fails the task)
+    torch_chunks = obs.MetricAttr("torch_chunks")
+    torch_fallbacks = obs.MetricAttr("torch_fallbacks")
     sliced_args = obs.MetricAttr("sliced_args")
     bytes_saved_sliced = obs.MetricAttr("bytes_saved_sliced")
     blob_hits = obs.MetricAttr("blob_hits")
@@ -292,7 +301,12 @@ class ClusterRuntime:
     cells_skipped = obs.MetricAttr("cells_skipped")
     rows_skipped = obs.MetricAttr("rows_skipped")
     bytes_saved_rows = obs.MetricAttr("bytes_saved_rows")
-    # worker-side accel counters, aggregated off chunk "done" messages
+    # worker-side accel counters, aggregated off chunk "done" messages:
+    # torch-twin chunks that ran batched from a kept entry, that built
+    # one, and that ran the eager twin instead (same device)
+    batch_hits = obs.MetricAttr("batch_hits")
+    batch_builds = obs.MetricAttr("batch_builds")
+    batch_fallbacks = obs.MetricAttr("batch_fallbacks")
     resident_hits = obs.MetricAttr("resident_hits")
     resident_stages = obs.MetricAttr("resident_stages")
     resident_cells = obs.MetricAttr("resident_cells")
@@ -855,9 +869,11 @@ class ClusterRuntime:
             ts.spec.attempts += 1
             kernel_failed = self._kernel_failed(ts.spec, message or "")
             if kernel_failed:
-                self._fault_event("cuda_kernel_errors", task=tid,
+                bk = ts.spec.backend
+                self._fault_event("cuda_kernel_errors" if bk == "cuda"
+                                  else "torch_twin_errors", task=tid,
                                   wid=wh.wid)
-                message = (f"cuda chunk failed on worker {wh.wid} of a "
+                message = (f"{bk} chunk failed on worker {wh.wid} of a "
                            f"{self.device!r} fleet (no CPU fallback "
                            f"there): {message}")
             if (ts.spec.attempts < self.max_attempts and not kernel_failed
@@ -1091,13 +1107,14 @@ class ClusterRuntime:
                 ts.event.set()
 
     def _kernel_failed(self, spec: TaskSpec, message: str) -> bool:
-        """Did a cuda chunk of a CUDA fleet fail in its kernel (build,
-        launch, or the ``REPRO_CUDA_CHAOS`` knob)? Such an error fails
-        the task: only a refused lowering (:data:`CUDA_INFEASIBLE`)
-        steps down to the np body, and the blob/rows markers are
-        transport faults that retry the same body."""
+        """Did a twin chunk of a CUDA fleet fail on the card — a cuda
+        chunk in its kernel (build, launch, or the ``REPRO_CUDA_CHAOS``
+        knob), or a torch twin? Such an error fails the task: only a
+        refused lowering (:data:`CUDA_INFEASIBLE`) steps down the
+        chain, and the blob/rows markers are transport faults that
+        retry the same body."""
         return (self.device != "cpu" and spec.kind == "chunk"
-                and spec.backend == "cuda"
+                and spec.backend in ("cuda", "torch")
                 and CUDA_INFEASIBLE not in message
                 and BLOB_MISSING not in message
                 and ROWS_MISSING not in message)
@@ -1105,12 +1122,13 @@ class ClusterRuntime:
     def _maybe_downgrade_backend(self, spec: TaskSpec,
                                  message: str) -> None:
         """A chunk that *errored* on a worker retries one step down its
-        ``TaskSpec.alt`` degradation chain (registry-ordered, e.g.
-        cuda → np). On a ``device="cpu"`` fleet (the kernels' plain
+        ``TaskSpec.alt`` degradation chain (registry-ordered: cuda →
+        torch → np). On a ``device="cpu"`` fleet (the kernels' plain
         versions, posing GPU workers) any error steps down, as in the
         reference; on a CUDA fleet only a lowering the kernel runtime
-        refuses does (:meth:`_kernel_failed` fails the rest), so no
-        chunk of a card fleet quietly moves to the CPU.
+        refuses does, from cuda to the torch twin on the same device
+        (:meth:`_kernel_failed` fails the rest), so no chunk of a card
+        fleet quietly moves to the CPU.
 
         ``alt`` holds either a tuple of ``(backend, blob_id, parts)``
         steps (registry chains) or a single such triple (pre-registry
@@ -1122,6 +1140,8 @@ class ClusterRuntime:
             return
         if spec.backend == "cuda":
             self.cuda_fallbacks += 1
+        elif spec.backend == "torch":
+            self.torch_fallbacks += 1
         steps = spec.alt if isinstance(spec.alt[0], tuple) \
             else (spec.alt,)
         spec.backend, spec.blob_id, spec.parts = steps[0]
@@ -1262,6 +1282,8 @@ class ClusterRuntime:
             self.gpu_chunks += 1
             if spec.backend == "cuda":
                 self.cuda_chunks += 1
+            elif spec.backend == "torch":
+                self.torch_chunks += 1
 
     def _wire_spec(self, spec: TaskSpec, wh: _WorkerHandle) -> Dict:
         """Encode a task for the wire, resolving every ref arg so the
@@ -1722,7 +1744,7 @@ class ClusterRuntime:
         so the merge needs no conflict resolution.
 
         Heterogeneous routing: when the body carries registered-backend
-        twins (``body.__cuda__``/…, emitted per pfor
+        twins (``body.__torch__``/``body.__cuda__``, emitted per pfor
         unit by codegen), each worker's backend is priced from its
         device profile (:func:`repro_torch.core.cost.pick_chunk_backend` over
         ``est_flops`` and the payload bytes, candidates = the twins
@@ -1752,7 +1774,7 @@ class ClusterRuntime:
         bodies = {"np": body}
         if not self.np_only:
             # codegen stamps each registered backend's twin onto the np
-            # body under the backend's attr (__cuda__, …)
+            # body under the backend's attr (__torch__, __cuda__)
             for bk_obj in backends_mod.twin_backends():
                 twin = getattr(body, bk_obj.attr, None)
                 if twin is not None:
@@ -1796,8 +1818,7 @@ class ClusterRuntime:
                      + parts_by["np"].broadcast_nbytes())
         backends = cost_model.unit_backend_table(
             est_flops / len(views), per_bytes,
-            [v.profile for v in views],
-            allow_jnp=bool(candidates), candidates=candidates)
+            [v.profile for v in views], candidates=candidates)
         hetero = any(b != "np" for b in backends)
         # register every blob this run may use: the chosen backends
         # plus each one's degradation-chain members ("np" always — it
@@ -1877,8 +1898,8 @@ class ClusterRuntime:
             out = self.plane.new_ref(tid)
             alt = None
             if bk != "np":
-                # registry-ordered degradation chain (cuda → np): each
-                # erroring attempt pops one step off
+                # registry-ordered degradation chain (cuda → torch →
+                # np): each erroring attempt pops one step off
                 chain = [b for b in backends_mod.degradation_chain(bk)
                          if b in bodies]
                 alt = tuple((b, bids[b], parts_by[b]) for b in chain)
@@ -2113,6 +2134,8 @@ class ClusterRuntime:
             "cpu_chunks": self.cpu_chunks,
             "cuda_chunks": self.cuda_chunks,
             "cuda_fallbacks": self.cuda_fallbacks,
+            "torch_chunks": self.torch_chunks,
+            "torch_fallbacks": self.torch_fallbacks,
             "unit_backend": {k: dict(v)
                              for k, v in self.unit_backend.items()},
             "chunks_executed": dict(self.chunks_executed),
@@ -2124,6 +2147,9 @@ class ClusterRuntime:
             "cells_skipped": self.cells_skipped,
             "rows_skipped": self.rows_skipped,
             "bytes_saved_rows": self.bytes_saved_rows,
+            "batch_hits": self.batch_hits,
+            "batch_builds": self.batch_builds,
+            "batch_fallbacks": self.batch_fallbacks,
             "resident_hits": self.resident_hits,
             "resident_stages": self.resident_stages,
             "resident_cells": self.resident_cells,

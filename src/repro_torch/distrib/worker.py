@@ -60,6 +60,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from . import accel
+from ..core import txp
 from ..kernels import api as kernel_api
 from .device import measure_profile
 from .serial import assemble_fn, closure_arrays, loads_fn, rebase_chunk
@@ -251,12 +252,14 @@ def worker_main(conn, wid: Optional[int] = None, sim_gpu: bool = False,
     connection or a ``("tcp", (host, port), authkey)`` endpoint (the
     multi-host path — also reachable via ``python -m
     repro_torch.distrib.worker --connect host:port --authkey <hex>`` from any
-    machine). ``device`` is where this worker's kernel runtime
-    (:mod:`repro_torch.kernels.api`, bound as ``__cuk`` in cuda twins)
-    computes: ``"cuda"`` (the default) launches the hand-written
-    kernels and raises on a host without CUDA, ``"cpu"`` runs their
-    plain torch versions. The kernel library is built by the head
-    before any worker starts; a worker only loads it. ``sim_gpu`` makes
+    machine). ``device`` is where this worker's twins compute — torch
+    twins through :mod:`repro_torch.core.txp` (``__txp``), cuda twins
+    through the kernel runtime :mod:`repro_torch.kernels.api`
+    (``__cuk``): ``"cuda"`` (the default) runs them on the card and
+    raises on a host without CUDA, ``"cpu"`` runs the torch twins and
+    the kernels' plain torch versions on the CPU. The kernel library is
+    built by the head before any worker starts; a worker only loads it.
+    ``sim_gpu`` makes
     the profile pose as a GPU worker (CPU execution) so heterogeneous
     routing is exercisable on GPU-less hosts; the env var
     ``REPRO_DISTRIB_SIM_GPU`` (see :mod:`.device`) does the same by wid.
@@ -268,7 +271,10 @@ def worker_main(conn, wid: Optional[int] = None, sim_gpu: bool = False,
     a disconnected TCP window simply skips beats rather than queueing a
     burst for later."""
     from .transport import WorkerFencedError
-    kernel_api.set_device(device)   # raises when the device is absent
+    # both twin runtimes compute on this worker's device; binding raises
+    # when the device is absent
+    kernel_api.set_device(device)
+    txp.set_device(device)
     try:
         link = _make_link(conn, wid, sim_gpu)
     except (WorkerFencedError, OSError, EOFError):
@@ -327,12 +333,13 @@ def worker_main(conn, wid: Optional[int] = None, sim_gpu: bool = False,
                 nbytes = int(getattr(result, "nbytes", 0) or 0)
                 # chunk dones echo which body backend actually *ran* —
                 # the head's executed-chunk telemetry must not trust
-                # dispatch intent (a jnp chunk may have been downgraded
-                # and re-run as np)
+                # dispatch intent (a cuda chunk may have been downgraded
+                # and re-run as torch)
                 ran = (spec.get("backend", "np")
                        if spec["kind"] == "chunk" else None)
                 # chunk dones also carry the accel counter deltas
-                # (residency, plus the kernel runtime's call counters)
+                # (batched path, residency, plus the kernel runtime's
+                # call counters)
                 # for head aggregation
                 wstats = (accel.take_stats()
                           if spec["kind"] == "chunk" else None)

@@ -1,8 +1,9 @@
 """The chaos knob of the port's kernel runtime: with
 ``REPRO_CUDA_CHAOS=fail`` every worker-side kernel call raises, as a
 failed kernel build or launch would. On a ``device="cpu"`` fleet the
-matmul-shaped pfor's chunks degrade ``cuda → np`` — each fallback
-counted, the result still correct. On a CUDA fleet the same failure
+matmul-shaped pfor's chunks degrade one step down the chain ``cuda →
+torch → np``, to the torch twin — each fallback counted, the result
+still correct. On a CUDA fleet the same failure
 fails the pfor: no chunk moves to the CPU. The knob is read by the
 spawned workers, so this file runs its own fleet (posing GPU workers on
 ``device="cpu"``; the CUDA case flips the head's device, which is all
@@ -11,9 +12,9 @@ the head's policy reads).
 A lowering the kernel runtime refuses is not a kernel failure: a scan
 whose coefficient is only known at run time gets a cuda twin, and a
 value outside (0, 1) raises ``cuda-lowering-infeasible`` on the worker,
-so the chunk steps down to its np body as a counted fallback — on a
-CUDA fleet too (``tests/test_pallas_backend.py`` checks the reference
-the same way)."""
+so the chunk steps down to its torch twin (on the same device) as a
+counted fallback — on a CUDA fleet too (``tests/test_pallas_backend.py``
+checks the reference the same way)."""
 
 import numpy as np
 import pytest
@@ -75,7 +76,8 @@ def test_chaos_degrades_counted_not_crashed(chaos_fleet):
     assert st["cuda_chunks"] > 0
     assert st["cuda_fallbacks"] > 0
     assert st["chunks_executed"].get("cuda", 0) == 0
-    assert st["chunks_executed"].get("np", 0) > 0
+    assert st["chunks_executed"].get("torch", 0) > 0
+    assert st["torch_fallbacks"] == 0
     assert st["cuda_calls"] == 0
 
 
@@ -112,4 +114,44 @@ def test_infeasible_scan_coeff_steps_down_to_np_counted(fleet, monkeypatch,
     st = fleet.stats()
     assert st["cuda_fallbacks"] > fallbacks
     assert st["chunks_executed"].get("cuda", 0) == executed.get("cuda", 0)
-    assert st["chunks_executed"].get("np", 0) > executed.get("np", 0)
+    assert st["chunks_executed"].get("torch", 0) \
+        > executed.get("torch", 0)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_twin_errors_step_down_the_chain_only_where_the_fleet_allows(device):
+    """The head's policy for an erroring twin chunk, chain ``cuda →
+    torch → np``: on a ``device="cpu"`` fleet every error steps one down,
+    counted per backend; on a CUDA fleet a torch twin's error and a cuda
+    kernel's error fail the task, and only a refused lowering steps
+    ``cuda → torch`` (on the same device)."""
+    from types import SimpleNamespace
+
+    from repro_torch.distrib.cluster import CUDA_INFEASIBLE
+    from repro_torch.distrib.objects import TaskSpec
+
+    head = SimpleNamespace(device=device, cuda_fallbacks=0,
+                           torch_fallbacks=0)
+
+    def spec(backend, chain):
+        return TaskSpec(1, "chunk", None, (), None, backend=backend,
+                        alt=tuple((b, i, None) for i, b in
+                                  enumerate(chain)))
+
+    def failed(s, message):
+        return ClusterRuntime._kernel_failed(head, s, message)
+
+    def down(s, message):
+        ClusterRuntime._maybe_downgrade_backend(head, s, message)
+        return s.backend
+
+    err, refused = "RuntimeError('boom')", f"ValueError('{CUDA_INFEASIBLE}')"
+    s = spec("cuda", ["torch", "np"])
+    assert failed(s, refused) is False
+    assert down(s, refused) == "torch" and head.cuda_fallbacks == 1
+    assert failed(s, err) is (device == "cuda")
+    if device == "cpu":
+        assert down(s, err) == "np" and head.torch_fallbacks == 1
+    else:
+        assert failed(spec("cuda", ["torch", "np"]), err)
+        assert down(s, err) == "torch" and head.torch_fallbacks == 0

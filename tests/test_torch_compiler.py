@@ -140,23 +140,23 @@ def test_cuda_twin_exactly_where_reference_matches_matmul(fn):
     want = _ref_matched_units(ref_ck)
     got = port_ck.pfor_twin_units().get("cuda", [])
     assert got == sorted(want)
-    assert set(port_ck.pfor_twin_units()) <= {"cuda"}
+    assert set(port_ck.pfor_twin_units()) <= {"torch", "cuda"}
     src = port_ck.source("np")
     ref_src = ref_ck.source("np")
     for kind, entry in ENTRY.items():
         n = sum(1 for k in want.values() if k == kind)
         assert src.count(f"__cuk.{entry}(") == n
         assert ref_src.count(f"__plk.{entry}(") == n
-    assert "__plk" not in src and "__jxp" not in src
+    assert "__plk" not in src and "__jxp" not in src and "jax" not in src
 
 
 def test_attention_and_scan_lower_onto_their_cuda_kernels():
     attn = compile_kernel(attn_kernel)
-    assert attn.pfor_twin_units() == {"cuda": [0]}
+    assert attn.pfor_twin_units()["cuda"] == [0]
     assert ("O[__lo:__hi, 0:d] = __cuk.attention_rows(Q[__lo:__hi, 0:d], "
             "K[0:t, 0:d], V[0:t, 0:d])") in attn.source("np")
     scan = compile_kernel(scan_kernel)
-    assert scan.pfor_twin_units() == {"cuda": [0]}
+    assert scan.pfor_twin_units()["cuda"] == [0]
     # the statically known coefficient is baked into the call
     assert "Y[__lo:__hi, 0:L] = __cuk.scan_rows(X[__lo:__hi, 0:L], 0.9)" \
         in scan.source("np")
@@ -164,15 +164,16 @@ def test_attention_and_scan_lower_onto_their_cuda_kernels():
 
 def test_gemm_rowscale_lowers_onto_the_cuda_kernel():
     ck = compile_kernel(gemm_rowscale)
-    assert ck.pfor_twin_units() == {"cuda": [0]}
+    assert ck.pfor_twin_units()["cuda"] == [0]
     assert "__cuk.matmul(2.0 * A[__lo:__hi, 0:k], B[0:k, 0:m])" \
         in ck.source("np")
 
 
 def test_registry_tokens_and_shared_cache_dir(tmp_path):
-    assert backends.names() == ["np", "cuda"]
-    assert backends.degradation_chain("cuda") == ["np"]
-    assert backends.cache_token(True) == "cuda2+np1"
+    assert backends.names() == ["np", "torch", "cuda"]
+    assert backends.degradation_chain("cuda") == ["torch", "np"]
+    assert backends.degradation_chain("torch") == ["np"]
+    assert backends.cache_token(True) == "cuda2+np1+torch1"
     assert backends.cache_token(False) == "np1"
     assert backends.cache_token(True) != ref_backends.cache_token(True)
 

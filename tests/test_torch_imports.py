@@ -1,5 +1,7 @@
 """Import guard of the PyTorch/CUDA port: ``repro_torch`` and every one
-of its modules load neither jax nor any module of the JAX package
+of its modules (``core/txp.py``, the torch backend's namespace,
+included), the port's STAP flagship ``examples/torch_stap.py`` and
+``chip_smoke.py`` load neither jax nor any module of the JAX package
 ``repro``, and no source file of the port imports them. No kernel's
 wrapper or source calls a library kernel for its work (a GEMM, fused
 attention, cuDNN)."""
@@ -42,6 +44,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     assert res["bad"] == []
     # the slice's modules are all there
     for name in ("repro_torch.core.compiler", "repro_torch.core.patterns",
+                 "repro_torch.core.txp", "repro_torch.distrib.accel",
                  "repro_torch.distrib.cluster", "repro_torch.kernels.api",
                  "repro_torch.kernels.matmul.matmul",
                  "repro_torch.kernels.flash_attention.flash_attention",
@@ -60,6 +63,32 @@ def test_no_port_source_imports_jax_or_repro():
             if _FORBIDDEN.match(line):
                 offenders.append(f"{path.relative_to(ROOT)}:{no}: {line}")
     assert offenders == []
+
+
+_PROBE_EXAMPLE = """
+import json, sys
+import examples.torch_stap as ex
+assert callable(ex.stap_adaptive) and callable(ex.main)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"bad": bad}))
+"""
+
+
+def test_importing_the_port_stap_example_loads_no_jax_and_no_repro():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
+    out = subprocess.run([sys.executable, "-c", _PROBE_EXAMPLE], env=env,
+                         cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1])["bad"] == []
+
+
+@pytest.mark.parametrize("rel", ["examples/torch_stap.py", "chip_smoke.py"])
+def test_port_entry_scripts_import_no_jax_or_repro(rel):
+    lines = (ROOT / rel).read_text().splitlines()
+    assert [ln for ln in lines if _FORBIDDEN.match(ln)] == []
 
 
 def _assert_calls_no_library_kernel(name):

@@ -10,7 +10,17 @@ worker that uses JAX, can deadlock in the child.
 ``run_reference(code, inputs, tmp_dir)`` saves ``inputs`` (name → numpy
 array), runs ``code`` with them bound as the dict ``inputs``, and returns
 what ``code`` put into the dict ``outputs`` (name → numpy array).
+
+Compiled-kernel cases travel with :func:`encode_case`: the kernel by
+``module:name`` (it must be importable in both processes), its hints
+and its arguments. ``CASE_CODE`` rebuilds them in the reference process
+(``case_fn``, ``case_hints``, ``case_args``) and runs a compiled
+kernel's np variant with every pfor body routed to a twin
+(``run_twin``).
 """
+
+import importlib
+import json
 
 import os
 import subprocess
@@ -43,7 +53,10 @@ def run_reference(code: str, inputs: Dict[str, np.ndarray], tmp_dir,
     src, dst = tmp_dir / "reference_in.npz", tmp_dir / "reference_out.npz"
     np.savez(src, **inputs)
     env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
+    # tests/ too: kernels shared with the test process (torch_kernels)
+    # import by their own module name
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT),
+                                         str(ROOT / "tests")])
     env.setdefault("JAX_PLATFORMS", "cpu")
     # ``-c``, not a script file: a reference cluster spawns workers, and
     # spawn re-imports a script's main module in every child
@@ -57,3 +70,66 @@ def run_reference(code: str, inputs: Dict[str, np.ndarray], tmp_dir,
         f"{proc.stderr[-4000:]}")
     with np.load(dst) as f:
         return {k: f[k] for k in f.files}
+
+
+def encode_case(name: str, fn, args, hints=None) -> Dict[str, np.ndarray]:
+    """Inputs that carry one compiled-kernel case to the reference
+    process: arrays as they are, lists, ints, floats and complexes with
+    a kind code each."""
+    kinds = []
+    path = fn.__name__
+    held = getattr(importlib.import_module(fn.__module__), path, None)
+    if held is not fn and getattr(held, "original", None) is fn:
+        path += ".original"        # the source of a compiled kernel
+    out = {f"{name}/fn": np.asarray(f"{fn.__module__}:{path}"),
+           f"{name}/hints": np.asarray(json.dumps(hints or {}))}
+    for i, a in enumerate(args):
+        if isinstance(a, np.ndarray):
+            kinds.append("a")
+        elif isinstance(a, list):
+            kinds.append("l")
+        elif isinstance(a, (bool, int, np.integer)):
+            kinds.append("i")
+        elif isinstance(a, (float, np.floating)):
+            kinds.append("f")
+        else:
+            kinds.append("c")
+        out[f"{name}/{i}"] = np.asarray(a)
+    out[f"{name}/kinds"] = np.asarray("".join(kinds))
+    return out
+
+
+CASE_CODE = """
+import importlib, json
+from repro.core import backends as _B
+
+
+def case_fn(name):
+    mod, path = str(inputs[name + "/fn"]).split(":")
+    fn = importlib.import_module(mod)
+    for attr in path.split("."):
+        fn = getattr(fn, attr)
+    return fn
+
+
+def case_hints(name):
+    return json.loads(str(inputs[name + "/hints"])) or None
+
+
+def case_args(name):
+    conv = {"a": lambda v: v.copy(), "l": lambda v: v.tolist(),
+            "i": int, "f": float, "c": complex}
+    return [conv[k](inputs[f"{name}/{i}"])
+            for i, k in enumerate(str(inputs[name + "/kinds"]))]
+
+
+def run_twin(ck, args, attr):
+    gen = ck.variants["np"].generated
+    ns = {"xp": np}
+    for b in (gen.meta.pfor_twin_units or {}):
+        ns.update(_B.get(b).namespace(gen.meta))
+    ns["__pfor_run"] = lambda body, lo, hi, tile: \
+        getattr(body, attr, body)(lo, hi)
+    exec(compile(gen.source, "<reference>", "exec"), ns)
+    ns[gen.fn_name](*args)
+"""
