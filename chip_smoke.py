@@ -19,6 +19,10 @@ exit:
    plain version and, where one PyTorch call computes the same function,
    of that call (a yardstick the port never calls), beside the least
    time the card could take.
+   The gemma2 attention layer in bf16 and f32 (softcap, causal, window,
+   GQA) takes ``flex_attention``, compiled, as its library call; it is
+   also timed beside a yardstick: ``scaled_dot_product_attention`` with
+   its causal and window mask and no softcap.
    Each kernel redesigned for Hopper (the float64 matmul and flash
    attention on the tensor cores, the selective scan as a chunked scan
    parallel in L) is printed beside its time before the redesign; the
@@ -59,7 +63,29 @@ exit:
    (``benchmarks/polybench_kernels.py``) at n = 4096 in float64 through
    the dispatcher, which must pick the whole-kernel ``torch`` variant;
    the result must be within 1e-8·max(1, |ref|) of numpy's.
-7. Summary: one JSON line with every kernel's numbers, the card's line,
+7. STAP served on the card: ``stap_adaptive`` compiled on the same
+   fleet behind the serving plane (``repro_torch.serve``:
+   admission → coalescing window → one stacked pfor). SERVE_REQUESTS
+   requests from two tenants, each one dwell of SERVE_GATES range gates
+   at the example's widths (16.8 MB of training cube a request), arrive
+   open-loop (Poisson) at SERVE_LOAD of the naive capacity, measured
+   first on SERVE_CALIBRATE fresh requests served back to back; they are
+   served one by one (window 0), then coalesced (10 ms window, up to 16
+   requests a batch: a full batch is 8192 gates). Per mode it prints requests/s, p50 and
+   p95 of the end-to-end and queue milliseconds, the coalescing
+   counters, bytes shipped, chunks per backend, the batch counters and
+   the head's phase seconds and traced spans over the mode's run.
+   In both modes every request's output must match the float64
+   recurrence on the card within 1e-8 and ``stap_seq`` on a strided
+   sample, every chunk must run the ``torch`` twin with no fallback and
+   no eager-twin run, no request may be rejected or fail, and no fault
+   may be counted; the coalesced mode must merge at least one batch.
+8. raylite on the card: ``examples/torch_stap_pipeline.py`` (the STAP
+   cube pipeline on ``TaskRuntime(workers=2)``, its elastic controller
+   and lineage drill); it checks its output against numpy, and every
+   pfor chunk must have run the torch twin (``pfor_chunks``), none the
+   numpy body.
+9. Summary: one JSON line with every kernel's numbers, the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the checkout's ``src/``; without either it
@@ -100,6 +126,18 @@ STAP_GATES = 8192
 STAP_SAMPLE = 256
 # the whole-kernel path: PolyBench gemm at n = 4096 (float64)
 GEMM_N = 4096
+# the served STAP phase: requests from two tenants, each one dwell of
+# this many range gates at the example's widths (16.8 MB of training
+# cube), served one by one and then coalesced (window, batch cap): ten
+# full coalesced batches a mode. They arrive at SERVE_LOAD times the
+# naive capacity, measured first on SERVE_CALIBRATE fresh requests
+# served back to back
+SERVE_REQUESTS = 160
+SERVE_GATES = 512
+SERVE_WINDOW_S = 0.01
+SERVE_MAX_BATCH = 16
+SERVE_CALIBRATE = 6
+SERVE_LOAD = 0.8
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet,
 # dense): float64 on the tensor cores (DMMA) 67 TFLOP/s, float32 outside
@@ -274,11 +312,18 @@ def _compare(torch, name, label, got, ref, dname):
 
 
 def _row(torch, name, label, shape, dname, err, kernel_fn, plain_fn,
-         library_fn, ops, nbytes, reps=20, peak=None, exps=0.0, **extra):
+         library_fn, ops, nbytes, reps=20, peak=None, exps=0.0,
+         yardstick=None, **extra):
+    """One case's numbers. ``yardstick`` is (what, fn): a PyTorch call
+    close to the case that does not compute the same function, timed as
+    ``yardstick_ms`` beside ``library_ms`` (which stays None)."""
     host = []
     ms = _time_ms(torch, kernel_fn, reps, host)
     plain_ms = _time_ms(torch, plain_fn, max(2, reps // 4))
     lib_ms = _time_ms(torch, library_fn, reps) if library_fn else None
+    if yardstick is not None:
+        extra["yardstick"] = yardstick[0]
+        extra["yardstick_ms"] = _time_ms(torch, yardstick[1], reps)
     bound_ms, bound_by = _bound(ops, nbytes, dname, peak, exps)
     row = {"case": label, "shape": shape, "dtype": dname,
            "max_abs_err": err, "tol": TOL[dname], "ms": ms,
@@ -287,6 +332,8 @@ def _row(torch, name, label, shape, dname, err, kernel_fn, plain_fn,
            "host_ms": host[0],
            "gops": ops / (ms * 1e-3) / 1e9, **extra}
     lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
+    if yardstick is not None:
+        lib += f" (yardstick: {yardstick[0]} {extra['yardstick_ms']:.3f} ms)"
     sfu = f"  (SFU roof {exps / SFU_EXP_S * 1e3:.4f} ms)" if exps else ""
     print(f"{name} {label:9s} {dname:8s} {shape}: err {err:.3e} "
           f"(tol {TOL[dname]:g})  kernel {ms:.3f} ms "
@@ -339,6 +386,60 @@ def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(np.where(n > 0, n, skv).sum())
 
 
+def _sdpa_yardstick(torch, sdpa, q, k, v, causal, window):
+    """(what, fn): ``scaled_dot_product_attention`` on a GQA layer's
+    inputs (B, S, H, D), its keys and values repeated to every query
+    head and its causal and sliding-window mask as a boolean matrix, all
+    made before the timing. It computes no softcap, so it is a yardstick
+    for the layer, not the same function."""
+    rep = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (t.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    i = torch.arange(q.shape[1], device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask = mask & (j <= i)
+    if window > 0:
+        mask = mask & (j > i - window)
+    return ("scaled_dot_product_attention, causal+window mask, no "
+            "softcap", lambda: sdpa(qh, kh, vh, attn_mask=mask))
+
+
+# flex_attention's tiles when its own do not fit the shared memory (at
+# D = 288, padded to 512 in its Triton template)
+FLEX_SMALL_TILES = {"BLOCK_M": 64, "BLOCK_N": 64, "num_stages": 1}
+
+
+def _flex_library(torch, q, k, v, causal, window, cap, options=None):
+    """fn: ``flex_attention``, compiled, on a GQA layer's inputs (B, S,
+    H, D) as (B, H, S, D): the softcap as its score_mod, the causal and
+    sliding-window mask as its block mask, the key/value heads shared
+    by ``enable_gqa``, its tiles set by ``options`` (None: its own
+    choice): one PyTorch call that computes the layer's function,
+    returning (B, H, S, D)."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def mask_mod(b, h, i, j):
+        keep = j <= i if causal else j >= 0
+        return keep & (j > i - window) if window > 0 else keep
+
+    def score_mod(s, b, h, i, j):
+        return torch.tanh(s / cap) * cap
+
+    mask = create_block_mask(mask_mod, None, None, qh.shape[2],
+                             kh.shape[2], device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda: flex(qh, kh, vh, score_mod=score_mod if cap else None,
+                        block_mask=mask, enable_gqa=True,
+                        kernel_options=options)
+
+
 def check_flash(torch, fa_kernel, fa_ops, fa_ref):
     """Phase 3: the flash-attention kernel against its plain version:
     (a) the attention path's chunk, (b) one gemma2_2b attention layer
@@ -356,6 +457,7 @@ def check_flash(torch, fa_kernel, fa_ops, fa_ref):
         k = torch.from_numpy(std * rng.normal(size=(b, skv, kvh, d)))
         v = torch.from_numpy(rng.normal(size=(b, skv, kvh, d)))
         opts = dict(causal=causal, window=window, softcap=cap)
+        yardstick = None
         if h == 1:                # one head: the kernel's own layout
             q, k, v = (t[:, :, 0].to("cuda", dt).contiguous()
                        for t in (q, k, v))
@@ -371,18 +473,54 @@ def check_flash(torch, fa_kernel, fa_ops, fa_ref):
                                                        **opts)
             plain_fn = lambda: fa_ref.attention_ref(q, k, v,  # noqa: E731
                                                     **opts)
-            library_fn = None     # softcap and window: no single call
+            library_fn = None
+            if dname != "float64":
+                yardstick = _sdpa_yardstick(torch, sdpa, q, k, v, causal,
+                                            window)
         got = _launch_once(fa_kernel, kernel_fn)
-        err = _compare(torch, "flash_attention", label, got, plain_fn(),
-                       dname)
+        want = plain_fn()
+        err = _compare(torch, "flash_attention", label, got, want, dname)
+        extra = {}
+        if h > 1 and dname != "float64":
+            # flex_attention as the library call, with its own tiles and
+            # then with smaller ones; its build (Triton, at D = 288) or
+            # its answer may fail: then library_ms stays None and the
+            # reasons are kept. It is no part of the port
+            extra["library"] = "flex_attention (compiled)"
+            extra["library_errors"] = []
+            for options in (None, FLEX_SMALL_TILES):
+                try:
+                    library_fn = _flex_library(torch, q, k, v, causal,
+                                               window, cap, options)
+                    lib_err = float((library_fn().transpose(1, 2).double()
+                                     - want.double()).abs().max())
+                    if not lib_err <= TOL[dname] * (
+                            1 + float(want.double().abs().max())):
+                        raise AssertionError(f"max err {lib_err:.3e}")
+                    extra["library_max_abs_err"] = lib_err
+                    extra["library_options"] = options
+                    break
+                except Exception as exc:  # noqa: BLE001 - a yardstick
+                    library_fn = None
+                    why = f"{type(exc).__name__}: {exc}"[:400]
+                    extra["library_errors"].append(
+                        {"options": options, "error": why})
+                    print(f"flash_attention {label} {dname}: "
+                          f"flex_attention with tiles {options} not "
+                          f"timed: {why}", flush=True)
+            if library_fn is not None:
+                print(f"flash_attention {label} {dname}: flex_attention "
+                      f"with tiles {options}, max err {lib_err:.3e}",
+                      flush=True)
         pairs = b * h * attention_pairs(sq, skv, causal, window)
         nbytes = (2 * b * sq * h * d + 2 * b * skv * kvh * d) \
             * q.element_size()
         out.append(_row(
             torch, "flash_attention", label, [b, sq, h, kvh, skv, d], dname,
             err, kernel_fn, plain_fn, library_fn, 4.0 * pairs * d, nbytes,
-            reps=10, causal=causal, window=window, softcap=cap))
-        del q, k, v, got
+            reps=10, causal=causal, window=window, softcap=cap,
+            yardstick=yardstick, **extra))
+        del q, k, v, got, want, yardstick, library_fn
         torch.cuda.empty_cache()
     return out
 
@@ -456,6 +594,19 @@ def _record_pricing(cost):
     return seen
 
 
+def _timeline(rt, obs, before):
+    """The head's phase seconds since ``before`` (a phase breakdown) and
+    the seconds per traced span name recorded since the recorder was
+    last cleared, head and worker tracks together (the worker spans:
+    deserialize, restore, run = the chunk body, diff)."""
+    phases = {k: round(v - before.get(k, 0.0), 4)
+              for k, v in sorted(rt.phase_breakdown().items())}
+    spans = {}
+    for ev in obs.recorder().events():
+        spans[ev.name] = round(spans.get(ev.name, 0.0) + ev.dur, 4)
+    return phases, dict(sorted(spans.items()))
+
+
 def timed_run(rt, obs, ck, pricing, *, name, label, inputs, out_index,
               rows, during=None):
     """One run of a path's compiled kernel on the fleet: its wall, the
@@ -474,13 +625,7 @@ def timed_run(rt, obs, ck, pricing, *, name, label, inputs, out_index,
     t0 = time.perf_counter()
     ck.call_variant("np", *args)
     wall = time.perf_counter() - t0
-    phases = {k: round(v - before.get(k, 0.0), 4)
-              for k, v in sorted(rt.phase_breakdown().items())}
-    # seconds per span name, head and worker tracks together (the worker
-    # spans: deserialize, restore, run = the chunk body, diff)
-    spans = {}
-    for ev in obs.recorder().events():
-        spans[ev.name] = round(spans.get(ev.name, 0.0) + ev.dur, 4)
+    phases, spans = _timeline(rt, obs, before)
     st1 = rt.stats()
     faults = {k: v - st0["faults"].get(k, 0)
               for k, v in st1["faults"].items()
@@ -490,7 +635,7 @@ def timed_run(rt, obs, ck, pricing, *, name, label, inputs, out_index,
           f"{st1['bytes_shipped'] - st0['bytes_shipped']}; faults "
           f"{json.dumps(faults)}; router {json.dumps(pricing)}; "
           f"phases (s) {json.dumps(phases)}; spans (s) "
-          f"{json.dumps(dict(sorted(spans.items())))}", flush=True)
+          f"{json.dumps(spans)}", flush=True)
     if faults and during is None:
         raise AssertionError(f"{name} path {label} counted faults: "
                              f"{json.dumps(faults)}")
@@ -836,6 +981,197 @@ def whole_kernel_path(torch):
             "max_abs_err": float(err.max())}
 
 
+def _deltas(st0, st1):
+    """What a served run moved in the fleet's counts: bytes shipped,
+    chunks per backend, the twin and batch counters, faults."""
+    keys = ("torch_chunks", "torch_fallbacks", "cuda_fallbacks",
+            "batch_hits", "batch_builds", "batch_fallbacks")
+    return {
+        "bytes_shipped": st1["bytes_shipped"] - st0["bytes_shipped"],
+        "chunks_executed": {
+            b: n - st0["chunks_executed"].get(b, 0)
+            for b, n in st1["chunks_executed"].items()
+            if n != st0["chunks_executed"].get(b, 0)},
+        **{k: st1[k] - st0[k] for k in keys},
+        "faults": {k: v - st0["faults"].get(k, 0)
+                   for k, v in st1["faults"].items()
+                   if v != st0["faults"].get(k, 0)}}
+
+
+def _check_served(label, d):
+    """Every chunk of a served run on the torch twin, no fallback, no
+    eager-twin run, no fault."""
+    if set(d["chunks_executed"]) != {"torch"}:
+        raise AssertionError(f"served stap {label}: not every chunk ran "
+                             f"the torch twin: {d['chunks_executed']}")
+    if d["torch_fallbacks"] or d["cuda_fallbacks"] \
+            or d["batch_fallbacks"]:
+        raise AssertionError(f"served stap {label}: fallbacks "
+                             f"{json.dumps(d)}")
+    if d["faults"]:
+        raise AssertionError(f"served stap {label}: faults "
+                             f"{json.dumps(d['faults'])}")
+
+
+def served_stap(rt, compile_kernel, obs, torch, card):
+    """Phase 7: STAP behind the serving plane on the fleet, naive and
+    coalesced (the logic of ``benchmarks/serve_bench.py::run_stap``)."""
+    sys.path.insert(0, str(ROOT))
+    from examples.torch_stap import (ALPHA, DOF, ITERS, K_TRAIN, LOADING,
+                                     stap_adaptive, stap_seq)
+    from repro_torch.serve import (AdmissionController, BatchSpec,
+                                   ClusterServeEngine, TenantQuota,
+                                   open_loop)
+
+    rng = np.random.default_rng(SEED + 5)
+    steer = rng.normal(size=DOF)
+    trains = [rng.normal(size=(SERVE_GATES, K_TRAIN, DOF))
+              for _ in range(SERVE_REQUESTS)]
+    snaps = [rng.normal(size=(SERVE_GATES, DOF))
+             for _ in range(SERVE_REQUESTS)]
+    scalars = (SERVE_GATES, K_TRAIN, DOF, ITERS, ALPHA, LOADING)
+    t0 = time.perf_counter()
+    want = _stap_recurrence(
+        torch, np.concatenate(snaps), np.concatenate(trains), steer,
+        K_TRAIN, ITERS, ALPHA, LOADING).reshape(SERVE_REQUESTS, SERVE_GATES)
+    t1 = time.perf_counter()
+    # a strided sample of every request's gates (STAP_SAMPLE in all)
+    sample = np.arange(0, SERVE_GATES,
+                       SERVE_GATES * SERVE_REQUESTS // STAP_SAMPLE)
+    seq = np.zeros((SERVE_REQUESTS, len(sample)))
+    for r in range(SERVE_REQUESTS):
+        stap_seq(snaps[r][sample], trains[r][sample], steer, seq[r],
+                 len(sample), *scalars[1:])
+    ref_gap = float(np.abs(want[:, sample] - seq).max())
+    print(f"served stap references: card recurrence for "
+          f"{SERVE_REQUESTS} x {SERVE_GATES} gates in {t1 - t0:.3f} s, "
+          f"stap_seq for {seq.size} gates in "
+          f"{time.perf_counter() - t1:.3f} s; they differ by "
+          f"{ref_gap:.3e}", flush=True)
+    if not ref_gap <= 1e-8:
+        raise AssertionError(f"served stap references disagree: "
+                             f"{ref_gap:.3e}")
+
+    def errors(outs):
+        got = np.stack(outs)
+        if not np.isfinite(got).all():
+            raise AssertionError("served stap: a non-finite output")
+        return (float(np.abs(got - want).max()),
+                float(np.abs(got[:, sample] - seq).max()))
+
+    ck = compile_kernel(stap_adaptive, runtime=rt, workers=WORKERS)
+    ck.pfor_config.distribute_threshold = 0
+    batch = BatchSpec(stacked=("snap", "train"), count="numGates",
+                      out=("outY",),
+                      shared=("steer", "K", "dof", "iters", "alpha",
+                              "loading"))
+    # warm single calls: ship and persist the body on the workers; then
+    # fresh requests back to back (their rows shipped, as a served
+    # request's are): the naive capacity, and the open-loop rate a
+    # fraction of it. The reference's rule, min(1500, max(30, 3 /
+    # t_call)), would offer several times the capacity, and the run
+    # would time only the backlog draining
+    st0 = rt.stats()
+    warm, t_call = np.zeros(SERVE_GATES), float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ck.call_variant("np", snaps[0], trains[0], steer, warm, *scalars)
+        t_call = min(t_call, time.perf_counter() - t0)
+    warm_err = float(np.abs(warm - want[0]).max())
+    t0 = time.perf_counter()
+    for i in range(1, 1 + SERVE_CALIBRATE):
+        ck.call_variant("np", snaps[i], trains[i], steer, warm, *scalars)
+        warm_err = max(warm_err, float(np.abs(warm - want[i]).max()))
+    t_fresh = (time.perf_counter() - t0) / SERVE_CALIBRATE
+    d = _deltas(st0, rt.stats())
+    rate = SERVE_LOAD / t_fresh
+    rule = min(1500.0, max(30.0, 3.0 / t_call))
+    print(f"served stap warm calls: fastest {t_call * 1e3:.3f} ms a "
+          f"request (rows cached); {SERVE_CALIBRATE} fresh requests "
+          f"{t_fresh * 1e3:.3f} ms each, a naive capacity of "
+          f"{1 / t_fresh:.3f} requests/s; offered rate {rate:.3f} "
+          f"requests/s ({SERVE_LOAD} of it; the reference's rule would "
+          f"offer {rule:.3f}); {json.dumps(d)}; max err {warm_err:.3e}",
+          flush=True)
+    _check_served("warm calls", d)
+    if not warm_err <= 1e-8:
+        raise AssertionError(f"served stap warm call: max err "
+                             f"{warm_err:.3e}")
+
+    rows = {"t_call_ms": t_call * 1e3, "t_fresh_ms": t_fresh * 1e3,
+            "capacity_rps": 1 / t_fresh, "rate_rps": rate,
+            "rule_rps": rule, "card": card}
+    for mode, window in (("naive", 0.0), ("coalesced", SERVE_WINDOW_S)):
+        eng = ClusterServeEngine(
+            rt, coalesce_window_s=window, max_batch=SERVE_MAX_BATCH,
+            admission=AdmissionController(
+                default=TenantQuota(max_inflight=256), max_queue=1024))
+        eng.register("stap", ck, batch=batch)
+        outs = [np.zeros(SERVE_GATES) for _ in range(SERVE_REQUESTS)]
+
+        def submit(i, tenant):
+            return eng.submit(tenant, "stap",
+                              (snaps[i], trains[i], steer, outs[i])
+                              + scalars)
+
+        st0 = rt.stats()
+        before = rt.phase_breakdown()
+        obs.recorder().clear()
+        res = open_loop(submit, requests=SERVE_REQUESTS, rate_rps=rate,
+                        seed=11, tenants=("tenant-a", "tenant-b"),
+                        wait_timeout_s=600.0)
+        eng.close()
+        d = _deltas(st0, rt.stats())
+        phases, spans = _timeline(rt, obs, before)
+        tel = eng.telemetry()
+        err, err_seq = errors(outs)
+        row = {"mode": mode, "window_s": window,
+               "requests_per_s": res.throughput_rps,
+               "offered_rps": rate,
+               "duration_s": res.duration_s,
+               "completed": res.completed, "rejected": res.rejected,
+               "failed": res.failed, "e2e_ms": res.e2e_ms,
+               "queue_ms": res.queue_ms,
+               "coalesced_batches": tel["coalesced_batches"],
+               "coalesced_requests": tel["coalesced_requests"],
+               "fallthrough_dispatches": tel["fallthrough_dispatches"],
+               "max_abs_err": err, "max_abs_err_seq": err_seq,
+               "phases_s": phases, "spans_s": spans, **d}
+        rows[mode] = row
+        print(f"served stap {mode} ({SERVE_REQUESTS} requests x "
+              f"{SERVE_GATES} gates, 2 tenants, offered "
+              f"{rate:.3f} requests/s; {card}): "
+              f"{res.throughput_rps:.3f} requests/s "
+              f"({res.completed} completed, {res.rejected} rejected, "
+              f"{res.failed} failed in {res.duration_s:.3f} s); e2e_ms "
+              f"p50 {res.e2e_ms.get('p50')} p95 {res.e2e_ms.get('p95')}; "
+              f"queue_ms p50 {res.queue_ms.get('p50')} p95 "
+              f"{res.queue_ms.get('p95')}; coalesced_batches "
+              f"{tel['coalesced_batches']}, coalesced_requests "
+              f"{tel['coalesced_requests']}, fallthrough_dispatches "
+              f"{tel['fallthrough_dispatches']}; bytes shipped "
+              f"{d['bytes_shipped']}; chunks {d['chunks_executed']}; "
+              f"batch_hits {d['batch_hits']}, batch_builds "
+              f"{d['batch_builds']}, batch_fallbacks "
+              f"{d['batch_fallbacks']}, torch_fallbacks "
+              f"{d['torch_fallbacks']}; max err {err:.3e} (card "
+              f"recurrence), {err_seq:.3e} (stap_seq sample); phases (s) "
+              f"{json.dumps(phases)}; spans (s) {json.dumps(spans)}",
+              flush=True)
+        _check_served(mode, d)
+        if res.completed != SERVE_REQUESTS or res.rejected or res.failed:
+            raise AssertionError(f"served stap {mode}: {res.completed} of "
+                                 f"{SERVE_REQUESTS} completed, "
+                                 f"{res.rejected} rejected, {res.failed} "
+                                 f"failed")
+        if not (err <= 1e-8 and err_seq <= 1e-8):
+            raise AssertionError(f"served stap {mode}: max err {err:.3e} "
+                                 f"/ {err_seq:.3e}")
+    if rows["coalesced"]["coalesced_batches"] <= 0:
+        raise AssertionError("served stap coalesced: no batch merged")
+    return rows
+
+
 def _summary(name, source, replaces, cases, path):
     """The kernel's entry of the ``{"kernels": [...]}`` line: the
     numbers of its main path's chunk case (the first), the worst error
@@ -948,15 +1284,31 @@ def main() -> int:
             setattr(rt, k, 0)
         rt.chunks_executed.clear()
         stap = stap_path(rt, compile_kernel, obs, pricing, torch)
+        print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
+        # 6. the whole-kernel path (in this process; the fleet idles)
+        whole = whole_kernel_path(torch)
+        print(f"phase 6 done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
+        # 7. STAP served on the same fleet
+        served = served_stap(rt, compile_kernel, obs, torch, card)
     finally:
         rt.shutdown()
-    print(f"phase 5 done at {time.perf_counter() - t_start:.1f} s",
+    print(f"phase 7 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # 6. the whole-kernel path
-    whole = whole_kernel_path(torch)
+    # 8. raylite on the card
+    import examples.torch_stap_pipeline as pipeline
+    raylite = pipeline.main("cuda")
+    chunks = raylite["pfor_chunks"]
+    if not chunks["torch"] or chunks["np"]:
+        raise AssertionError(f"raylite: chunks {chunks}, not all torch")
+    print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
-    # 7. summary
+    # 9. summary
     base = "src/repro_torch/kernels"
     summary = [
         _summary("matmul", f"{base}/matmul/csrc/matmul.cu",
@@ -970,7 +1322,8 @@ def main() -> int:
                  "src/repro/kernels/mamba_scan/mamba_scan.py:55",
                  cases["mamba_scan"], paths["mamba_scan"]),
     ]
-    print(json.dumps({"stap_path": stap, "whole_kernel_path": whole}),
+    print(json.dumps({"stap_path": stap, "whole_kernel_path": whole,
+                      "served_stap": served, "raylite": raylite}),
           flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

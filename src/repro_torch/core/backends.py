@@ -29,7 +29,7 @@ worker's device — the role of the reference's jnp twin) and ``cuda``
 (pattern-matched pfor units lowered onto the hand-written kernels), so
 the degradation chain is ``cuda → torch → np``. The registry is the
 port's own: nothing here touches the reference package's registry, and
-the cache token (``cuda2+np1+torch1``) differs from every token the
+the cache token (``cuda2+np1+torch2``) differs from every token the
 reference files variants under, so a shared cache directory never
 serves one package's source to the other.
 """
@@ -165,7 +165,7 @@ def cache_token(accel_ok: bool) -> str:
     with its codegen version. Twin backends are earned only when the
     accelerator runtime is actually importable (``accel_ok``), so a
     torch-less host files twin-less variants under the np-only token and
-    recompiles with twins once torch appears. ``cuda2+np1+torch1``
+    recompiles with twins once torch appears. ``cuda2+np1+torch2``
     differs from every token of the reference package, so neither
     package is ever served the other's cached source."""
     active = [b for b in _REGISTRY.values() if accel_ok or not b.twin]
@@ -322,7 +322,8 @@ register(Backend(
     name="torch",
     xp_binding="__txp",
     module="repro_torch.core.txp",
-    codegen_version=1,
+    # 2: arithmetic operators through txp, at numpy's result dtype
+    codegen_version=2,
     device_pref="gpu",
     priority=20,
     twin=True,

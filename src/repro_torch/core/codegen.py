@@ -59,6 +59,25 @@ class EmitError(Exception):
     pass
 
 
+# python operator → its function in repro_torch.core.txp
+_TXP_BINOPS = {"+": "add", "-": "subtract", "*": "multiply",
+               "/": "true_divide", "//": "floor_divide", "%": "remainder",
+               "**": "power"}
+
+
+def _python_numbers(e: VExpr) -> bool:
+    """True when ``e`` computes on constants and scalar parameters under
+    python operators only, so no tensor enters it."""
+    if isinstance(e, (VConst, VParam)):
+        return True
+    if isinstance(e, VUnary):
+        return e.fn == "-" and _python_numbers(e.operand)
+    if isinstance(e, VBin):
+        return (not e.op.startswith("np.") and _python_numbers(e.left)
+                and _python_numbers(e.right))
+    return False
+
+
 def _uses_red_var(e: VExpr, var: str) -> bool:
     if isinstance(e, VAccess):
         return any(var in idx.vars() for idx in e.idx)
@@ -194,9 +213,7 @@ class Emitter:
         if isinstance(e, VBin):
             l = self.emit_expr(e.left, frame, hull)
             r = self.emit_expr(e.right, frame, hull)
-            if e.op.startswith("np."):
-                return f"{self.xp}.{e.op[3:]}({l}, {r})"
-            return f"({l} {e.op} {r})"
+            return self._binop(e, l, r)
         if isinstance(e, VAccess):
             return self.emit_access_aligned(e, frame, hull)
         if isinstance(e, VReduce):
@@ -206,6 +223,22 @@ class Emitter:
             except RaiseError:
                 return self.emit_elementwise_sum(e, frame, hull)
         raise EmitError(f"cannot emit {type(e).__name__}")
+
+    def _binop(self, e: VBin, l: str, r: str) -> str:
+        """A binary operation as emitted. torch code writes an arithmetic
+        operator over a tensor as its numpy name in the torch namespace,
+        which computes at numpy's result dtype (an integer divided by 3
+        is float64, a float32 tensor times a python float stays float32);
+        torch's own operators would give its default float32 for integer
+        operands. Arithmetic on constants and scalar parameters alone
+        touches no tensor and keeps python's operator."""
+        op = e.op
+        if op.startswith("np."):
+            return f"{self.xp}.{op[3:]}({l}, {r})"
+        if self.backend == "torch" and op in _TXP_BINOPS \
+                and not _python_numbers(e):
+            return f"{self.xp}.{_TXP_BINOPS[op]}({l}, {r})"
+        return f"({l} {op} {r})"
 
     def emit_elementwise_sum(self, e: VReduce, frame: Tuple[str, ...],
                              hull: Hull) -> str:
@@ -664,9 +697,7 @@ class Emitter:
                 else f"{e.fn}({inner})"
         if isinstance(e, VBin):
             l, r = self._scalar_expr(e.left), self._scalar_expr(e.right)
-            if e.op.startswith("np."):
-                return f"{self.xp}.{e.op[3:]}({l}, {r})"
-            return f"({l} {e.op} {r})"
+            return self._binop(e, l, r)
         if isinstance(e, VAccess):
             comps = [affine_py(i) for i in e.idx]
             return f"{e.array}[{', '.join(comps)}]" if comps else e.array

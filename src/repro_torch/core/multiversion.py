@@ -218,6 +218,11 @@ class CompiledKernel:
         flops = self.estimate_flops(bound)
         profitable = cost.accel_profitable(flops, self.accel_threshold)
         if profitable and "torch" in self.variants:
+            # the variant computes on txp's bound device: where that is
+            # a card this host lacks, the call raises here, saying how
+            # to bind the CPU, rather than stepping down to np unseen
+            from . import txp
+            txp.device()
             rec = DispatchRecord("torch", True, flops, True)
             return self.variants["torch"], rec
         if "np" in self.variants:

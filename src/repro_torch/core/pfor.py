@@ -8,7 +8,10 @@ Backends (a profitability decision, §4.3):
   * sequential      — one call; chosen for small iteration counts;
   * raylite DAG     — chunks submitted as tasks to the runtime/ package
     (the Ray analogue): futures, lineage fault tolerance, straggler
-    duplicates all apply;
+    duplicates all apply. On a card runtime (``TaskRuntime(device=
+    "cuda")``, the default) each task runs the body's torch twin on the
+    torch backend's bound device, which must then be a card; on
+    ``device="cpu"`` it runs the numpy body;
   * cluster shards  — when the bound runtime is a
     :class:`repro_torch.distrib.ClusterRuntime` (it exposes ``pfor_shards``),
     chunks cross OS-process boundaries: the body closure ships to worker
@@ -144,13 +147,37 @@ class PforConfig:
             if self.estimated_flops < self.distribute_threshold:
                 body(lo, hi)
                 return
+            run, kind = self._raylite_body(body)
             futures = []
             t = lo
             while t < hi:
                 up = min(t + tile_, hi)
-                futures.append(self.runtime.submit(body, t, up))
+                futures.append(self.runtime.submit(run, t, up))
                 t = up
+            counts = getattr(self.runtime, "pfor_chunks", None)
+            if counts is not None:
+                counts[kind] += len(futures)
             for f in futures:
                 self.runtime.get(f)
 
         return __pfor_run
+
+    def _raylite_body(self, body) -> Tuple[Callable, str]:
+        """The body a raylite task runs, and its kind: the torch twin on
+        a card runtime, else (a ``device="cpu"`` runtime, or a body with
+        no twin) the numpy body."""
+        twin = None
+        if getattr(self.runtime, "device", "cpu") != "cpu":
+            twin = getattr(body, "__torch__", None)
+        if twin is None:
+            return body, "np"
+        from . import txp
+
+        bound = txp.device()
+        if bound.type != "cuda":
+            raise ValueError(
+                f"the runtime computes pfor chunks on "
+                f"{self.runtime.device!r}, but the torch backend is bound "
+                f"to {str(bound)!r}; bind a CUDA device with "
+                f"txp.set_device, or make the runtime with device='cpu'")
+        return twin, "torch"

@@ -11,6 +11,14 @@ semantics where torch's differ:
 
 * python floats, ``arange`` bounds and allocations without a dtype are
   float64/int64 (numpy's defaults), not torch's float32;
+* results take numpy's dtype (:func:`result_type`): integer operands of
+  ``sqrt``/``exp``/``log``/``sin``/``cos``/``mean`` and of a true
+  division give float64 (torch gives its default, float32), an integer
+  with a float takes numpy's wider type, and python scalars are weak
+  (NEP 50: a float32 tensor and ``0.0`` stay float32) while numpy
+  scalars and 0-d arrays are strong (``np.float64`` widens float32). The
+  code generator writes every arithmetic operator of torch code as one
+  of :func:`add` … :func:`power` for this reason;
 * ``dot`` follows ``np.dot`` for every rank (``torch.dot`` is 1-D only)
   and promotes mixed operand dtypes, as do ``einsum`` and ``where``;
 * ``maximum``/``minimum``/``power`` take python scalars;
@@ -27,12 +35,14 @@ captured array — an explicit device→host copy.
 The device is the process's, bound by :func:`set_device` (a cluster
 worker binds its own, as :mod:`repro_torch.kernels.api` does). It is
 ``"cuda"`` unless bound otherwise: on a host without CUDA the first
-computation raises; bind ``"cpu"`` to run there. Nothing here falls back
-from the card to the CPU.
+computation raises :class:`DeviceUnavailable`, which says how to bind
+the CPU (``set_device("cpu")``). Nothing here falls back from the card
+to the CPU.
 """
 
 from __future__ import annotations
 
+import operator as _operator
 import types
 from typing import Any
 
@@ -40,7 +50,9 @@ import numpy as np
 import torch
 
 __all__ = [
-    "set_device", "device", "asarray", "array", "host", "dot", "einsum",
+    "DeviceUnavailable", "set_device", "device", "result_type", "add",
+    "subtract", "multiply", "true_divide", "floor_divide", "remainder",
+    "asarray", "array", "host", "dot", "einsum",
     "transpose", "where", "arange", "tri", "tril", "triu",
     "zeros", "empty", "ones", "sqrt", "abs", "exp", "log", "sin", "cos",
     "conj", "real", "imag", "square", "reciprocal", "maximum", "minimum",
@@ -58,6 +70,12 @@ _NP_TO_TORCH = {
     np.dtype(np.bool_): torch.bool, np.dtype(np.complex128): torch.complex128,
     np.dtype(np.complex64): torch.complex64,
 }
+_TORCH_TO_NP = {t: n for n, t in _NP_TO_TORCH.items()}
+_WEAK = (bool, int, float, complex)
+
+
+class DeviceUnavailable(RuntimeError):
+    """The bound device does not exist on this host."""
 
 
 def set_device(dev: str) -> None:
@@ -81,9 +99,10 @@ def device() -> torch.device:
 
 def _check_cuda(dev: str) -> None:
     if not torch.cuda.is_available():
-        raise RuntimeError(
-            f"the torch backend is bound to {dev!r} but torch sees no CUDA "
-            f"device; bind 'cpu' (txp.set_device) to run there")
+        raise DeviceUnavailable(
+            f"the torch backend is bound to {dev!r}, but torch sees no "
+            f"CUDA device on this host; to compute on the CPU instead, "
+            f"call repro_torch.core.txp.set_device(\"cpu\") first")
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -114,23 +133,87 @@ def _t(x: Any) -> torch.Tensor:
     """Operand → tensor on the bound device (tensors pass through)."""
     if isinstance(x, torch.Tensor):
         return x
-    if isinstance(x, (np.ndarray, np.generic)):
-        return _from_numpy(np.asarray(x))
     return _from_numpy(np.asarray(x))   # python scalars: numpy's dtype
 
 
-def _common(*xs: torch.Tensor):
-    """Operands promoted to one dtype (torch's products need one)."""
-    dt = xs[0].dtype
-    for x in xs[1:]:
-        dt = torch.promote_types(dt, x.dtype)
-    return [x if x.dtype == dt else x.to(dt) for x in xs]
+_RESULT: dict = {}
 
 
-def _scalar_or_t(x: Any):
-    if isinstance(x, (bool, int, float, complex)):
+def _np_key(x: Any):
+    """What numpy's promotion sees of an operand: the dtype of a tensor,
+    array or numpy scalar (strong), the type of a python scalar (weak)."""
+    if isinstance(x, (torch.Tensor, np.ndarray, np.generic)):
+        return x.dtype
+    return type(x)
+
+
+def result_type(*xs: Any) -> torch.dtype:
+    """numpy's result dtype of ``xs`` as a torch dtype: tensors, arrays
+    and numpy scalars by their dtype, python scalars weak (NEP 50)."""
+    key = tuple(_np_key(x) for x in xs)
+    dt = _RESULT.get(key)
+    if dt is None:
+        args = [_TORCH_TO_NP[k] if isinstance(k, torch.dtype)
+                else k if isinstance(k, np.dtype) else k(0) for k in key]
+        dt = _RESULT[key] = _NP_TO_TORCH[np.result_type(*args)]
+    return dt
+
+
+def _to(x: Any, dt: torch.dtype):
+    """``x`` at dtype ``dt``: tensors cast, numpy operands copied to the
+    device, python scalars as they are (torch applies them at the other
+    operand's dtype, as numpy does a weak scalar)."""
+    if isinstance(x, torch.Tensor):
+        return x if x.dtype == dt else x.to(dt)
+    if isinstance(x, np.generic):
+        return x.item()    # strong: ``dt`` already holds its dtype
+    if isinstance(x, _WEAK):
         return x
-    return _t(x)
+    return _t(x).to(dt)
+
+
+def _common(*xs: Any):
+    """Operands as tensors at numpy's result dtype (torch's products and
+    ``maximum`` need tensors of one dtype); a python scalar becomes a
+    0-d tensor at that dtype, weak as numpy takes it."""
+    dt = result_type(*xs)
+    out = []
+    for x in xs:
+        x = _to(x, dt)
+        if not isinstance(x, torch.Tensor):
+            x = torch.full((), x, dtype=dt, device=device())
+        out.append(x)
+    return out
+
+
+# -- arithmetic (the operators of generated torch code) -----------------------
+
+def _binary(op, a: Any, b: Any, floating: bool = False):
+    """``op(a, b)`` at numpy's result dtype (``floating``: at least
+    float64 for integer operands, as numpy's true division)."""
+    ta, tb = isinstance(a, torch.Tensor), isinstance(b, torch.Tensor)
+    if not (ta or tb or isinstance(a, np.ndarray)
+            or isinstance(b, np.ndarray)):
+        return op(a, b)                  # scalars: python's/numpy's own
+    if ta and tb and a.dtype == b.dtype and (
+            not floating or a.is_floating_point() or a.is_complex()):
+        return op(a, b)
+    dt = result_type(a, b)
+    if floating and not (dt.is_floating_point or dt.is_complex):
+        dt = torch.float64
+    return op(_to(a, dt), _to(b, dt))
+
+
+def add(a, b): return _binary(_operator.add, a, b)
+def subtract(a, b): return _binary(_operator.sub, a, b)
+def multiply(a, b): return _binary(_operator.mul, a, b)
+def floor_divide(a, b): return _binary(_operator.floordiv, a, b)
+def remainder(a, b): return _binary(_operator.mod, a, b)
+
+
+def true_divide(a, b):
+    """``a / b`` as numpy: integer operands divide in float64."""
+    return _binary(_operator.truediv, a, b, floating=True)
 
 
 # -- constructors and the host boundary ------------------------------------
@@ -248,18 +331,35 @@ def where(cond: Any, a: Any, b: Any) -> torch.Tensor:
     c = _t(cond)
     if c.dtype != torch.bool:
         c = c != 0
-    a, b = _common(_t(a), _t(b))
+    a, b = _common(a, b)
     return torch.where(c, a, b)
 
 
 # -- elementwise (the knowledge base's np.<fn> entries) -----------------------
 
-def sqrt(x): return torch.sqrt(_t(x))
+_FLOAT_OF: dict = {}
+
+
+def _floating(x: Any, ufunc) -> torch.Tensor:
+    """``x`` as a tensor, integer and bool dtypes cast to the dtype numpy
+    gives ``ufunc`` of them (float64 for int32/int64)."""
+    x = _t(x)
+    if x.is_floating_point() or x.is_complex():
+        return x
+    key = (x.dtype, ufunc)
+    dt = _FLOAT_OF.get(key)
+    if dt is None:
+        npd = ufunc(np.ones((), _TORCH_TO_NP[x.dtype])).dtype
+        dt = _FLOAT_OF[key] = _NP_TO_TORCH[npd]
+    return x.to(dt)
+
+
+def sqrt(x): return torch.sqrt(_floating(x, np.sqrt))
 def abs(x): return torch.abs(_t(x))                      # noqa: A001
-def exp(x): return torch.exp(_t(x))
-def log(x): return torch.log(_t(x))
-def sin(x): return torch.sin(_t(x))
-def cos(x): return torch.cos(_t(x))
+def exp(x): return torch.exp(_floating(x, np.exp))
+def log(x): return torch.log(_floating(x, np.log))
+def sin(x): return torch.sin(_floating(x, np.sin))
+def cos(x): return torch.cos(_floating(x, np.cos))
 def conj(x): return torch.conj(_t(x))
 def real(x): return torch.real(_t(x))
 def square(x):
@@ -279,17 +379,15 @@ def reciprocal(x):
 
 
 def maximum(a, b):
-    a, b = _common(_t(a), _t(b))
-    return torch.maximum(a, b)
+    return torch.maximum(*_common(a, b))
 
 
 def minimum(a, b):
-    a, b = _common(_t(a), _t(b))
-    return torch.minimum(a, b)
+    return torch.minimum(*_common(a, b))
 
 
 def power(a, b):
-    return torch.pow(_t(a), _scalar_or_t(b))
+    return _binary(_operator.pow, a, b)
 
 
 # -- reductions ---------------------------------------------------------
@@ -300,7 +398,7 @@ def sum(x, axis=None):                                   # noqa: A001
 
 
 def mean(x, axis=None):
-    x = _t(x)
+    x = _floating(x, np.mean)
     return x.mean() if axis is None else x.mean(dim=axis)
 
 

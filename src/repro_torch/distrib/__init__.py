@@ -1,8 +1,7 @@
 """Multi-process cluster runtime (the paper's Ray deployment tier, §4.3).
 
-raylite (the reference package's :mod:`repro.runtime`, not ported)
-models a cluster with threads inside one process; this package crosses
-real OS-process boundaries:
+raylite (:mod:`repro_torch.runtime`) models a cluster with threads inside
+one process; this package crosses real OS-process boundaries:
 
   * a **head** scheduler (:class:`ClusterRuntime`) spawns worker
     *processes* and talks to them over pipes or — with

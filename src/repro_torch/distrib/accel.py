@@ -203,7 +203,9 @@ def pfor_batch(iter_fn, lo: int, hi: int, arrays: Sequence[Any],
         if not isinstance(v, _BAKEABLE):
             _bump("batch_fallbacks")
             return False
-        consts.append(v)
+        # by type too: 1.1 == np.float64(1.1), but a float32 body
+        # computes at float32 with the one and float64 with the other
+        consts.append((type(v), v))
 
     import torch
 

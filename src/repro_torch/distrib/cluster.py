@@ -1,9 +1,9 @@
 """ClusterRuntime: head scheduler over spawned worker processes.
 
-The multi-process generalization of the reference package's
-:class:`repro.runtime.tasks.TaskRuntime` (raylite, not ported). Same
-duck-typed surface the compiled kernels use — ``submit`` / ``get`` /
-``wait`` / ``stats`` — plus the ``pfor_shards`` protocol
+The multi-process generalization of :class:`repro_torch.runtime.tasks.
+TaskRuntime` (raylite). Same duck-typed surface the compiled kernels
+use — ``submit`` / ``get`` / ``wait`` / ``stats`` — plus the
+``pfor_shards`` protocol
 :mod:`repro_torch.core.pfor` dispatches to when its runtime crosses
 process boundaries:
 

@@ -5,8 +5,8 @@ owning worker's in-process cache); the head keeps only a directory entry
 (owner, size) unless the value was small enough to inline. ``get`` pulls
 on demand; a dead owner turns the entry LOST and the lineage record —
 the serialized task spec — is replayed on a surviving worker, exactly
-the recovery contract the reference package's
-:mod:`repro.runtime.lineage` implements inside one process.
+the recovery contract :mod:`repro_torch.runtime.lineage` implements inside one
+process.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ One import point for the whole instrument panel:
 
     obs.metrics.scope("cluster0").inc("blob_hits")
     obs.export_chrome_trace("trace.json")     # Perfetto-loadable
-    # the reference package's repro.obs.summarize reads the same file
+    # python -m repro_torch.obs.summarize trace.json  → text breakdown
 
 Tracing is **off by default**: ``span``/``begin``/``end`` cost one flag
 check when dark (a shared no-op context manager, no allocation). The

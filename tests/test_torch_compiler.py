@@ -173,7 +173,7 @@ def test_registry_tokens_and_shared_cache_dir(tmp_path):
     assert backends.names() == ["np", "torch", "cuda"]
     assert backends.degradation_chain("cuda") == ["torch", "np"]
     assert backends.degradation_chain("torch") == ["np"]
-    assert backends.cache_token(True) == "cuda2+np1+torch1"
+    assert backends.cache_token(True) == "cuda2+np1+torch2"
     assert backends.cache_token(False) == "np1"
     assert backends.cache_token(True) != ref_backends.cache_token(True)
 

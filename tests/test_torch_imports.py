@@ -1,6 +1,8 @@
 """Import guard of the PyTorch/CUDA port: ``repro_torch`` and every one
-of its modules (``core/txp.py``, the torch backend's namespace,
-included), the port's STAP flagship ``examples/torch_stap.py`` and
+of its modules (``core/txp.py``, the torch backend's namespace, the
+raylite runtime ``repro_torch.runtime`` and the serving plane
+``repro_torch.serve`` included), the port's STAP examples
+``examples/torch_stap.py`` and ``examples/torch_stap_pipeline.py`` and
 ``chip_smoke.py`` load neither jax nor any module of the JAX package
 ``repro``, and no source file of the port imports them. No kernel's
 wrapper or source calls a library kernel for its work (a GEMM, fused
@@ -50,8 +52,35 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.kernels.flash_attention.flash_attention",
                  "repro_torch.kernels.flash_attention.ops",
                  "repro_torch.kernels.mamba_scan.mamba_scan",
-                 "repro_torch.kernels.mamba_scan.ops"):
+                 "repro_torch.kernels.mamba_scan.ops",
+                 "repro_torch.runtime.store", "repro_torch.runtime.executor",
+                 "repro_torch.runtime.lineage", "repro_torch.runtime.tasks",
+                 "repro_torch.runtime.elastic", "repro_torch.obs.summarize",
+                 "repro_torch.serve.admission", "repro_torch.serve.loadgen",
+                 "repro_torch.serve.cluster_engine"):
         assert name in res["modules"]
+
+
+_PROBE_PACKAGE = """
+import importlib, json, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps({"bad": bad}))
+"""
+
+
+@pytest.mark.parametrize("package", ["repro_torch.runtime",
+                                     "repro_torch.serve"])
+def test_importing_runtime_and_serve_alone_loads_no_jax_and_no_repro(
+        package):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    out = subprocess.run([sys.executable, "-c", _PROBE_PACKAGE, package],
+                         env=env, capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1])["bad"] == []
 
 
 def test_no_port_source_imports_jax_or_repro():
@@ -68,7 +97,9 @@ def test_no_port_source_imports_jax_or_repro():
 _PROBE_EXAMPLE = """
 import json, sys
 import examples.torch_stap as ex
+import examples.torch_stap_pipeline as pipe
 assert callable(ex.stap_adaptive) and callable(ex.main)
+assert callable(pipe.main)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -85,7 +116,9 @@ def test_importing_the_port_stap_example_loads_no_jax_and_no_repro():
     assert json.loads(out.stdout.strip().splitlines()[-1])["bad"] == []
 
 
-@pytest.mark.parametrize("rel", ["examples/torch_stap.py", "chip_smoke.py"])
+@pytest.mark.parametrize("rel", ["examples/torch_stap.py",
+                                 "examples/torch_stap_pipeline.py",
+                                 "chip_smoke.py"])
 def test_port_entry_scripts_import_no_jax_or_repro(rel):
     lines = (ROOT / rel).read_text().splitlines()
     assert [ln for ln in lines if _FORBIDDEN.match(ln)] == []
