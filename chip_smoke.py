@@ -10,8 +10,8 @@ exit:
    torch and CUDA versions; TF32 off for float32 products.
 2. Build: every hand-written kernel from the sources in this checkout
    (one ``nvcc`` per source, started together), into ``build/kernels/``;
-   fails if ptxas reports spill bytes for a float64 (DMMA) kernel or for
-   any instantiation of the selective scan.
+   fails if ptxas reports spill bytes for a float64 (DMMA) matmul kernel
+   or for any instantiation of flash attention or the selective scan.
 3. Each kernel against its plain torch version on the card, in every
    dtype it takes, at its main path's chunk shape, at a language model's
    widths where the repo has one that runs it, and at a ragged shape;
@@ -19,10 +19,21 @@ exit:
    plain version and, where one PyTorch call computes the same function,
    of that call (a yardstick the port never calls), beside the least
    time the card could take.
-   The gemma2 attention layer in bf16 and f32 (softcap, causal, window,
-   GQA) takes ``flex_attention``, compiled, as its library call; it is
-   also timed beside a yardstick: ``scaled_dot_product_attention`` with
-   its causal and window mask and no softcap.
+   The flash kernel also runs the served LM's shapes with query offsets
+   (gemma2_2b's prefill of a 6144-token prompt over an 8192-key cache,
+   and a decode step of 4 slots at positions 511, 2047, 4095 and 8190 on
+   a window and a global layer). The flash inputs give scaled scores of
+   standard deviation FLASH_Q_STD, some far past the softcap, and each
+   flash case must also fail the same comparison with two negative
+   controls in its place: the plain version with a uniform softmax over
+   each row's mask and, where the case has a softcap, without it. A GQA
+   case also times the kernel alone on the regrouped tensors and the
+   regroup alone. The gemma2 attention layer and these
+   shapes in bf16 (softcap, causal, window, GQA) take ``flex_attention``,
+   compiled, as their library call (the f32 layer's is no longer built:
+   its compile took much of the script's time); the layer is also timed
+   beside a yardstick: ``scaled_dot_product_attention`` with its causal
+   and window mask and no softcap.
    Each kernel redesigned for Hopper (the float64 matmul and flash
    attention on the tensor cores, the selective scan as a chunked scan
    parallel in L) is printed beside its time before the redesign; the
@@ -85,7 +96,22 @@ exit:
    and lineage drill); it checks its output against numpy, and every
    pfor chunk must have run the torch twin (``pfor_chunks``), none the
    numpy body.
-9. Summary: one JSON line with every kernel's numbers, the card's line,
+9. The LM served on the card: gemma2_2b at full width and depth in bf16
+   (weights from the seed, drawn on the card) behind
+   ``repro_torch.serve.ServeEngine`` (4 slots x 8192 positions): 8
+   requests from two tenants, one per engine tick, prompts of 512-6144
+   tokens from the seed, 32 new tokens each. It prints each request's
+   TTFT, prefill time and TPOT, tokens/s and the flash launches, and
+   fails unless the kernel launched exactly once per attention layer per
+   prefill and decode step, no attention call took the plain version,
+   and every generated token is within LM_LOGIT_TOL of the top logit of
+   a replay of its request through the same model with attention patched
+   to the plain version, at least LM_MIN_EXACT of them its argmax. The same
+   replay must fail that gate with each decode query on key 0 alone (the
+   fault of a decode kernel that drops the query offset) and with a
+   uniform softmax; a third control's readings (every query one key
+   further) are printed. Each request's prefill is timed on its own.
+10. Summary: one JSON line with every kernel's numbers, the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the checkout's ``src/``; without either it
@@ -93,6 +119,7 @@ exits non-zero before printing any result. It imports nothing of JAX
 and nothing of the JAX package ``repro``.
 """
 
+import gc
 import json
 import re
 import subprocess
@@ -138,6 +165,23 @@ SERVE_WINDOW_S = 0.01
 SERVE_MAX_BATCH = 16
 SERVE_CALIBRATE = 6
 SERVE_LOAD = 0.8
+# the served LM (phase 9): gemma2_2b at full width and depth in bf16,
+# weights from the seed on the card, behind ServeEngine with LM_SLOTS
+# slots of LM_MAX_SEQ positions; LM_REQUESTS requests from two tenants,
+# one per engine tick, prompts of LM_PROMPT tokens drawn from the seed
+# (some longer than the local layers' 4096-key window), LM_NEW_TOKENS
+# generated each. Every generated token is replayed through the same
+# model with attention on its plain version: it must lie within
+# LM_LOGIT_TOL of the replay's largest logit, and at least LM_MIN_EXACT
+# of all must be its argmax (logits after gemma2's final softcap of 30,
+# largest about 5 at these random weights, where a bf16 ulp is 1/32: two
+# ulps; the top few logits of a 256k vocabulary lie about 0.2 apart)
+LM_ARCH = "gemma2_2b"
+LM_SLOTS, LM_MAX_SEQ = 4, 8192
+LM_REQUESTS, LM_NEW_TOKENS = 8, 32
+LM_PROMPT = (512, 6144)
+LM_LOGIT_TOL = 0.0625
+LM_MIN_EXACT = 250
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet,
 # dense): float64 on the tensor cores (DMMA) 67 TFLOP/s, float32 outside
@@ -158,17 +202,50 @@ SFU_EXP_S = 16 * 132 * 1.98e9
 SCAN_OPS = {"float64": 20 + 5, "float32": 5, "bfloat16": 5}
 
 # phase 3 cases of the flash-attention kernel: (label, (B, Sq, H, KVH,
-# Skv, D), causal, window, softcap, dtype); H == 1 runs the kernel's own
-# (BH, S, D) layout, H > 1 the GQA dispatch
+# Skv, D), causal, window, softcap, dtype, query offsets: None, or one
+# per batch row); H == 1 runs the kernel's own (BH, S, D) layout, H > 1
+# the GQA dispatch
 FLASH_CASES = [
     ("chunk", (1, ATTN_N // CHUNKS, 1, 1, ATTN_T, ATTN_D), False, 0, 0.0,
-     "float64"),
-    ("gemma2", (1, 8192, 8, 4, 8192, 288), True, 4096, 50.0, "bfloat16"),
-    ("gemma2", (1, 8192, 8, 4, 8192, 288), True, 4096, 50.0, "float32"),
+     "float64", None),
+    ("gemma2", (1, 8192, 8, 4, 8192, 288), True, 4096, 50.0, "bfloat16",
+     None),
+    ("gemma2", (1, 8192, 8, 4, 8192, 288), True, 4096, 50.0, "float32",
+     None),
     # the widest float64 tile (D = 288) at a shorter sequence
-    ("gemma2", (1, 2048, 8, 4, 2048, 288), True, 4096, 50.0, "float64"),
-    ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float32"),
-    ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float64")]
+    ("gemma2", (1, 2048, 8, 4, 2048, 288), True, 4096, 50.0, "float64",
+     None),
+    # the served LM's shapes (phase 9): a 6144-token prompt's prefill
+    # over the slot's 8192-key cache, and a decode step of 4 slots at
+    # their own positions, on a window (local) and a global layer
+    ("gemma2_prefill", (1, 6144, 8, 4, 8192, 288), True, 4096, 50.0,
+     "bfloat16", [0]),
+    ("gemma2_decode_local", (4, 1, 8, 4, 8192, 288), True, 4096, 50.0,
+     "bfloat16", [511, 2047, 4095, 8190]),
+    ("gemma2_decode_global", (4, 1, 8, 4, 8192, 288), True, 0, 50.0,
+     "bfloat16", [511, 2047, 4095, 8190]),
+    ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float32", None),
+    ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float64", None)]
+# phase 3's flash inputs: keys and values N(0, 1), queries N(0,
+# FLASH_Q_STD^2), so the scaled scores q.k / sqrt(D) have that standard
+# deviation and each row's softmax weighs a few keys (a wrong mask or a
+# skipped tile then moves the output by O(1)); the query of every
+# FLASH_PUSH-th (row + head) is drawn at FLASH_Q_PUSHED instead, so its
+# scores reach far past the softcap (50, or 30), which then sets its
+# weights
+FLASH_Q_STD = 3.0
+FLASH_Q_PUSHED = 40.0
+FLASH_PUSH = 4
+# compiled flex_attention is the library call of the bf16 GQA cases,
+# tried with these kernel options in turn (None: its own tiles). At D =
+# 288 (padded to 512 in its Triton template) its own tiles need 262,144
+# B of shared memory in the full layer (PERF.md, PR 16), and the
+# prefill's tiles are the same, so the prefill takes small ones at once
+FLEX_SMALL_TILES = {"BLOCK_M": 64, "BLOCK_N": 64, "num_stages": 1}
+FLEX_TRIES = {"gemma2": (None, FLEX_SMALL_TILES),
+              "gemma2_prefill": (FLEX_SMALL_TILES,),
+              "gemma2_decode_local": (None, FLEX_SMALL_TILES),
+              "gemma2_decode_global": (None, FLEX_SMALL_TILES)}
 # phase 3 cases of the selective-scan kernel: (label, (B, L, I, N), dtype)
 SCAN_CASES = [
     ("chunk", (1, SCAN_L, SCAN_N // CHUNKS, 1), "float64"),
@@ -179,10 +256,10 @@ SCAN_CASES = [
     ("jamba_long", (1, 16384, 16384, 16), "float32")]
 
 # functions ptxas must report no spill byte for, by the pattern of their
-# mangled names: the float64 (DMMA) kernels of matmul and flash
-# attention (namespace f64) and every instantiation of the scan
+# mangled names: the float64 (DMMA) kernels of matmul (namespace f64)
+# and every instantiation of flash attention and of the scan
 SPILL_FREE = {"matmul": r"3f64\d+\w*_kernel",
-              "flash_attention": r"3f64\d+\w*_kernel",
+              "flash_attention": r"flash_kernel",
               "mamba_scan": r"scan_kernel"}
 # main-path chunk times before each kernel's Hopper redesign (PERF.md
 # section 6), printed beside this run's: (ms, the commit and run of
@@ -297,17 +374,24 @@ def _launch_once(kernel, fn):
     return out
 
 
-def _compare(torch, name, label, got, ref, dname):
-    """Max |got - ref|; raises past the tolerance."""
+def _within(torch, got, ref, dname):
+    """(max |got - ref|, whether ``got`` is finite and within the
+    tolerance of ``ref`` everywhere)."""
     torch.cuda.synchronize()
     diff = (got.double() - ref.double()).abs()
     err = float(diff.max()) if diff.numel() else 0.0
     tol = TOL[dname]
     allowed = tol if dname == "float64" else tol + tol * ref.double().abs()
-    if not bool(torch.isfinite(got.double()).all()) \
-            or bool((diff > allowed).any()):
+    return err, bool(torch.isfinite(got.double()).all()) \
+        and not bool((diff > allowed).any())
+
+
+def _compare(torch, name, label, got, ref, dname):
+    """Max |got - ref|; raises past the tolerance."""
+    err, ok = _within(torch, got, ref, dname)
+    if not ok:
         raise AssertionError(f"{name} {label} {dname}: max err {err:.3e} "
-                             f"over tolerance {tol:g}")
+                             f"over tolerance {TOL[dname]:g}")
     return err
 
 
@@ -375,15 +459,19 @@ def check_matmul(torch, mm_kernel, matmul_ref):
     return out
 
 
-def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the attention of one head computes: the valid
-    keys of each row, or every key for a row with none (it averages
-    all of v, as the kernel and the reference do)."""
-    q = np.arange(sq)
+def attention_work(sq: int, skv: int, causal: bool, window: int,
+                   offset: int = 0):
+    """(pairs, keys) of one head whose query row i sits at position
+    offset + i: the (query, key) pairs its attention computes (the
+    valid keys of each row, or every key for a row with none: it
+    averages all of v, as the kernel and the reference do) and the keys
+    it must read (the span of the rows' valid keys)."""
+    q = offset + np.arange(sq)
     lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros_like(q)
     hi = np.minimum(skv - 1, q) if causal else np.full_like(q, skv - 1)
     n = np.maximum(0, hi - lo + 1)
-    return int(np.where(n > 0, n, skv).sum())
+    keys = int(hi.max() - lo.min() + 1) if (n > 0).all() else skv
+    return int(np.where(n > 0, n, skv).sum()), keys
 
 
 def _sdpa_yardstick(torch, sdpa, q, k, v, causal, window):
@@ -408,90 +496,154 @@ def _sdpa_yardstick(torch, sdpa, q, k, v, causal, window):
             "softcap", lambda: sdpa(qh, kh, vh, attn_mask=mask))
 
 
-# flex_attention's tiles when its own do not fit the shared memory (at
-# D = 288, padded to 512 in its Triton template)
-FLEX_SMALL_TILES = {"BLOCK_M": 64, "BLOCK_N": 64, "num_stages": 1}
-
-
-def _flex_library(torch, q, k, v, causal, window, cap, options=None):
+def _flex_library(torch, q, k, v, causal, window, cap, options=None,
+                  q_offset=None):
     """fn: ``flex_attention``, compiled, on a GQA layer's inputs (B, S,
     H, D) as (B, H, S, D): the softcap as its score_mod, the causal and
-    sliding-window mask as its block mask, the key/value heads shared
-    by ``enable_gqa``, its tiles set by ``options`` (None: its own
+    sliding-window mask at each batch row's query offset (``q_offset``,
+    (B,), or None) as its block mask, the key/value heads shared by
+    ``enable_gqa``, its tiles set by ``options`` (None: its own
     choice): one PyTorch call that computes the layer's function,
     returning (B, H, S, D)."""
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
 
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    off = None if q_offset is None else q_offset.to(torch.int64)
 
     def mask_mod(b, h, i, j):
-        keep = j <= i if causal else j >= 0
-        return keep & (j > i - window) if window > 0 else keep
+        p = i if off is None else i + off[b]
+        keep = j <= p if causal else j >= 0
+        return keep & (j > p - window) if window > 0 else keep
 
     def score_mod(s, b, h, i, j):
         return torch.tanh(s / cap) * cap
 
-    mask = create_block_mask(mask_mod, None, None, qh.shape[2],
-                             kh.shape[2], device=q.device)
+    mask = create_block_mask(mask_mod, None if off is None else q.shape[0],
+                             None, qh.shape[2], kh.shape[2],
+                             device=q.device)
     flex = torch.compile(flex_attention, dynamic=False)
     return lambda: flex(qh, kh, vh, score_mod=score_mod if cap else None,
                         block_mask=mask, enable_gqa=True,
                         kernel_options=options)
 
 
+def _flash_inputs(rng, b, sq, h, kvh, skv, d):
+    """q (B, Sq, H, D), k and v (B, Skv, KVH, D) in float64 on the host,
+    drawn as FLASH_Q_STD says."""
+    pushed = (np.arange(sq)[:, None] + np.arange(h)) % FLASH_PUSH == 0
+    std = np.where(pushed, FLASH_Q_PUSHED, FLASH_Q_STD)[None, :, :, None]
+    q = std * rng.normal(size=(b, sq, h, d))
+    k = rng.normal(size=(b, skv, kvh, d))
+    v = rng.normal(size=(b, skv, kvh, d))
+    return q, k, v
+
+
+def _flash_controls(torch, label, dname, plain, q, k, v, opts, want):
+    """Negative controls of one flash case: ``plain`` on the same inputs
+    with each row's softmax uniform over its mask (q = 0) and, where the
+    case has a softcap, without the softcap. Each must fail the
+    comparison the kernel passed (else that comparison could not tell
+    such a kernel from a sound one); returns {control: max err}."""
+    controls = {"uniform": (torch.zeros_like(q), opts)}
+    if opts["softcap"]:
+        controls["no_softcap"] = (q, {**opts, "softcap": 0.0})
+    errs = {}
+    for what, (cq, copts) in controls.items():
+        errs[what], ok = _within(torch, plain(cq, k, v, **copts), want,
+                                 dname)
+        if ok:
+            raise AssertionError(f"flash_attention {label} {dname}: the "
+                                 f"{what} control passes the comparison "
+                                 f"(max err {errs[what]:.3e})")
+    return errs
+
+
 def check_flash(torch, fa_kernel, fa_ops, fa_ref):
     """Phase 3: the flash-attention kernel against its plain version:
     (a) the attention path's chunk, (b) one gemma2_2b attention layer
     (B=1, S=8192, H=8, KVH=4, D=288, causal, window 4096, softcap 50;
-    src/repro/configs/gemma2_2b.py) through the GQA dispatch, (c) a
-    ragged case."""
+    src/repro/configs/gemma2_2b.py) through the GQA dispatch, (c) the
+    served LM's prefill and per-slot decode shapes with query offsets,
+    (d) a ragged case."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(SEED + 2)
     out = []
-    for label, (b, sq, h, kvh, skv, d), causal, window, cap, dname \
+    for label, (b, sq, h, kvh, skv, d), causal, window, cap, dname, offs \
             in FLASH_CASES:
+        t_case = time.perf_counter()
         dt = _dtypes(torch)[dname]
-        std = d ** -0.25          # unscaled scores q.k / sqrt(d) are O(1)
-        q = torch.from_numpy(std * rng.normal(size=(b, sq, h, d)))
-        k = torch.from_numpy(std * rng.normal(size=(b, skv, kvh, d)))
-        v = torch.from_numpy(rng.normal(size=(b, skv, kvh, d)))
+        q, k, v = (torch.from_numpy(t) for t in
+                   _flash_inputs(rng, b, sq, h, kvh, skv, d))
+        off = None if offs is None else torch.tensor(
+            offs, dtype=torch.int32, device="cuda")
         opts = dict(causal=causal, window=window, softcap=cap)
+        if off is not None:
+            opts["q_offset"] = off
         yardstick = None
         if h == 1:                # one head: the kernel's own layout
             q, k, v = (t[:, :, 0].to("cuda", dt).contiguous()
                        for t in (q, k, v))
             kernel_fn = lambda: fa_kernel.flash_attention_bhsd(  # noqa: E731
                 q, k, v, **opts)
-            plain_fn = lambda: fa_ref.flash_attention_bhsd_ref(  # noqa: E731
-                q, k, v, **opts)
+            plain = fa_ref.flash_attention_bhsd_ref
             library_fn = None if (causal or window or cap) else \
                 (lambda: sdpa(q, k, v))
         else:                     # a GQA layer through the dispatch
             q, k, v = (t.to("cuda", dt) for t in (q, k, v))
             kernel_fn = lambda: fa_ops.flash_attention(q, k, v,  # noqa: E731
                                                        **opts)
-            plain_fn = lambda: fa_ref.attention_ref(q, k, v,  # noqa: E731
-                                                    **opts)
+            plain = fa_ref.attention_ref
             library_fn = None
-            if dname != "float64":
+            if dname != "float64" and off is None:
                 yardstick = _sdpa_yardstick(torch, sdpa, q, k, v, causal,
                                             window)
+        plain_fn = lambda: plain(q, k, v, **opts)  # noqa: E731
         got = _launch_once(fa_kernel, kernel_fn)
         want = plain_fn()
         err = _compare(torch, "flash_attention", label, got, want, dname)
-        extra = {}
-        if h > 1 and dname != "float64":
-            # flex_attention as the library call, with its own tiles and
-            # then with smaller ones; its build (Triton, at D = 288) or
-            # its answer may fail: then library_ms stays None and the
-            # reasons are kept. It is no part of the port
+        # the error against the output's scale, and the controls
+        scale = float(want.double().abs().max())
+        if not err <= TOL[dname] * scale:
+            raise AssertionError(f"flash_attention {label} {dname}: max err "
+                                 f"{err:.3e} over {TOL[dname]:g} of the "
+                                 f"output's largest value {scale:.3e}")
+        controls = _flash_controls(torch, label, dname, plain, q, k, v,
+                                   opts, want)
+        print(f"flash_attention {label} {dname}: output's largest value "
+              f"{scale:.3f}, max err {err:.3e}; controls' max err "
+              f"{json.dumps(controls)} (each fails the comparison)",
+              flush=True)
+        extra = {"out_scale": scale, "controls_max_abs_err": controls}
+        if off is not None:
+            extra["q_offset"] = offs
+        if h > 1:
+            # the dispatch's two parts: the kernel alone on the regrouped
+            # tensors, and the regroup (transposes, K/V repeated over the
+            # query-head groups) alone
+            regrouped = fa_ops.regroup(q, k, v, 0 if off is None else off)
+            bare = dict(causal=causal, window=window, softcap=cap,
+                        q_offset=regrouped[3])
+            extra["kernel_alone_ms"] = _time_ms(
+                torch, lambda: fa_kernel.flash_attention_bhsd(
+                    *regrouped[:3], **bare), 10)
+            extra["regroup_ms"] = _time_ms(
+                torch, lambda: fa_ops.regroup(q, k, v,
+                                              0 if off is None else off), 10)
+            del regrouped, bare
+        if label in FLEX_TRIES and dname == "bfloat16":
+            # flex_attention as the library call, with the tiles of
+            # FLEX_TRIES in turn; its build (Triton, at D = 288) or its
+            # answer may fail: then library_ms stays None and the reasons
+            # are kept. It is no part of the port. (The float32 layer's
+            # compiled flex_attention, 714 ms in PR 16, is no longer
+            # built: its compile took much of this script's time.)
             extra["library"] = "flex_attention (compiled)"
             extra["library_errors"] = []
-            for options in (None, FLEX_SMALL_TILES):
+            for options in FLEX_TRIES[label]:
                 try:
                     library_fn = _flex_library(torch, q, k, v, causal,
-                                               window, cap, options)
+                                               window, cap, options, off)
                     lib_err = float((library_fn().transpose(1, 2).double()
                                      - want.double()).abs().max())
                     if not lib_err <= TOL[dname] * (
@@ -512,14 +664,27 @@ def check_flash(torch, fa_kernel, fa_ops, fa_ref):
                 print(f"flash_attention {label} {dname}: flex_attention "
                       f"with tiles {options}, max err {lib_err:.3e}",
                       flush=True)
-        pairs = b * h * attention_pairs(sq, skv, causal, window)
-        nbytes = (2 * b * sq * h * d + 2 * b * skv * kvh * d) \
-            * q.element_size()
+        # per batch row: its pairs and the keys it must read
+        work = [attention_work(sq, skv, causal, window,
+                               0 if offs is None else offs[i])
+                for i in range(b)]
+        pairs = h * sum(p for p, _ in work)
+        nbytes = (2 * b * sq * h * d + 2 * sum(n for _, n in work) * kvh
+                  * d) * q.element_size()
         out.append(_row(
             torch, "flash_attention", label, [b, sq, h, kvh, skv, d], dname,
             err, kernel_fn, plain_fn, library_fn, 4.0 * pairs * d, nbytes,
             reps=10, causal=causal, window=window, softcap=cap,
             yardstick=yardstick, **extra))
+        if h > 1:
+            print(f"flash_attention {label} {dname}: dispatch "
+                  f"{out[-1]['ms']:.3f} ms = kernel alone "
+                  f"{extra['kernel_alone_ms']:.3f} ms on the regrouped "
+                  f"tensors + regroup {extra['regroup_ms']:.3f} ms",
+                  flush=True)
+        out[-1]["case_s"] = time.perf_counter() - t_case
+        print(f"flash_attention {label} {dname}: case took "
+              f"{out[-1]['case_s']:.1f} s", flush=True)
         del q, k, v, got, want, yardstick, library_fn
         torch.cuda.empty_cache()
     return out
@@ -1172,6 +1337,217 @@ def served_stap(rt, compile_kernel, obs, torch, card):
     return rows
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _replay(torch, cfg, params, done, fa_kernel, fa_ops, attn,
+            device="cuda"):
+    """(exact, largest gap to the top logit) of every generated token of
+    ``done`` against a replay of its request's prompt and generated
+    tokens through the same model in one pass, without caches, with the
+    flash op patched to ``attn(q, k, v, prompt, **opts)`` (``prompt``:
+    the request's prompt length, so rows from there on are the decode
+    steps' queries)."""
+    from unittest import mock
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import (mask_padded_vocab, rmsnorm,
+                                           softcap)
+
+    exact, worst = 0, 0.0
+    launches = fa_kernel.launches
+    for r in done:
+        n = len(r.prompt)
+        op = lambda q, k, v, n=n, **o: attn(q, k, v, n, **o)  # noqa: E731
+        with mock.patch.object(fa_ops, "flash_attention", op), \
+                torch.inference_mode():
+            toks = np.concatenate([np.asarray(r.prompt),
+                                   np.asarray(r.generated[:-1])])
+            x = T.embed_tokens(
+                params, torch.as_tensor(toks, device=device)[None], cfg)
+            x, _ = T.forward(params, x, cfg,
+                             positions=torch.arange(len(toks), device=device))
+            h = rmsnorm(x[:, n - 1:], params["final_ln"], cfg.norm_eps)
+            logits = mask_padded_vocab(softcap(
+                torch.einsum("btd,vd->btv", h, params["embed"]),
+                cfg.logit_softcap), cfg.vocab)[0].float()
+            gen = torch.as_tensor(r.generated, device=device)
+            gap = logits.max(-1).values - logits.gather(-1, gen[:, None])[:, 0]
+            exact += int((logits.argmax(-1) == gen).sum())
+            worst = max(worst, float(gap.max()))
+            del x, h, logits
+    if fa_kernel.launches != launches:
+        raise AssertionError("the plain replay launched the flash kernel")
+    return exact, worst
+
+
+def _replay_attentions(torch, fa_ref):
+    """{name: attn} for :func:`_replay`: the plain version, then the
+    controls: each decode query on key 0 alone (a decode kernel that
+    drops the query offset: the query then sits at position 0), a
+    uniform softmax over each row's mask, and every query one key
+    further (it also sees the next token)."""
+    plain = fa_ref.attention_ref
+
+    def key0(q, k, v, n, **o):
+        out = plain(q, k, v, **o)
+        out[:, n:] = v[:, :1].repeat_interleave(q.shape[2] // k.shape[2], 2)
+        return out
+
+    return {
+        "plain": lambda q, k, v, n, **o: plain(q, k, v, **o),
+        "key0": key0,
+        "uniform": lambda q, k, v, n, **o: plain(torch.zeros_like(q), k, v,
+                                                 **o),
+        "next_key": lambda q, k, v, n, **o: plain(
+            q, k, v, **{**o, "q_offset": o["q_offset"] + 1})}
+
+
+def served_lm(torch, card, fa_kernel, fa_ops, fa_ref, device="cuda"):
+    """Phase 9: gemma2_2b served on the card by ServeEngine (the logic of
+    ``repro_torch.launch.serve`` at full size), every attention layer
+    on the flash kernel; each generated token checked against a plain
+    replay. (``device`` is for a rehearsal on the CPU, with a counting
+    plain version standing in for the kernel.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params, _ = T.init_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED))
+    torch.cuda.synchronize(device)
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    rng = np.random.default_rng(SEED + 6)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(
+        LM_PROMPT[0], LM_PROMPT[1] + 1))) for _ in range(LM_REQUESTS)]
+    lens = [len(p) for p in prompts]
+    if max(lens) <= cfg.sliding_window:
+        raise AssertionError(f"lm: no prompt outgrows the window: {lens}")
+    eng = ServeEngine(params, cfg, n_slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                      device=device)
+    decodes = [0]
+    decode = eng._decode
+
+    def counted(*args):
+        decodes[0] += 1
+        return decode(*args)
+
+    eng._decode = counted
+    prefill_ms = []
+    prefill = eng._prefill
+
+    def timed(*args):
+        # the engine waits for each step's argmax anyway: these
+        # synchronisations cost it nothing
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        out = prefill(*args)
+        torch.cuda.synchronize(device)
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng._prefill = timed
+    # the earlier phases' garbage is collected here, not inside the run
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    # every count to 0 just before the path's run
+    fa_kernel.launches = 0
+    fa_ops.plain_calls = 0
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.add_request(Request(f"req-{i}", p, max_tokens=LM_NEW_TOKENS),
+                        tenant=("tenant-a", "tenant-b")[i % 2])
+        eng.step()          # staggered arrivals, as launch/serve.py
+    done = eng.run_until_done()
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches, plain = fa_kernel.launches, fa_ops.plain_calls
+    tel = eng.telemetry()
+    tokens = sum(len(r.generated) for r in done)
+    want_launches = cfg.layers * (eng.prefills + decodes[0])
+    per_request = [{
+        "id": r.request_id, "prompt": len(r.prompt),
+        "generated": len(r.generated),
+        "ttft_ms": (r.first_token_s - r.submitted_s) * 1e3,
+        "prefill_ms": prefill_ms[i],
+        "tpot_ms": (r.finished_s - r.first_token_s) * 1e3
+        / max(1, len(r.generated) - 1)}
+        for i, r in enumerate(sorted(done, key=lambda r: r.first_token_s))]
+    for row in per_request:
+        print(f"lm {row['id']}: prompt {row['prompt']} tokens, "
+              f"{row['generated']} generated, TTFT {row['ttft_ms']:.3f} "
+              f"ms (its prefill {row['prefill_ms']:.3f} ms), TPOT "
+              f"{row['tpot_ms']:.3f} ms", flush=True)
+    print(f"lm served ({cfg.name}, {n_params / 1e9:.3f} B params bf16 "
+          f"from seed {SEED} in {t_init:.3f} s; {LM_SLOTS} slots x "
+          f"{LM_MAX_SEQ}; {len(done)} requests, 2 tenants; {card}): "
+          f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.3f} "
+          f"tokens/s; prefills {eng.prefills}, decode steps {decodes[0]}, "
+          f"ticks {eng.ticks}; flash launches {launches} ({cfg.layers} x "
+          f"(prefills + decode steps) = {want_launches}); plain calls "
+          f"{plain}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; latency "
+          f"{json.dumps(tel['latency'])}", flush=True)
+    if len(done) != LM_REQUESTS or any(
+            len(r.generated) != LM_NEW_TOKENS for r in done):
+        raise AssertionError(f"lm: {len(done)} of {LM_REQUESTS} requests "
+                             f"done, generated "
+                             f"{[len(r.generated) for r in done]}")
+    if launches != want_launches:
+        raise AssertionError(f"lm: {launches} flash launches, not "
+                             f"{want_launches}")
+    if plain != 0:
+        raise AssertionError(f"lm: {plain} plain attention calls on the card")
+    t0 = time.perf_counter()
+    checked = sum(len(r.generated) for r in done)
+    replays = {name: _replay(torch, cfg, params, done, fa_kernel, fa_ops,
+                             attn, device)
+               for name, attn in _replay_attentions(torch, fa_ref).items()}
+    for name, (exact, worst) in replays.items():
+        print(f"lm replay, attention {name}: {exact} of {checked} "
+              f"generated tokens are the replay's argmax; the largest gap "
+              f"to its top logit {worst:.4f} (gate: at least "
+              f"{LM_MIN_EXACT} exact, gap at most {LM_LOGIT_TOL})",
+              flush=True)
+    print(f"lm replays: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    def passes(name):
+        exact, worst = replays[name]
+        return exact >= LM_MIN_EXACT and worst <= LM_LOGIT_TOL
+
+    if checked != LM_REQUESTS * LM_NEW_TOKENS or not passes("plain"):
+        raise AssertionError(f"lm replay: {checked} tokens checked, "
+                             f"(exact, largest gap) {replays['plain']}")
+    for name in ("key0", "uniform"):
+        if passes(name):
+            raise AssertionError(f"lm replay: the gate passes the {name} "
+                                 f"control {replays[name]}")
+    exact, worst = replays["plain"]
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "params": n_params, "init_s": t_init,
+            "slots": LM_SLOTS, "max_seq": LM_MAX_SEQ, "requests": len(done),
+            "prompt_lens": lens, "new_tokens": LM_NEW_TOKENS,
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "prefills": tel["prefills"], "decode_steps": decodes[0],
+            "ticks": tel["ticks"], "launches": launches,
+            "plain_calls": plain, "latency": tel["latency"],
+            "per_request": per_request, "replay_exact": exact,
+            "replay_checked": checked, "replay_max_gap": worst,
+            "replay_controls": {k: {"exact": e, "max_gap": g}
+                                for k, (e, g) in replays.items()
+                                if k != "plain"},
+            "card": card}
+
+
 def _summary(name, source, replaces, cases, path):
     """The kernel's entry of the ``{"kernels": [...]}`` line: the
     numbers of its main path's chunk case (the first), the worst error
@@ -1308,7 +1684,12 @@ def main() -> int:
     print(f"phase 8 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # 9. summary
+    # 9. the LM served on the card
+    lm = served_lm(torch, card, fa, fa_ops, fa_ref)
+    print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # 10. summary
     base = "src/repro_torch/kernels"
     summary = [
         _summary("matmul", f"{base}/matmul/csrc/matmul.cu",
@@ -1322,9 +1703,11 @@ def main() -> int:
                  "src/repro/kernels/mamba_scan/mamba_scan.py:55",
                  cases["mamba_scan"], paths["mamba_scan"]),
     ]
+    summary[1]["lm_path"] = {k: lm[k] for k in (
+        "launches", "plain_calls", "prefills", "decode_steps", "requests")}
     print(json.dumps({"stap_path": stap, "whole_kernel_path": whole,
-                      "served_stap": served, "raylite": raylite}),
-          flush=True)
+                      "served_stap": served, "raylite": raylite,
+                      "served_lm": lm}), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

@@ -21,6 +21,14 @@
 // same result, unless a row of the block has no valid key at all (it then
 // averages V over all keys, as the reference does).
 //
+// Query positions: row i of batch-head r sits at position q_offset[r] + i
+// (the reference's plain_attention(..., q_offset=...); a null q_offset is
+// all zeros). A decode step's single query of a slot at position 8000 of
+// an 8192-key cache thus sees keys [0, 8000] (causal), or the window's
+// (8000 - window, 8000], and the tile bounds (key_bounds) keep its block
+// from reading the cache's unwritten rest. Positions are 32-bit:
+// q_offset + Sq must stay below 2^31.
+//
 // Bound on an H100 SXM: 4 Sq Skv D operations on (2 Skv + 2 Sq) D values
 // moved, so at the main path's chunk (Sq = Skv = 4096, D = 128, float64)
 // some 500 operations per byte: bound by operations. In float64 the peak
@@ -63,8 +71,9 @@
 //
 // Types: double in, double accumulation; float in, float; bf16 in, float.
 //
-// C interface (loaded with ctypes): pointers, the sizes, the options and
-// the CUDA stream; each entry returns a cudaError_t (0 on success).
+// C interface (loaded with ctypes): pointers (q, k, v, o and q_offset, an
+// int32 array of BH positions or null), the sizes, the options and the
+// CUDA stream; each entry returns a cudaError_t (0 on success).
 
 #include <cmath>
 #include <cstdint>
@@ -130,13 +139,33 @@ __device__ __forceinline__ Acc row_sum(Acc v) {
   return v;
 }
 
+// (x, y) = [begin, end): the keys a block of query rows at positions
+// [p_first, p_last] walks. A row at position p has the valid keys
+// [max(0, p - window + 1), min(skv - 1, p)] (each bound where its mask is
+// on); every row has one unless a causal row lies before key 0 or a
+// window lies past the last key. Only then are the keys outside the union
+// of the rows' ranges skipped: a row with no valid key averages every
+// key's V, so its block walks them all.
+__device__ __forceinline__ int2 key_bounds(int p_first, int p_last, int skv,
+                                           int causal, int window) {
+  const bool every_row_valid = !(causal && p_first < 0)
+      && !(window > 0 && p_last - window + 1 > skv - 1);
+  if (!every_row_valid) return make_int2(0, skv);
+  return make_int2(window > 0 ? max(0, p_first - window + 1) : 0,
+                   causal ? min(skv, p_last + 1) : skv);
+}
+
 // NC: column groups per thread, ceil(D / 16) rounded up to an
-// instantiated size (the accumulator is a register array)
+// instantiated size (the accumulator is a register array). At least 3
+// blocks an SM, so at most 85 registers a thread: with no minimum, ptxas
+// gave the D <= 192 instantiations 64 and spilled once the query offset
+// was added (it now takes 77-80 and spills nothing)
 template <typename T, typename Acc, int NC>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 3)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
-             int d, Acc scale, int causal, int window, Acc softcap) {
+             const T* __restrict__ v, T* __restrict__ o,
+             const int* __restrict__ q_offset, int sq, int skv, int d,
+             Acc scale, int causal, int window, Acc softcap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = d + 1;
   Acc* qs = reinterpret_cast<Acc*>(smem_raw);   // BQ x ld
@@ -148,6 +177,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid / 16;
   const int64_t bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
+  const int pos0 = (q_offset ? q_offset[bh] : 0) + q0;   // row q0's position
   const T* qb = q + bh * sq * d;
   const T* kb = k + bh * skv * d;
   const T* vb = v + bh * skv * d;
@@ -170,17 +200,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) acc[i][c] = Acc(0);
   }
 
-  // KV tiles that hold a valid key for some row of the block; the rest
-  // may be skipped only when every row of the block has a valid key
-  const int q_last = min(q0 + BQ, sq) - 1;
-  int k_begin = 0;
-  int k_end = skv;
-  const bool every_row_valid = !(window > 0 && q_last - window + 1 > skv - 1);
-  if (every_row_valid) {
-    if (causal) k_end = min(skv, q_last + 1);
-    if (window > 0) k_begin = max(0, q0 - window + 1);
-  }
-  k_begin = (k_begin / BK) * BK;
+  // KV tiles that hold a valid key for some row of the block
+  const int2 keys = key_bounds(pos0, pos0 + min(BQ, sq - q0) - 1, skv,
+                               causal, window);
+  const int k_begin = (keys.x / BK) * BK;
+  const int k_end = keys.y;
 
   for (int kt = k_begin; kt < k_end; kt += BK) {
     __syncthreads();            // the previous tile's P.V is done with kv
@@ -214,7 +238,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Acc corr[TM];
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const int qp = q0 + ty + 16 * i;
+      const int qp = pos0 + ty + 16 * i;
       Acc tmax = Acc(MASKED);
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
@@ -284,9 +308,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, typename Acc, int NC>
-int launch_nc(const void* q, const void* k, const void* v, void* o, int bh,
-              int sq, int skv, int d, int causal, int window, double softcap,
-              void* stream) {
+int launch_nc(const void* q, const void* k, const void* v, void* o,
+              const int* q_offset, int bh, int sq, int skv, int d, int causal,
+              int window, double softcap, void* stream) {
   const size_t smem = (size_t)(BQ * (d + 1) + BK * (d + 1) + BQ * BK)
                       * sizeof(Acc);
   auto kern = flash_kernel<T, Acc, NC>;
@@ -296,26 +320,27 @@ int launch_nc(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid((unsigned)((sq + BQ - 1) / BQ), (unsigned)bh);
   kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, d,
+      static_cast<const T*>(v), static_cast<T*>(o), q_offset, sq, skv, d,
       Acc(1.0 / sqrt((double)d)), causal, window, Acc(softcap));
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename Acc>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
-           int64_t sq, int64_t skv, int64_t d, int causal, int window,
-           double softcap, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           const int* q_offset, int64_t bh, int64_t sq, int64_t skv,
+           int64_t d, int causal, int window, double softcap, void* stream) {
   if (!sizes_ok(bh, sq, skv, d)) return (int)cudaErrorInvalidValue;
   // the register tile's width: the least instantiated ceil(D / 16)
-  using Launch = int (*)(const void*, const void*, const void*, void*, int,
-                         int, int, int, int, int, double, void*);
+  using Launch = int (*)(const void*, const void*, const void*, void*,
+                         const int*, int, int, int, int, int, int, double,
+                         void*);
   Launch fn = launch_nc<T, Acc, 18>;
   if (d <= 192) fn = launch_nc<T, Acc, 12>;
   if (d <= 128) fn = launch_nc<T, Acc, 8>;
   if (d <= 64) fn = launch_nc<T, Acc, 4>;
   if (d <= 32) fn = launch_nc<T, Acc, 2>;
-  return fn(q, k, v, o, (int)bh, (int)sq, (int)skv, (int)d, causal, window,
-            softcap, stream);
+  return fn(q, k, v, o, q_offset, (int)bh, (int)sq, (int)skv, (int)d, causal,
+            window, softcap, stream);
 }
 
 // ---- float64 on the tensor cores (DMMA) ----
@@ -358,9 +383,9 @@ __device__ __forceinline__ void group_sync(int id, int count) {
 template <int DP, int CS, int G, int BKV, bool VEC>
 __global__ void __launch_bounds__(Tile<DP, CS, G, BKV>::THREADS, 1)
 flash_kernel(const double* __restrict__ q, const double* __restrict__ k,
-             const double* __restrict__ v, double* __restrict__ o, int sq,
-             int skv, int d, double scale, int causal, int window,
-             double softcap) {
+             const double* __restrict__ v, double* __restrict__ o,
+             const int* __restrict__ q_offset, int sq, int skv, int d,
+             double scale, int causal, int window, double softcap) {
   using TL = Tile<DP, CS, G, BKV>;
   constexpr int LDQ = TL::LDQ, LDV = TL::LDV, FS = TL::FS, FO = TL::FO;
   constexpr int GROUP = TL::GROUP;
@@ -381,22 +406,17 @@ flash_kernel(const double* __restrict__ q, const double* __restrict__ k,
 
   const int64_t bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
+  const int pos0 = (q_offset ? q_offset[bh] : 0) + q0;   // row q0's position
   const double* qb = q + bh * sq * d;
   const double* kb = k + bh * skv * d;
   const double* vb = v + bh * skv * d;
   double* ob = o + bh * sq * d;
 
-  // KV tiles that hold a valid key for some row of the block; the rest
-  // may be skipped only when every row of the block has a valid key
-  const int q_last = min(q0 + BQ, sq) - 1;
-  int k_begin = 0;
-  int k_end = skv;
-  const bool every_row_valid = !(window > 0 && q_last - window + 1 > skv - 1);
-  if (every_row_valid) {
-    if (causal) k_end = min(skv, q_last + 1);
-    if (window > 0) k_begin = max(0, q0 - window + 1);
-  }
-  k_begin = (k_begin / BKV) * BKV + grp * BKV;
+  // KV tiles that hold a valid key for some row of the block
+  const int2 keys = key_bounds(pos0, pos0 + min(BQ, sq - q0) - 1, skv,
+                               causal, window);
+  const int k_begin = (keys.x / BKV) * BKV + grp * BKV;
+  const int k_end = keys.y;
 
   // the block's query rows (zero past Sq: never stored) and the first K
   dmma::stage_tile<BQ, DP, LDQ, TL::THREADS, VEC, 2>(qs, qb, q0, sq, d,
@@ -451,7 +471,7 @@ flash_kernel(const double* __restrict__ q, const double* __restrict__ k,
     // online softmax on the fragments; s becomes p
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int qp = q0 + wr + g + 8 * h;
+      const int qp = pos0 + wr + g + 8 * h;
       double tmax = MASKED;
 #pragma unroll
       for (int j = 0; j < FS; ++j)
@@ -572,9 +592,9 @@ flash_kernel(const double* __restrict__ q, const double* __restrict__ k,
 }
 
 template <int DP, int CS, int G, int BKV>
-int launch_tile(const void* q, const void* k, const void* v, void* o, int bh,
-                int sq, int skv, int d, int causal, int window,
-                double softcap, void* stream) {
+int launch_tile(const void* q, const void* k, const void* v, void* o,
+                const int* q_offset, int bh, int sq, int skv, int d,
+                int causal, int window, double softcap, void* stream) {
   using TL = Tile<DP, CS, G, BKV>;
   // 16-byte copies where every row starts on 16 bytes
   const bool vec = d % 2 == 0
@@ -588,26 +608,27 @@ int launch_tile(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid((unsigned)((sq + BQ - 1) / BQ), (unsigned)bh);
   kern<<<grid, TL::THREADS, TL::SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(q), static_cast<const double*>(k),
-      static_cast<const double*>(v), static_cast<double*>(o), sq, skv, d,
-      1.0 / sqrt((double)d), causal, window, softcap);
+      static_cast<const double*>(v), static_cast<double*>(o), q_offset, sq,
+      skv, d, 1.0 / sqrt((double)d), causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
-int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
-           int64_t sq, int64_t skv, int64_t d, int causal, int window,
-           double softcap, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o,
+           const int* q_offset, int64_t bh, int64_t sq, int64_t skv,
+           int64_t d, int causal, int window, double softcap, void* stream) {
   if (!sizes_ok(bh, sq, skv, d)) return (int)cudaErrorInvalidValue;
   // the tile of D's class: a warp's accumulator (16 rows x DP / CS
   // columns) stays in registers and Q, K, V in shared memory
-  using Launch = int (*)(const void*, const void*, const void*, void*, int,
-                         int, int, int, int, int, double, void*);
+  using Launch = int (*)(const void*, const void*, const void*, void*,
+                         const int*, int, int, int, int, int, int, double,
+                         void*);
   Launch fn = launch_tile<288, 2, 1, 16>;
   if (d <= 192) fn = launch_tile<192, 2, 1, 32>;
   if (d <= 128) fn = launch_tile<128, 1, 2, 32>;
   if (d <= 64) fn = launch_tile<64, 1, 2, 32>;
   if (d <= 32) fn = launch_tile<32, 1, 2, 32>;
-  return fn(q, k, v, o, (int)bh, (int)sq, (int)skv, (int)d, causal, window,
-            softcap, stream);
+  return fn(q, k, v, o, q_offset, (int)bh, (int)sq, (int)skv, (int)d, causal,
+            window, softcap, stream);
 }
 
 }  // namespace f64
@@ -617,27 +638,29 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t bh,
 extern "C" {
 
 int flash_attention_f64(const void* q, const void* k, const void* v, void* o,
-                        int64_t bh, int64_t sq, int64_t skv, int64_t d,
-                        int causal, int window, double softcap,
-                        void* stream) {
-  return f64::launch(q, k, v, o, bh, sq, skv, d, causal, window, softcap,
-                     stream);
+                        const void* q_offset, int64_t bh, int64_t sq,
+                        int64_t skv, int64_t d, int causal, int window,
+                        double softcap, void* stream) {
+  return f64::launch(q, k, v, o, static_cast<const int*>(q_offset), bh, sq,
+                     skv, d, causal, window, softcap, stream);
 }
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int64_t bh, int64_t sq, int64_t skv, int64_t d,
-                        int causal, int window, double softcap,
-                        void* stream) {
-  return launch<float, float>(q, k, v, o, bh, sq, skv, d, causal, window,
-                              softcap, stream);
+                        const void* q_offset, int64_t bh, int64_t sq,
+                        int64_t skv, int64_t d, int causal, int window,
+                        double softcap, void* stream) {
+  return launch<float, float>(q, k, v, o, static_cast<const int*>(q_offset),
+                              bh, sq, skv, d, causal, window, softcap,
+                              stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* o, int64_t bh, int64_t sq, int64_t skv,
-                         int64_t d, int causal, int window, double softcap,
-                         void* stream) {
-  return launch<__nv_bfloat16, float>(q, k, v, o, bh, sq, skv, d, causal,
-                                      window, softcap, stream);
+                         void* o, const void* q_offset, int64_t bh,
+                         int64_t sq, int64_t skv, int64_t d, int causal,
+                         int window, double softcap, void* stream) {
+  return launch<__nv_bfloat16, float>(
+      q, k, v, o, static_cast<const int*>(q_offset), bh, sq, skv, d, causal,
+      window, softcap, stream);
 }
 
 const char* flash_attention_error_string(int code) {

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -45,7 +46,7 @@ def _library() -> ctypes.CDLL:
         lib = _build.load(SOURCE)
         for name in _ENTRY.values():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4 + [
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_double,
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -62,11 +63,23 @@ def build() -> None:
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         softcap: float = 0.0) -> torch.Tensor:
+                         softcap: float = 0.0,
+                         q_offset: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Attention of q ``(BH, Sq, D)`` over k/v ``(BH, Skv, D)`` on the
     card, in the operands' dtype (float64, float32 or bfloat16; float64
-    accumulates in float64, the others in float32)."""
+    accumulates in float64, the others in float32). Query row ``i`` of
+    batch-head ``r`` sits at position ``q_offset[r] + i`` (``q_offset``:
+    int32 ``(BH,)`` on q's device; None: every row at ``i``)."""
     global launches
+    if q_offset is not None and (
+            q_offset.dtype != torch.int32 or q_offset.device != q.device
+            or tuple(q_offset.shape) != (q.shape[0],)
+            or not q_offset.is_contiguous()):
+        raise ValueError(f"flash attention kernel needs q_offset as a "
+                         f"contiguous int32 ({q.shape[0]},) tensor on "
+                         f"{q.device}, got {q_offset.dtype} "
+                         f"{tuple(q_offset.shape)} on {q_offset.device}")
     if not (q.is_cuda and k.is_cuda and v.is_cuda) \
             or not q.device == k.device == v.device:
         raise ValueError(f"flash attention kernel needs q, k, v on one "
@@ -97,6 +110,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if q_offset is None else q_offset.data_ptr(),
                  bh, sq, skv, d, int(bool(causal)), int(window or 0),
                  float(softcap or 0.0), stream)
     if err != 0:

@@ -10,22 +10,39 @@ the path CPU tensors take).
   and ``acc / max(l, 1e-30)``, all in ``promote(dtype, float32)``, cast
   to ``q``'s dtype. A row whose every key is masked averages all of
   ``v``, as the kernel's (and the reference's) running state does.
+
+Both take the reference's ``q_offset`` (``plain_attention(...,
+q_offset=...)``): query row ``i`` sits at position ``q_offset + i``, an
+int (None: 0) for every row or a tensor of one offset per batch (B,)
+here, per batch-head (BH,) in the kernel's layout.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Union
 
 import torch
 
 NEG_INF = -1e30
 
 
-def _mask(sq: int, skv: int, causal: bool, window: int,
-          device) -> torch.Tensor:
-    q_pos = torch.arange(sq, device=device)[:, None]
-    k_pos = torch.arange(skv, device=device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+Offset = Optional[Union[int, torch.Tensor]]
+
+
+def _mask(sq: int, skv: int, causal: bool, window: int, device,
+          q_offset: Offset = 0) -> torch.Tensor:
+    """(sq, skv) for an int offset, (R, sq, skv) for R offsets (a 0-d
+    tensor is one)."""
+    q_pos = torch.arange(sq, device=device)
+    if isinstance(q_offset, torch.Tensor):
+        q_pos = q_offset.to(device, torch.int64).reshape(-1, 1) + q_pos
+    else:
+        q_pos = q_pos + int(q_offset or 0)
+    q_pos = q_pos[..., None]
+    k_pos = torch.arange(skv, device=device)
+    mask = torch.ones(q_pos.shape[:-1] + (skv,), dtype=torch.bool,
+                      device=device)
     if causal:
         mask &= k_pos <= q_pos
     if window and window > 0:
@@ -42,8 +59,10 @@ def _scores(q, k, acc, softcap: float):
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  softcap: float = 0.0) -> torch.Tensor:
-    """q: (B, Sq, H, D); k/v: (B, Skv, KVH, D). GQA via head groups."""
+                  softcap: float = 0.0, q_offset: Offset = 0
+                  ) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Skv, KVH, D). GQA via head groups;
+    ``q_offset``: an int or (B,)."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -52,7 +71,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kk = k.permute(0, 2, 1, 3)[:, :, None]                   # b k 1 s d
     vv = v.permute(0, 2, 1, 3)[:, :, None]
     s = _scores(qg, kk, acc, softcap)                         # b k g q s
-    s = torch.where(_mask(sq, skv, causal, window, q.device), s,
+    mask = _mask(sq, skv, causal, window, q.device, q_offset)
+    if mask.dim() == 3:                                       # per batch
+        mask = mask[:, None, None]
+    s = torch.where(mask, s,
                     torch.tensor(NEG_INF, dtype=acc, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = p.to(q.dtype) @ vv.to(q.dtype)                      # b k g q d
@@ -61,13 +83,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bhsd_ref(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
-                             window: int = 0,
-                             softcap: float = 0.0) -> torch.Tensor:
-    """q: (BH, Sq, D); k/v: (BH, Skv, D) — the kernel's function."""
+                             window: int = 0, softcap: float = 0.0,
+                             q_offset: Offset = 0) -> torch.Tensor:
+    """q: (BH, Sq, D); k/v: (BH, Skv, D) — the kernel's function;
+    ``q_offset``: an int or (BH,)."""
     acc = torch.promote_types(q.dtype, torch.float32)
     s = _scores(q, k, acc, softcap)                           # bh q s
     s = torch.where(_mask(q.shape[1], k.shape[1], causal, window,
-                          q.device), s,
+                          q.device, q_offset), s,
                     torch.tensor(NEG_INF, dtype=acc, device=q.device))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)

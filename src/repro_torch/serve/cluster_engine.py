@@ -15,9 +15,9 @@ wrong, just unbatched.
 
 The reference module's second engine, ``ClusterLMEngine`` (LM decode
 with params and KV caches in a worker's object store, with its
-``LMTicket``), and the imports only it needs (``remote_lm``,
-``engine.Request``, ``kvcache.SlotMap``) are not in this port yet: they
-come with the LM models and LM serving.
+``LMTicket``), and ``remote_lm`` are not in this port yet: they wait for
+a faster head-worker transport (ROADMAP Queue 1, item 3). The
+single-process LM engine is :mod:`repro_torch.serve.engine`.
 
 Queue depth is exported for :class:`repro_torch.runtime.elastic.ElasticController`
 (``depth_fn=engine.queue_depth``), closing the loop: load → queue →

@@ -12,6 +12,12 @@ Pallas kernel refuses ragged tiles. Tolerances, applied absolutely and
 relative to the reference: float64 1e-8, float32 2e-4, bfloat16 2e-2
 (both sides round the probabilities and the output to bf16).
 
+Query offsets (the decode step's per-slot positions): the dispatch and
+both plain versions with an int or per-batch ``q_offset`` are held to
+the reference model's ``plain_attention(..., q_offset=...)`` (its
+default attention path; its Pallas kernel takes no offset), with rows
+past the cache's end and before key 0 among them.
+
 The runtime surface ``repro_torch.kernels.api.attention_rows`` is held
 to ``repro.kernels.api.attention_rows`` on numpy and ``ChunkSlice``
 blocks. The reference side runs once per module in a subprocess
@@ -59,6 +65,22 @@ CASES = [
 ]
 CASE_IDS = [c[0] for c in CASES]
 
+# (id, (B, Sq, Skv, H, KVH, D), causal, window, softcap, q_offset): an
+# int offset for every row, or one per batch row
+OFFSET_CASES = [
+    ("decode", (3, 1, 40, 4, 2, 16), True, 0, 0.0, [0, 17, 39]),
+    ("decode-window-cap", (3, 1, 40, 4, 2, 16), True, 8, 30.0, [5, 17, 39]),
+    # slot 1 sits past the cache with no key in its window (it averages
+    # v); slot 0's window holds the last two keys
+    ("decode-past-end", (3, 1, 40, 2, 2, 16), True, 8, 0.0, [45, 60, 3]),
+    ("prefill-int", (2, 12, 40, 4, 4, 16), True, 16, 20.0, 5),
+    ("prefill-per-row", (2, 12, 40, 2, 1, 16), True, 0, 0.0, [0, 20]),
+    # rows before key 0 have no key under the causal mask
+    ("before-key-0", (2, 4, 9, 2, 1, 8), True, 0, 0.0, [-3, 2]),
+    ("noncausal-window", (2, 6, 30, 2, 2, 8), False, 5, 10.0, [3, 27]),
+]
+OFFSET_IDS = [c[0] for c in OFFSET_CASES]
+
 # rows [LO, HI) of the (40, 12) query block form a worker's chunk
 LO, HI = 16, 29
 
@@ -67,9 +89,19 @@ import jax.numpy as jnp
 from repro.kernels import api as ref_api
 from repro.kernels.flash_attention.ops import flash_attention as ref_pallas
 from repro.kernels.flash_attention.ref import attention_ref as ref_oracle
+from repro.models.common import plain_attention
 for key in sorted({k.rsplit("/", 1)[0] for k in inputs}):
     q, k, v = (inputs[key + "/" + n] for n in "qkv")
-    if key.startswith("fa/"):
+    if key.startswith("off/"):
+        dtype = key.split("/")[2]
+        causal, window, softcap = inputs[key + "/opts"]
+        off = inputs[key + "/offset"]
+        got = plain_attention(
+            *(jnp.asarray(a, dtype) for a in (q, k, v)),
+            causal=bool(causal), window=int(window), cap=float(softcap),
+            q_offset=int(off) if off.ndim == 0 else jnp.asarray(off))
+        outputs[key + "/plain"] = np.asarray(got.astype(jnp.float64))
+    elif key.startswith("fa/"):
         dtype = key.split("/")[2]
         causal, window, softcap, pallas = inputs[key + "/opts"]
         opts = dict(causal=bool(causal), window=int(window),
@@ -128,6 +160,15 @@ def reference(tmp_path_factory):
                 inputs[f"{key}/{name}"] = arr
             inputs[key + "/opts"] = np.asarray(
                 [causal, window, softcap, pallas], np.float64)
+    for case in OFFSET_CASES:
+        _, _, causal, window, softcap, off = case
+        for dtype in ("float32", "bfloat16"):
+            key = f"off/{case[0]}/{dtype}"
+            for name, arr in zip("qkv", _inputs(case)):
+                inputs[f"{key}/{name}"] = arr
+            inputs[key + "/opts"] = np.asarray([causal, window, softcap],
+                                               np.float64)
+            inputs[key + "/offset"] = np.asarray(off, np.int32)
     for name, blocks in _api_inputs()[0].items():
         for n, arr in zip("qkv", blocks):
             inputs[f"api/{name}/{n}"] = arr
@@ -177,6 +218,58 @@ def test_plain_attention_matches_reference_pallas_and_oracle(reference,
         _close(g, reference[key + "/oracle"], dtype, key)
         if pallas:
             _close(g, reference[key + "/pallas"], dtype, key)
+
+
+def _offset(off, device="cpu"):
+    return off if isinstance(off, int) else torch.tensor(
+        off, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=OFFSET_IDS)
+def test_offset_attention_matches_reference_plain_attention(reference, case,
+                                                            dtype):
+    """The dispatch (through the kernel's own plain function) and the GQA
+    oracle with query offsets, against the reference model's
+    ``plain_attention(q_offset=...)``. That function takes its scores in
+    float32 whatever the inputs' type, so float64 is not compared."""
+    case_id, (b, sq, skv, h, kvh, d), causal, window, softcap, off = case
+    q, k, v = (torch.from_numpy(a).to(TORCH_DT[dtype])
+               for a in _inputs(case))
+    opts = dict(causal=causal, window=window, softcap=softcap,
+                q_offset=_offset(off))
+    before = ops.plain_calls
+    got_ops = ops.flash_attention(q, k, v, **opts)
+    assert ops.plain_calls == before + 1
+    got_ref = attention_ref(q, k, v, **opts)
+    want = reference[f"off/{case_id}/{dtype}/plain"]
+    for got in (got_ops, got_ref):
+        assert got.dtype == TORCH_DT[dtype]
+        assert tuple(got.shape) == (b, sq, h, d)
+        _close(got.to(torch.float64).numpy(), want, dtype, case_id)
+
+
+def test_bhsd_plain_version_takes_one_offset_per_batch_head():
+    """(BH,) offsets in the kernel's layout equal the per-row offsets of
+    each head run alone."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.normal(size=(3, s, 8)))
+               for s in (5, 30, 30))
+    off = torch.tensor([0, 12, 27], dtype=torch.int32)
+    got = flash_attention_bhsd_ref(q, k, v, causal=True, window=6,
+                                   softcap=15.0, q_offset=off)
+    for r in range(3):
+        one = flash_attention_bhsd_ref(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                       causal=True, window=6, softcap=15.0,
+                                       q_offset=int(off[r]))
+        _close(got[r:r + 1].numpy(), one.numpy(), "float64", f"row {r}")
+
+
+def test_kernel_wrapper_refuses_a_malformed_offset():
+    t = torch.ones(2, 4, 8, dtype=torch.float64)
+    with pytest.raises(ValueError, match="q_offset"):
+        kernel.flash_attention_bhsd(t, t, t,
+                                    q_offset=torch.zeros(2, dtype=torch.int64))
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -292,3 +385,43 @@ def test_cuda_kernel_head_dims(cuda_device, d, dtype):
     want = flash_attention_bhsd_ref(q, k, v, **opts)
     _close(got.double().cpu().numpy(), want.double().cpu().numpy(), dtype,
            f"d={d}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=OFFSET_IDS)
+def test_cuda_kernel_with_offsets_matches_plain_version(cuda_device, case,
+                                                        dtype):
+    _, _, causal, window, softcap, off = case
+    q, k, v = (torch.from_numpy(a).to(cuda_device, TORCH_DT[dtype])
+               for a in _inputs(case))
+    opts = dict(causal=causal, window=window, softcap=softcap,
+                q_offset=_offset(off, cuda_device))
+    before = kernel.launches
+    got = ops.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = attention_ref(q, k, v, **opts)
+    _close(got.double().cpu().numpy(), want.double().cpu().numpy(), dtype,
+           case[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [24, 128, 288])
+def test_cuda_kernel_offsets_across_query_blocks(cuda_device, d, dtype):
+    """Offsets on several query blocks of every tile class (the FMA
+    kernel's 32 rows, the float64 kernel's 64), with the window skipping
+    whole KV tiles, a block of rows past the cache's end and rows before
+    key 0: the kernel's tile bounds against the plain version."""
+    rng = np.random.default_rng(d + 1)
+    q, k, v = (torch.from_numpy(rng.normal(size=(4, s, d)) * d ** -0.25)
+               .to(cuda_device, TORCH_DT[dtype]) for s in (150, 500, 500))
+    off = torch.tensor([0, 300, 420, -70], dtype=torch.int32,
+                       device=cuda_device)
+    for causal, window in ((True, 40), (True, 0), (False, 60)):
+        opts = dict(causal=causal, window=window, softcap=30.0, q_offset=off)
+        got = kernel.flash_attention_bhsd(q, k, v, **opts)
+        want = flash_attention_bhsd_ref(q, k, v, **opts)
+        _close(got.double().cpu().numpy(), want.double().cpu().numpy(),
+               dtype, f"d={d} causal={causal} window={window}")

@@ -1,9 +1,10 @@
 """Import guard of the PyTorch/CUDA port: ``repro_torch`` and every one
 of its modules (``core/txp.py``, the torch backend's namespace, the
-raylite runtime ``repro_torch.runtime`` and the serving plane
-``repro_torch.serve`` included), the port's STAP examples
-``examples/torch_stap.py`` and ``examples/torch_stap_pipeline.py`` and
-``chip_smoke.py`` load neither jax nor any module of the JAX package
+raylite runtime ``repro_torch.runtime``, the serving plane
+``repro_torch.serve``, the LM models, configs and launcher included), the
+port's examples ``examples/torch_stap.py``,
+``examples/torch_stap_pipeline.py`` and ``examples/torch_serve_lm.py``
+and ``chip_smoke.py`` load neither jax nor any module of the JAX package
 ``repro``, and no source file of the port imports them. No kernel's
 wrapper or source calls a library kernel for its work (a GEMM, fused
 attention, cuDNN)."""
@@ -57,7 +58,14 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.runtime.lineage", "repro_torch.runtime.tasks",
                  "repro_torch.runtime.elastic", "repro_torch.obs.summarize",
                  "repro_torch.serve.admission", "repro_torch.serve.loadgen",
-                 "repro_torch.serve.cluster_engine"):
+                 "repro_torch.serve.cluster_engine",
+                 "repro_torch.serve.engine", "repro_torch.serve.request",
+                 "repro_torch.serve.kvcache", "repro_torch.models.common",
+                 "repro_torch.models.transformer",
+                 "repro_torch.configs.registry",
+                 "repro_torch.configs.gemma2_2b",
+                 "repro_torch.configs.stablelm_3b",
+                 "repro_torch.launch.serve"):
         assert name in res["modules"]
 
 
@@ -72,7 +80,11 @@ print(json.dumps({"bad": bad}))
 
 
 @pytest.mark.parametrize("package", ["repro_torch.runtime",
-                                     "repro_torch.serve"])
+                                     "repro_torch.serve",
+                                     "repro_torch.models.transformer",
+                                     "repro_torch.serve.engine",
+                                     "repro_torch.launch.serve",
+                                     "repro_torch.configs"])
 def test_importing_runtime_and_serve_alone_loads_no_jax_and_no_repro(
         package):
     env = dict(os.environ)
@@ -98,8 +110,9 @@ _PROBE_EXAMPLE = """
 import json, sys
 import examples.torch_stap as ex
 import examples.torch_stap_pipeline as pipe
+import examples.torch_serve_lm as lm
 assert callable(ex.stap_adaptive) and callable(ex.main)
-assert callable(pipe.main)
+assert callable(pipe.main) and callable(lm.main_local)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -118,6 +131,7 @@ def test_importing_the_port_stap_example_loads_no_jax_and_no_repro():
 
 @pytest.mark.parametrize("rel", ["examples/torch_stap.py",
                                  "examples/torch_stap_pipeline.py",
+                                 "examples/torch_serve_lm.py",
                                  "chip_smoke.py"])
 def test_port_entry_scripts_import_no_jax_or_repro(rel):
     lines = (ROOT / rel).read_text().splitlines()

@@ -11,6 +11,10 @@ worker that uses JAX, can deadlock in the child.
 array), runs ``code`` with them bound as the dict ``inputs``, and returns
 what ``code`` put into the dict ``outputs`` (name → numpy array).
 
+Model weights travel with ``PARAMS_CODE`` (its ``flat(prefix, tree)``
+saves a reference param tree, every leaf as float32, which holds bf16
+exactly) and come back with :func:`reference_params`.
+
 Compiled-kernel cases travel with :func:`encode_case`: the kernel by
 ``module:name`` (it must be importable in both processes), its hints
 and its arguments. ``CASE_CODE`` rebuilds them in the reference process
@@ -133,3 +137,44 @@ def run_twin(ck, args, attr):
     exec(compile(gen.source, "<reference>", "exec"), ns)
     ns[gen.fn_name](*args)
 """
+
+
+PARAMS_CODE = """
+import jax.numpy as jnp
+
+
+def flat(prefix, tree):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flat(f"{prefix}/{k}", v)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            flat(f"{prefix}/{i}", v)
+    else:
+        outputs[prefix] = np.asarray(jnp.asarray(tree, jnp.float32))
+"""
+
+
+def reference_params(reference, arch, dtype, cfg, device="cpu"):
+    """The reference's params that ``PARAMS_CODE``'s ``flat`` saved under
+    ``params/<arch>/<dtype>``, in the port's layout on ``device``."""
+    from repro_torch.models import transformer as T
+
+    prefix = f"params/{arch}/{dtype}/"
+    tree: dict = {}
+    for key, arr in reference.items():
+        if not key.startswith(prefix):
+            continue
+        node, parts = tree, key[len(prefix):].split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return T.params_from_reference(lists(tree), cfg, device)
