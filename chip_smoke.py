@@ -33,7 +33,15 @@ exit:
    compiled, as their library call (the f32 layer's is no longer built:
    its compile took much of the script's time); the layer is also timed
    beside a yardstick: ``scaled_dot_product_attention`` with its causal
-   and window mask and no softcap.
+   and window mask and no softcap. The flash kernel also runs the
+   shapes phase 10 serves Jamba-1.5-Large at (64 heads, GQA 8, D = 128,
+   no softcap: the longest prompt's prefill over 8192 keys, a 4-slot
+   decode step), with ``scaled_dot_product_attention(enable_gqa=True)``
+   and a boolean mask as their library call. The scan also returns its
+   final state h_L (which a prefill hands to decode) at the Jamba
+   layer, at a ragged L, in float64 at N = 32 and at phase 10's shortest
+   and longest Jamba prompts: h_L against the plain version's, and y the
+   same bits as without it.
    Each kernel redesigned for Hopper (the float64 matmul and flash
    attention on the tensor cores, the selective scan as a chunked scan
    parallel in L) is printed beside its time before the redesign; the
@@ -111,7 +119,21 @@ exit:
    fault of a decode kernel that drops the query offset) and with a
    uniform softmax; a third control's readings (every query one key
    further) are printed. Each request's prefill is timed on its own.
-10. Summary: one JSON line with every kernel's numbers, the card's line,
+10. The MoE and recurrent families served on the card (FAMILIES), bf16,
+   weights from the seed: Jamba-1.5-Large at full width cut to one
+   period (8 of 72 layers) whose four MoE layers share one expert set,
+   and olmoe_1b_7b at full width and depth, each behind ``ServeEngine``
+   (4 slots): 6 requests from two tenants, one per tick, 16 new tokens
+   each. It prints the cuts, each request's TTFT, prefill time and TPOT,
+   tokens/s and peak memory, and fails unless every attention layer's
+   call launched the flash kernel and every Mamba prefill the scan
+   kernel (flash launches = attention layers x (prefills + decode
+   steps), scan launches = Mamba layers x prefills, no plain call of
+   either), and every served token is within the model's gate of a
+   replay of the engine's own calls (the same batches, so the same MoE
+   capacity) on the plain attention and the plain scan. A replay that
+   leaves each Jamba prefill's Mamba states at zero must fail that gate.
+11. Summary: one JSON line with every kernel's numbers, the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the checkout's ``src/``; without either it
@@ -182,6 +204,68 @@ LM_REQUESTS, LM_NEW_TOKENS = 8, 32
 LM_PROMPT = (512, 6144)
 LM_LOGIT_TOL = 0.0625
 LM_MIN_EXACT = 250
+# the MoE and recurrent families served (phase 10), bf16, weights from
+# the seed on the card, each behind ServeEngine with FAM_SLOTS slots:
+# FAM_REQUESTS requests from two tenants, one per engine tick, prompts
+# of ``prompt`` tokens drawn from the family's seed, FAM_NEW_TOKENS
+# generated each. Jamba-1.5-Large at full width, cut to one period (8 of
+# its 72 layers; ArchConfig.n_periods needs layers % 8 == 0) whose four
+# MoE layers share one expert set (one period at full width holds ~90
+# GB of bf16 weights, ~32 GB so); olmoe_1b_7b at full width and depth.
+# Every served token is replayed through the same engine calls (the
+# same batches, so the same MoE capacity) with attention and the scan on
+# their plain versions and each MoE layer's routing (its top-k weights
+# and buffer rows) pinned to the served call's: it must lie within
+# ``logit_tol`` of the replay's largest logit, and at least
+# ``min_exact`` of the FAM_REQUESTS x FAM_NEW_TOKENS must be its argmax.
+# Free routing would let a rounding difference flip an assignment, which
+# at these weights (the reference's init: each expert's output ~100)
+# moves x by up to ~90 in olmoe's first layer and cascades through 16
+# layers; that reading is printed where ``free_replay`` asks for it.
+# Jamba's control replay leaves each prefill's Mamba states at zero (the
+# reference's prefill, ROADMAP Queue 3 entry 7, hands decode no prompt
+# state) and must fail the gate. The gate (a gap of 0.125: 4 bf16 ulps
+# of a logit in [2, 4), 2 in [4, 8); 86 of 96 exact) lies between the
+# sound replays on an H100 (Jamba 95 exact, largest gap 0.0312; olmoe 90,
+# 0.0625: its inexact tokens are near-ties within 2 ulps of the top
+# logit) and the zero-state control (gap 0.4219).
+FAM_SLOTS, FAM_REQUESTS, FAM_NEW_TOKENS = 4, 6, 16
+FAMILIES = {
+    "jamba": {"arch": "jamba_1_5_large_398b", "layers": 8,
+              "share_experts": True, "max_seq": 8192,
+              "prompt": (1024, 6144), "seed": SEED + 7,
+              "logit_tol": 0.125, "min_exact": 86,
+              "zero_state_control": True, "free_replay": False},
+    "olmoe": {"arch": "olmoe_1b_7b", "layers": None,
+              "share_experts": False, "max_seq": 4096,
+              "prompt": (512, 3072), "seed": SEED + 8,
+              "logit_tol": 0.125, "min_exact": 86,
+              "zero_state_control": False, "free_replay": True}}
+# a replay's plain attention runs in chunks of this many query rows (at
+# once, the plain version of a 6144-token Jamba prefill over its 8192
+# keys would hold ~40 GB of scores)
+REPLAY_Q_CHUNK = 1024
+
+
+def _family_lens(spec) -> list:
+    """The prompt lengths of a served family, drawn from its seed."""
+    lo, hi = spec["prompt"]
+    return [int(n) for n in np.random.default_rng(spec["seed"]).integers(
+        lo, hi + 1, FAM_REQUESTS)]
+
+
+def _family_prompts(spec, vocab: int) -> list:
+    """The prompts of a served family: its lengths, then the tokens, from
+    the same generator."""
+    rng = np.random.default_rng(spec["seed"])
+    lo, hi = spec["prompt"]
+    lens = rng.integers(lo, hi + 1, FAM_REQUESTS)
+    return [rng.integers(0, vocab, int(n)) for n in lens]
+
+
+# Jamba's served prompt lengths: phase 3 runs its flash and scan cases
+# at the shapes phase 10 serves
+JAMBA_LENS = _family_lens(FAMILIES["jamba"])
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet,
 # dense): float64 on the tensor cores (DMMA) 67 TFLOP/s, float32 outside
@@ -225,7 +309,15 @@ FLASH_CASES = [
     ("gemma2_decode_global", (4, 1, 8, 4, 8192, 288), True, 0, 50.0,
      "bfloat16", [511, 2047, 4095, 8190]),
     ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float32", None),
-    ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float64", None)]
+    ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float64", None),
+    # Jamba-1.5-Large's attention layer as phase 10 serves it (64 heads,
+    # GQA 8, D = 128, no window, no softcap): the longest prompt's
+    # prefill over the slot's 8192-key cache, and a decode step of 4
+    # slots halfway through the first four requests' tokens
+    ("jamba_prefill", (1, max(JAMBA_LENS), 64, 8, 8192, 128), True, 0,
+     0.0, "bfloat16", [0]),
+    ("jamba_decode", (4, 1, 64, 8, 8192, 128), True, 0, 0.0, "bfloat16",
+     [n + FAM_NEW_TOKENS // 2 for n in JAMBA_LENS[:4]])]
 # phase 3's flash inputs: keys and values N(0, 1), queries N(0,
 # FLASH_Q_STD^2), so the scaled scores q.k / sqrt(D) have that standard
 # deviation and each row's softmax weighs a few keys (a wrong mask or a
@@ -246,14 +338,26 @@ FLEX_TRIES = {"gemma2": (None, FLEX_SMALL_TILES),
               "gemma2_prefill": (FLEX_SMALL_TILES,),
               "gemma2_decode_local": (None, FLEX_SMALL_TILES),
               "gemma2_decode_global": (None, FLEX_SMALL_TILES)}
-# phase 3 cases of the selective-scan kernel: (label, (B, L, I, N), dtype)
+# the Jamba cases (no softcap) take scaled_dot_product_attention with
+# enable_gqa and a boolean mask at the query offsets as their library call
+SDPA_GQA = ("jamba_prefill", "jamba_decode")
+# phase 3 cases of the selective-scan kernel: (label, (B, L, I, N), dtype,
+# whether the final state h_L is asked for)
 SCAN_CASES = [
-    ("chunk", (1, SCAN_L, SCAN_N // CHUNKS, 1), "float64"),
-    ("jamba", (1, 2048, 16384, 16), "float32"),
-    ("ragged", (2, 1000, 77, 4), "float64"),
-    ("ragged", (2, 1000, 77, 4), "float32"),
+    ("chunk", (1, SCAN_L, SCAN_N // CHUNKS, 1), "float64", False),
+    ("jamba", (1, 2048, 16384, 16), "float32", False),
+    ("ragged", (2, 1000, 77, 4), "float64", False),
+    ("ragged", (2, 1000, 77, 4), "float32", False),
     # the Jamba-1.5-Large layer at a 16k prompt: ~3.2 GB, many chunks
-    ("jamba_long", (1, 16384, 16384, 16), "float32")]
+    ("jamba_long", (1, 16384, 16384, 16), "float32", False),
+    # the final state (a prefill's, which decode takes): at the Jamba
+    # layer, at a ragged L, in float64 at N = 32 (two passes of 16
+    # states), and at the shortest and longest prompts phase 10 serves
+    ("jamba_state", (1, 2048, 16384, 16), "float32", True),
+    ("ragged_state", (2, 1000, 77, 4), "float32", True),
+    ("split_state", (2, 1000, 77, 32), "float64", True),
+    ("jamba_served", (1, min(JAMBA_LENS), 16384, 16), "float32", True),
+    ("jamba_served", (1, max(JAMBA_LENS), 16384, 16), "float32", True)]
 
 # functions ptxas must report no spill byte for, by the pattern of their
 # mangled names: the float64 (DMMA) kernels of matmul (namespace f64)
@@ -316,16 +420,18 @@ def _nvidia_smi() -> str:
 
 def _time_ms(torch, fn, reps: int = 20, host=None) -> float:
     """Mean device time of ``fn`` over ``reps`` launches (CUDA events),
-    after a warm-up of at least 3 calls and 20 ms. A call whose host
-    side (checks, allocations, the launch) takes longer than its kernel
-    is timed at its host rate: with a list ``host``, the mean host
-    milliseconds a call are appended to it."""
+    after a warm-up of at least 3 calls and 20 ms, each call waited for
+    (a loop that only queued launches for 20 ms of host time queued
+    hundreds of a 56 ms kernel's). A call whose host side (checks,
+    allocations, the launch) takes longer than its kernel is timed at
+    its host rate: with a list ``host``, the mean host milliseconds a
+    call are appended to it."""
     t0 = time.perf_counter()
     calls = 0
     while calls < min(3, reps) or time.perf_counter() - t0 < 0.02:
         fn()
+        torch.cuda.synchronize()
         calls += 1
-    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -528,6 +634,27 @@ def _flex_library(torch, q, k, v, causal, window, cap, options=None,
                         kernel_options=options)
 
 
+def _sdpa_gqa_library(torch, sdpa, q, k, v, causal, window, q_offset):
+    """fn: ``scaled_dot_product_attention`` with ``enable_gqa`` on a GQA
+    layer's inputs (B, S, H, D) as (B, H, S, D), the causal and
+    sliding-window mask at each batch row's query offset (``q_offset``,
+    (B,)) as a boolean (B, 1, Sq, Skv) mask, all made before the timing:
+    one PyTorch call that computes a layer without softcap, returning
+    (B, H, S, D)."""
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pos = torch.arange(q.shape[1], device=q.device)[None, :, None] \
+        + q_offset.to(torch.int64)[:, None, None]            # (B, Sq, 1)
+    j = torch.arange(k.shape[1], device=q.device)[None, None, :]
+    mask = torch.ones((q.shape[0], q.shape[1], k.shape[1]),
+                      dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (j <= pos)
+    if window > 0:
+        mask = mask & (j > pos - window)
+    mask = mask[:, None]
+    return lambda: sdpa(qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+
 def _flash_inputs(rng, b, sq, h, kvh, skv, d):
     """q (B, Sq, H, D), k and v (B, Skv, KVH, D) in float64 on the host,
     drawn as FLASH_Q_STD says."""
@@ -664,6 +791,28 @@ def check_flash(torch, fa_kernel, fa_ops, fa_ref):
                 print(f"flash_attention {label} {dname}: flex_attention "
                       f"with tiles {options}, max err {lib_err:.3e}",
                       flush=True)
+        if label in SDPA_GQA:
+            # one PyTorch call for a layer without softcap; it is no part
+            # of the port, and a failure leaves library_ms None
+            extra["library"] = ("scaled_dot_product_attention("
+                                "enable_gqa=True), boolean mask")
+            try:
+                library_fn = _sdpa_gqa_library(torch, sdpa, q, k, v,
+                                               causal, window, off)
+                lib_err = float((library_fn().transpose(1, 2).double()
+                                 - want.double()).abs().max())
+                if not lib_err <= TOL[dname] * (1 + scale):
+                    raise AssertionError(f"max err {lib_err:.3e}")
+                extra["library_max_abs_err"] = lib_err
+                print(f"flash_attention {label} {dname}: "
+                      f"{extra['library']}, max err {lib_err:.3e}",
+                      flush=True)
+            except Exception as exc:  # noqa: BLE001 - a yardstick
+                library_fn = None
+                why = f"{type(exc).__name__}: {exc}"[:400]
+                extra["library_errors"] = [{"error": why}]
+                print(f"flash_attention {label} {dname}: "
+                      f"{extra['library']} not timed: {why}", flush=True)
         # per batch row: its pairs and the keys it must read
         work = [attention_work(sq, skv, causal, window,
                                0 if offs is None else offs[i])
@@ -697,11 +846,14 @@ def check_scan(torch, sc_kernel, plain):
     Mamba layer (d_model 8192, ssm_expand 2 -> I=16384, ssm_state 16;
     src/repro/configs/jamba_1_5_large_398b.py) at L=2048 in float32, as
     the reference's models/ssm.py scans, (c) ragged cases, (d) the same
-    layer at L=16384. float64 operations count at the FP64 units' peak;
-    float32 and bf16 exps at the SFU's rate."""
+    layer at L=16384, (e) the final state h_L at the Jamba layer, a
+    ragged L, float64 at N = 32 and phase 10's served prompt lengths
+    (its y must be the bits of the call without it). float64
+    operations count at the FP64 units' peak; float32 and bf16 exps at
+    the SFU's rate."""
     rng = np.random.default_rng(SEED + 3)
     out = []
-    for label, (b, length, inner, n), dname in SCAN_CASES:
+    for label, (b, length, inner, n), dname, state in SCAN_CASES:
         dt_ = _dtypes(torch)[dname]
         x = torch.from_numpy(rng.normal(size=(b, length, inner)))
         if label == "chunk":
@@ -720,19 +872,37 @@ def check_scan(torch, sc_kernel, plain):
             d_skip = torch.from_numpy(rng.normal(size=(inner,)))
         args = [t.to("cuda", dt_).contiguous()
                 for t in (x, dt, bm, cm, a, d_skip)]
-        kernel_fn = lambda: sc_kernel.mamba_scan(*args)  # noqa: E731
-        plain_fn = lambda: plain(*args)  # noqa: E731
+        kernel_fn = lambda: sc_kernel.mamba_scan(  # noqa: E731
+            *args, return_state=state)
+        plain_fn = lambda: plain(*args, return_state=state)  # noqa: E731
         got = _launch_once(sc_kernel, kernel_fn)
-        err = _compare(torch, "mamba_scan", label, got, plain_fn(), dname)
+        want = plain_fn()
+        extra = {}
+        if state:
+            (got, h), (want, want_h) = got, want
+            # the state is float32 (bf16 and float32 inputs) or float64
+            acc = "float64" if dname == "float64" else "float32"
+            extra["state_max_abs_err"] = _compare(
+                torch, "mamba_scan", f"{label} h_L", h, want_h, acc)
+            if not torch.equal(got, sc_kernel.mamba_scan(*args)):
+                raise AssertionError(f"mamba_scan {label}: y differs with "
+                                     f"and without the final state")
+        err = _compare(torch, "mamba_scan", label, got, want, dname)
         nbytes = sum(t.numel() for t in args) * args[0].element_size() \
             + got.numel() * got.element_size()
+        if state:
+            nbytes += h.numel() * h.element_size()
+            print(f"mamba_scan {label} {dname}: h_L max err "
+                  f"{extra['state_max_abs_err']:.3e}; y the same bits "
+                  f"as without it", flush=True)
         steps = float(b * length * inner * n)
         out.append(_row(
             torch, "mamba_scan", label, [b, length, inner, n], dname, err,
             kernel_fn, plain_fn, None, steps * SCAN_OPS[dname], nbytes,
             reps=10, peak=PEAK_FP64_FMA if dname == "float64" else None,
-            exps=0.0 if dname == "float64" else steps))
-        del args, got
+            exps=0.0 if dname == "float64" else steps, final_state=state,
+            **extra))
+        del args, got, want
         torch.cuda.empty_cache()
     return out
 
@@ -1548,6 +1718,310 @@ def served_lm(torch, card, fa_kernel, fa_ops, fa_ref, device="cuda"):
             "card": card}
 
 
+def _unique_numel(tree) -> int:
+    """Elements of the distinct tensors of ``tree`` (a shared expert set
+    counts once)."""
+    seen = {}
+    for t in _leaves(tree):
+        seen[t.data_ptr()] = t.numel()
+    return sum(seen.values())
+
+
+def _replay_family(torch, cfg, params, events, spec, fa_ops, fa_ref,
+                   sc_ops, sc_ref, device="cuda", mode="pinned"):
+    """{replay: (exact, largest gap to the top logit, tokens checked)}:
+    the engine's own calls (``events``: each prefill with its slot, each
+    decode step with its batch of tokens and active slots, each with its
+    MoE layers' routing in call order) made again in order on fresh
+    caches, every served token scored against the logits it came from.
+    ``mode`` "pinned": attention and the scan on their plain versions,
+    each MoE layer's routing the served call's; "plain" is the sound
+    replay, "zero_state" (where the spec asks for it) leaves each
+    prefill's Mamba states at zero in its caches. "free": the plain
+    versions, each MoE layer routing itself. "kernel": the kernels
+    themselves, routing free: it reproduces the served run only if the
+    replay makes the same calls and every kernel gives the same bits
+    each time. The plain attention is the kernel's own
+    (``flash_attention_bhsd_ref`` on the dispatch's regrouped tensors,
+    REPLAY_Q_CHUNK query rows at a time)."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+
+    def plain_attention(q, k, v, *, q_offset=0, **opts):
+        b, sq, h, d = q.shape
+        qf, kf, vf, off = fa_ops.regroup(q, k, v, q_offset)
+        out = torch.cat([
+            fa_ref.flash_attention_bhsd_ref(
+                qf[:, r:r + REPLAY_Q_CHUNK], kf, vf,
+                q_offset=r if off is None else off + r, **opts)
+            for r in range(0, sq, REPLAY_Q_CHUNK)], dim=1)
+        return out.reshape(b, h, sq, d).transpose(1, 2)
+
+    pinned = []                      # the served routing of the call
+
+    def served_route(p, ht, cfg_):
+        weights, slot, cap = pinned.pop(0)
+        if slot.numel() != ht.shape[0] * cfg_.experts_topk:
+            raise AssertionError("replay: a MoE call's tokens differ from "
+                                 "the served call's")
+        return weights, slot, cap
+
+    if mode == "pinned":
+        names = ["plain"] + (["zero_state"] if spec["zero_state_control"]
+                             else [])
+    else:
+        names = [mode]
+    caches = {n: T.init_caches(cfg, FAM_SLOTS, spec["max_seq"],
+                               device=device) for n in names}
+    mamba = [i for i in range(cfg.period) if cfg.layer_kind(i) == "mamba"]
+    stats = {n: [0, 0.0, 0] for n in names}
+
+    def score(name, logits, served):
+        logits = logits.float()
+        served = torch.as_tensor(served, device=logits.device)
+        gap = logits.max(-1).values - logits.gather(-1, served[:, None])[:, 0]
+        st = stats[name]
+        st[0] += int((logits.argmax(-1) == served).sum())
+        st[1] = max(st[1], float(gap.max()))
+        st[2] += len(served)
+
+    with ExitStack() as stack:
+        stack.enter_context(torch.inference_mode())
+        if mode != "kernel":
+            stack.enter_context(mock.patch.object(
+                fa_ops, "flash_attention", plain_attention))
+            stack.enter_context(mock.patch.object(
+                sc_ops, "mamba_scan", sc_ref.mamba_scan_promoted_ref))
+        if mode == "pinned":
+            stack.enter_context(mock.patch.object(moe_mod, "route",
+                                                  served_route))
+        for kind, tokens, served, where, routes in events:
+            if kind == "prefill":
+                pinned[:] = routes
+                one, logits = T.prefill(params, {"tokens": tokens}, cfg,
+                                        spec["max_seq"])
+                for n in names:
+                    score(n, logits, [served])
+                    ServeEngine._insert(caches[n], one, where)
+                    if n == "zero_state":
+                        for i in mamba:
+                            caches[n][i]["ssm"]["h"][:, where] = 0
+                del one, logits
+                continue
+            for n in names:
+                pinned[:] = routes
+                logits, caches[n] = T.decode_step(params, tokens, caches[n],
+                                                  cfg)
+                score(n, logits[where], served[where].to(logits.device))
+    return {n: tuple(v) for n, v in stats.items()}
+
+
+def served_family(torch, card, name, kernels, device="cuda"):
+    """Phase 10, one model of FAMILIES: served on the card by ServeEngine
+    (``repro_torch.launch.serve``'s logic at full width), every
+    attention layer on the flash kernel and every Mamba prefill on the
+    scan kernel, no plain call; each served token checked against a
+    replay of the engine's calls on the plain versions (and Jamba's
+    zero-state control against the same gate, which it must fail).
+    ``kernels``: the flash kernel, its ops and plain module, the scan
+    kernel, its ops and plain module."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Request, ServeEngine
+
+    fa, fa_ops, fa_ref, sc, sc_ops, sc_ref = kernels
+    spec = FAMILIES[name]
+    full = get_config(spec["arch"])
+    cfg = dataclasses.replace(full, layers=spec["layers"] or full.layers)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.period)]
+    n_attn = cfg.n_periods * kinds.count("attn")
+    n_mamba = cfg.n_periods * kinds.count("mamba")
+    n_moe = cfg.n_periods * sum(map(cfg.layer_is_moe, range(cfg.period)))
+    reduced = {}
+    if cfg.layers != full.layers:
+        reduced["layers"] = (f"{full.layers} -> {cfg.layers}: one period "
+                             f"of {cfg.period} (layers % period == 0)")
+    if spec["share_experts"]:
+        reduced["experts"] = (
+            f"the {n_moe} MoE layers share one set of "
+            f"{moe_mod.padded_experts(cfg)} experts (each its own router); "
+            f"every layer computes at full width")
+    print(f"{name} ({cfg.name}) reduced: {json.dumps(reduced)}",
+          flush=True)
+    t0 = time.perf_counter()
+    params, _ = T.init_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED),
+        share_experts=spec["share_experts"])
+    torch.cuda.synchronize(device)
+    t_init = time.perf_counter() - t0
+    n_params = _unique_numel(params)
+    prompts = _family_prompts(spec, cfg.vocab)
+    lens = [len(p) for p in prompts]
+    eng = ServeEngine(params, cfg, n_slots=FAM_SLOTS,
+                      max_seq=spec["max_seq"], device=device)
+    # the engine's calls in order, each with its MoE layers' routing,
+    # for the replay; each prefill timed (the engine waits for each
+    # step's argmax anyway: these synchronisations cost it nothing)
+    events, prefill_ms, routes = [], [], []
+    prefill, decode, insert = eng._prefill, eng._decode, eng._insert
+    route = moe_mod.route
+
+    def recorded_route(p, ht, cfg_):
+        out = route(p, ht, cfg_)
+        routes.append(out)
+        return out
+
+    def recorded_prefill(p, tokens):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        one, logits = prefill(p, tokens)
+        torch.cuda.synchronize(device)
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        events.append(["prefill", tokens, int(torch.argmax(logits[0])),
+                       None, routes[:]])
+        routes.clear()
+        return one, logits
+
+    def recorded_insert(caches, one, slot):
+        events[-1][3] = slot
+        return insert(caches, one, slot)
+
+    def recorded_decode(p, tokens, caches):
+        logits, caches = decode(p, tokens, caches)
+        events.append(["decode", tokens.clone(),
+                       torch.argmax(logits, dim=-1).cpu(),
+                       sorted(eng.active), routes[:]])
+        routes.clear()
+        return logits, caches
+
+    eng._prefill, eng._insert = recorded_prefill, recorded_insert
+    eng._decode = recorded_decode
+    moe_mod.route = recorded_route
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    # every count to 0 just before the path's run
+    fa.launches = fa_ops.plain_calls = sc.launches = sc_ops.plain_calls = 0
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        eng.add_request(Request(f"{name}-{i}", p,
+                                max_tokens=FAM_NEW_TOKENS),
+                        tenant=("tenant-a", "tenant-b")[i % 2])
+        eng.step()          # staggered arrivals, as launch/serve.py
+    try:
+        done = eng.run_until_done()
+        torch.cuda.synchronize(device)
+    finally:
+        moe_mod.route = route
+    wall = time.perf_counter() - t0
+    counts = {"flash_launches": fa.launches,
+              "flash_plain_calls": fa_ops.plain_calls,
+              "scan_launches": sc.launches,
+              "scan_plain_calls": sc_ops.plain_calls}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    tel = eng.telemetry()
+    decodes = sum(e[0] == "decode" for e in events)
+    tokens = sum(len(r.generated) for r in done)
+    want = {"flash_launches": n_attn * (eng.prefills + decodes),
+            "scan_launches": n_mamba * eng.prefills,
+            "flash_plain_calls": 0, "scan_plain_calls": 0}
+    per_request = [{
+        "id": r.request_id, "prompt": len(r.prompt),
+        "generated": len(r.generated),
+        "ttft_ms": (r.first_token_s - r.submitted_s) * 1e3,
+        "prefill_ms": prefill_ms[i],
+        "tpot_ms": (r.finished_s - r.first_token_s) * 1e3
+        / max(1, len(r.generated) - 1)}
+        for i, r in enumerate(sorted(done, key=lambda r: r.first_token_s))]
+    for row in per_request:
+        print(f"{name} {row['id']}: prompt {row['prompt']} tokens, "
+              f"{row['generated']} generated, TTFT {row['ttft_ms']:.3f} "
+              f"ms (its prefill {row['prefill_ms']:.3f} ms), TPOT "
+              f"{row['tpot_ms']:.3f} ms", flush=True)
+    print(f"{name} served ({cfg.name}, {cfg.layers} layers, "
+          f"{n_params / 1e9:.3f} B distinct params bf16 from seed {SEED} "
+          f"in {t_init:.3f} s; {FAM_SLOTS} slots x {spec['max_seq']}; "
+          f"{len(done)} requests, 2 tenants; {card}): {tokens} tokens in "
+          f"{wall:.3f} s = {tokens / wall:.3f} tokens/s; prefills "
+          f"{eng.prefills}, decode steps {decodes}, ticks {eng.ticks}; "
+          f"counts {json.dumps(counts)} (want {json.dumps(want)}); peak "
+          f"memory {peak_gib:.2f} GiB; latency "
+          f"{json.dumps(tel['latency'])}", flush=True)
+    if len(done) != FAM_REQUESTS or any(
+            len(r.generated) != FAM_NEW_TOKENS for r in done):
+        raise AssertionError(f"{name}: {len(done)} of {FAM_REQUESTS} "
+                             f"requests done, generated "
+                             f"{[len(r.generated) for r in done]}")
+    if counts != want:
+        raise AssertionError(f"{name}: counts {counts}, want {want}")
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    before = (fa.launches, sc.launches)
+    replays = _replay_family(torch, cfg, params, events, spec, fa_ops,
+                             fa_ref, sc_ops, sc_ref, device)
+    if spec["free_replay"]:
+        replays.update(_replay_family(torch, cfg, params, events, spec,
+                                      fa_ops, fa_ref, sc_ops, sc_ref,
+                                      device, "free"))
+    if (fa.launches, sc.launches) != before:
+        raise AssertionError(f"{name}: the plain replay launched a kernel")
+    replays.update(_replay_family(torch, cfg, params, events, spec, fa_ops,
+                                  fa_ref, sc_ops, sc_ref, device, "kernel"))
+    t_replay = time.perf_counter() - t0
+    notes = {"free": "; not gated: routing free",
+             "kernel": "; it must reproduce every token"}
+    for what, (exact, worst, checked) in replays.items():
+        print(f"{name} replay {what}: {exact} of {checked} served tokens "
+              f"are the replay's argmax; the largest gap to its top logit "
+              f"{worst:.4f} (gate: at least {spec['min_exact']} exact, gap "
+              f"at most {spec['logit_tol']}{notes.get(what, '')})",
+              flush=True)
+    print(f"{name} replays: {t_replay:.3f} s", flush=True)
+
+    def passes(what):
+        exact, worst, _ = replays[what]
+        return exact >= spec["min_exact"] and worst <= spec["logit_tol"]
+
+    if replays["plain"][2] != tokens or not passes("plain"):
+        raise AssertionError(f"{name} replay: {tokens} tokens served, "
+                             f"(exact, largest gap, checked) "
+                             f"{replays['plain']}")
+    if "zero_state" in replays and passes("zero_state"):
+        raise AssertionError(f"{name} replay: the gate passes the "
+                             f"zero-state control {replays['zero_state']}")
+    if replays["kernel"] != (tokens, 0.0, tokens):
+        raise AssertionError(f"{name}: the replay on the kernels does not "
+                             f"reproduce the served tokens "
+                             f"{replays['kernel']}")
+    del params, events
+    torch.cuda.empty_cache()
+    exact, worst, checked = replays["plain"]
+    return {"arch": cfg.name, "layers": cfg.layers, "reduced": reduced,
+            "params": n_params, "init_s": t_init, "slots": FAM_SLOTS,
+            "max_seq": spec["max_seq"], "requests": len(done),
+            "prompt_lens": lens, "new_tokens": FAM_NEW_TOKENS,
+            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+            "prefills": tel["prefills"], "decode_steps": decodes,
+            "ticks": tel["ticks"], **counts, "peak_gib": peak_gib,
+            "latency": tel["latency"], "per_request": per_request,
+            "replay_exact": exact, "replay_checked": checked,
+            "replay_max_gap": worst, "replay_s": t_replay,
+            "gate": {"logit_tol": spec["logit_tol"],
+                     "min_exact": spec["min_exact"]},
+            "replay_controls": {k: {"exact": e, "max_gap": g}
+                                for k, (e, g, _) in replays.items()
+                                if k == "zero_state"},
+            "replay_free_routing": replays.get("free"),
+            "replay_kernel": replays["kernel"], "card": card}
+
+
 def _summary(name, source, replaces, cases, path):
     """The kernel's entry of the ``{"kernels": [...]}`` line: the
     numbers of its main path's chunk case (the first), the worst error
@@ -1596,6 +2070,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.mamba_scan import mamba_scan as sc
+    from repro_torch.kernels.mamba_scan import ops as sc_ops
+    from repro_torch.kernels.mamba_scan import ref as sc_ref
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_promoted_ref
     from repro_torch.kernels.matmul import matmul as mm
     from repro_torch.kernels.matmul.ref import matmul_ref
@@ -1689,7 +2165,14 @@ def main() -> int:
     print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # 10. summary
+    # 10. the MoE and recurrent families served on the card
+    family_kernels = (fa, fa_ops, fa_ref, sc, sc_ops, sc_ref)
+    families = {name: served_family(torch, card, name, family_kernels)
+                for name in FAMILIES}
+    print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # 11. summary
     base = "src/repro_torch/kernels"
     summary = [
         _summary("matmul", f"{base}/matmul/csrc/matmul.cu",
@@ -1705,9 +2188,19 @@ def main() -> int:
     ]
     summary[1]["lm_path"] = {k: lm[k] for k in (
         "launches", "plain_calls", "prefills", "decode_steps", "requests")}
+    # phase 10's runs: flash in both models, the scan in Jamba's prefills
+    summary[1]["family_paths"] = {name: {
+        "launches": f["flash_launches"], "plain_calls":
+        f["flash_plain_calls"], "prefills": f["prefills"],
+        "decode_steps": f["decode_steps"]} for name, f in families.items()}
+    summary[2]["family_paths"] = {name: {
+        "launches": f["scan_launches"], "plain_calls":
+        f["scan_plain_calls"], "prefills": f["prefills"]}
+        for name, f in families.items() if f["scan_launches"]}
     print(json.dumps({"stap_path": stap, "whole_kernel_path": whole,
                       "served_stap": served, "raylite": raylite,
-                      "served_lm": lm}), flush=True)
+                      "served_lm": lm, "served_families": families}),
+          flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(card, flush=True)

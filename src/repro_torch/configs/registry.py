@@ -70,7 +70,7 @@ def canon(arch: str) -> str:
 
 
 # the families the port's models run, and the arch of each other family
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 _FAMILY = {
     "seamless_m4t_medium": "audio",
     "olmoe_1b_7b": "moe",
@@ -91,8 +91,9 @@ def _module(arch: str):
     if family is not None and family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{name} ({family}): the port runs the "
-            f"{', '.join(PORTED_FAMILIES)} family; its {family} model "
-            f"waits for its slice (ROADMAP Queue 1, item 3)")
+            f"{', '.join(PORTED_FAMILIES)} families; its {family} model "
+            f"waits for the encoder-decoder and frontend-stub slice "
+            f"(ROADMAP Queue 1, item 3)")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

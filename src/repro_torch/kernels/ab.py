@@ -18,7 +18,9 @@ through ``api.scan_rows``'s mapping), a Jamba-1.5-Large Mamba layer (L =
 2048, I = 16384, N = 16, float32), the same layer at a 16k prompt (L =
 16384) and a ragged case (B = 2, L = 1000, I = 77, N = 4, float64). A
 scan library whose entries take scratch (the chunked scan) gets a
-scratch allocated per call, as its wrapper does. It prints one line per case and round (mean of CUDA-event times over 20
+scratch allocated per call, as its wrapper does, and one whose entries
+take the final state's pointer (``mamba_scan_abi() >= 2``) gets null
+there. It prints one line per case and round (mean of CUDA-event times over 20
 launches), the largest difference between the two checkouts' outputs,
 for the scan each checkout's largest difference from the recurrence in
 float64 on the same inputs, and the card's name and power limit.
@@ -64,14 +66,19 @@ def _libraries(root: Path):
     # the serial kernel's signature (no scratch, no plan) is here only to
     # time the chunked scan against the tree before it, commit d9c8578
     chunked = hasattr(sc, "mamba_scan_scratch_bytes")
+    # entries of ABI 2 take h_last (passed null) after y
+    pointers = 7 + chunked + _with_state(sc)
     for name in _SCAN_ENTRY.values():
-        getattr(sc, name).argtypes = (
-            [ptr] * 8 + [i64] * 4 + [ptr] if chunked
-            else [ptr] * 7 + [i64] * 4 + [ptr])
+        getattr(sc, name).argtypes = [ptr] * pointers + [i64] * 4 + [ptr]
     if chunked:
         sc.mamba_scan_scratch_bytes.argtypes = [i64] * 5
         sc.mamba_scan_scratch_bytes.restype = i64
     return mm, fa, sc
+
+
+def _with_state(sc) -> bool:
+    """Whether ``sc``'s entries take the final state's pointer."""
+    return hasattr(sc, "mamba_scan_abi") and sc.mamba_scan_abi() >= 2
 
 
 def _scan_call(torch, sc, args, y):
@@ -83,6 +90,7 @@ def _scan_call(torch, sc, args, y):
     # the closures hold the tensors, not only their addresses, so that
     # the operands outlive the cases built after them
     ops = (*args, y)
+    state = (None,) if _with_state(sc) else ()
     if not hasattr(sc, "mamba_scan_scratch_bytes"):
         return lambda: _check(fn(*(t.data_ptr() for t in ops), batch,
                                  length, inner, n,
@@ -93,8 +101,9 @@ def _scan_call(torch, sc, args, y):
 
     def call():
         scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
-        _check(fn(*(t.data_ptr() for t in ops), scratch.data_ptr(), batch,
-                  length, inner, n, torch.cuda.current_stream().cuda_stream))
+        _check(fn(*(t.data_ptr() for t in ops), *state, scratch.data_ptr(),
+                  batch, length, inner, n,
+                  torch.cuda.current_stream().cuda_stream))
     return call
 
 

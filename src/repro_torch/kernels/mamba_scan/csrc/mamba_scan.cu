@@ -47,6 +47,12 @@
 //   state on entry.
 // * Walk 2: each warp walks its SUB steps again, from its entry state, out
 //   of the same staged tile (each input byte crosses HBM once), writing y.
+//   Where the caller asks for the final state h_L (h_last, (B, I, N) in
+//   the accumulator type: a prompt's prefill hands it to decode), the last
+//   warp of each (batch, tile)'s last chunk writes it from its registers
+//   after its walk: the steps past L leave the state as it is, so that
+//   warp ends at h_L whether or not its own steps reach L. Nothing else
+//   changes, and a null h_last writes nothing.
 // The wrapper allocates the scratch per call; the launcher zeroes its
 // flags and counter with an asynchronous memset on the stream before the
 // grid. Nothing allocates or synchronises the device here, and each call
@@ -71,9 +77,12 @@
 // Types: the state and arithmetic in promote(dtype, float32): double in,
 // double; float in, float; bf16 in, float. y has the input type.
 //
-// C interface (loaded with ctypes): pointers, the sizes and the CUDA
-// stream; each entry returns a cudaError_t (0 on success). mamba_scan_scratch_bytes gives the size of the scratch the
-// wrapper allocates: the flags and counter, then the chunks' records.
+// C interface (loaded with ctypes): pointers (h_last after y, null when
+// the final state is not wanted), the sizes and the CUDA stream; each
+// entry returns a cudaError_t (0 on success). mamba_scan_scratch_bytes
+// gives the size of the scratch the wrapper allocates: the flags and
+// counter, then the chunks' records. mamba_scan_abi names the entries'
+// signature (2: with h_last), for tools that call other checkouts.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -294,7 +303,8 @@ __global__ void __launch_bounds__(LANES * WARPS, min_blocks<Acc, NS>())
 scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
             const T* __restrict__ bm, const T* __restrict__ cm,
             const T* __restrict__ a, const T* __restrict__ d_skip,
-            T* __restrict__ y, Acc* __restrict__ scratch,
+            T* __restrict__ y, Acc* __restrict__ h_last,
+            Acc* __restrict__ scratch,
             unsigned* __restrict__ flags, int64_t len, int inner, int n,
             int64_t chunks, int tiles, int64_t batch, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -487,14 +497,21 @@ scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       else if (live)
         yb[(int64_t)r * inner] = from_acc<T, Acc>(yt + dskip * xt);
     }
+    // the final state: this pass's states of the last chunk's last warp
+    if (h_last != nullptr && c == chunks - 1 && warp == WARPS - 1 && live) {
+      Acc* hl = h_last + (b * inner + i) * n;
+#pragma unroll
+      for (int s = 0; s < NG; ++s)
+        if (g0 + s < n) hl[g0 + s] = h[s];
+    }
   }
 }
 
 template <typename T, typename Acc, int NS>
 int launch_kernel(const void* x, const void* dt, const void* bm,
                   const void* cm, const void* a, const void* d_skip, void* y,
-                  void* scratch, int64_t batch, int64_t len, int64_t inner,
-                  int64_t n, void* stream) {
+                  void* h_last, void* scratch, int64_t batch, int64_t len,
+                  int64_t inner, int64_t n, void* stream) {
   const Shape sh = shape_of(batch, len, inner, n, sizeof(Acc));
   const int64_t smem = smem_bytes<T, Acc>(n);
   auto kernel = scan_kernel<T, Acc, NS>;
@@ -515,7 +532,7 @@ int launch_kernel(const void* x, const void* dt, const void* bm,
       static_cast<const T*>(x), static_cast<const T*>(dt),
       static_cast<const T*>(bm), static_cast<const T*>(cm),
       static_cast<const T*>(a), static_cast<const T*>(d_skip),
-      static_cast<T*>(y),
+      static_cast<T*>(y), static_cast<Acc*>(h_last),
       reinterpret_cast<Acc*>(static_cast<char*>(scratch) + sh.records_at),
       static_cast<unsigned*>(scratch), len, (int)inner, (int)n, sh.chunks,
       (int)sh.tiles, batch, vec);
@@ -524,9 +541,9 @@ int launch_kernel(const void* x, const void* dt, const void* bm,
 
 template <typename T, typename Acc>
 int launch(const void* x, const void* dt, const void* bm, const void* cm,
-           const void* a, const void* d_skip, void* y, void* scratch,
-           int64_t batch, int64_t len, int64_t inner, int64_t n,
-           void* stream) {
+           const void* a, const void* d_skip, void* y, void* h_last,
+           void* scratch, int64_t batch, int64_t len, int64_t inner,
+           int64_t n, void* stream) {
   if (n < 1 || n > MAX_N || batch < 1 || len < 1 || inner < 1 ||
       inner > (int64_t)1 << 30 || smem_bytes<T, Acc>(n) > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
@@ -536,8 +553,8 @@ int launch(const void* x, const void* dt, const void* bm, const void* cm,
     return (int)cudaErrorInvalidValue;
   // the state registers: the least instantiated size holding N
   using Launch = int (*)(const void*, const void*, const void*, const void*,
-                         const void*, const void*, void*, void*, int64_t,
-                         int64_t, int64_t, int64_t, void*);
+                         const void*, const void*, void*, void*, void*,
+                         int64_t, int64_t, int64_t, int64_t, void*);
   Launch fn;
   switch (state_size(n)) {
     case 1: fn = launch_kernel<T, Acc, 1>; break;
@@ -545,8 +562,8 @@ int launch(const void* x, const void* dt, const void* bm, const void* cm,
     case 16: fn = launch_kernel<T, Acc, 16>; break;
     default: fn = launch_kernel<T, Acc, 32>; break;
   }
-  return fn(x, dt, bm, cm, a, d_skip, y, scratch, batch, len, inner, n,
-            stream);
+  return fn(x, dt, bm, cm, a, d_skip, y, h_last, scratch, batch, len, inner,
+            n, stream);
 }
 
 }  // namespace
@@ -555,26 +572,26 @@ extern "C" {
 
 int mamba_scan_f64(const void* x, const void* dt, const void* bm,
                    const void* cm, const void* a, const void* d_skip,
-                   void* y, void* scratch, int64_t batch, int64_t len,
-                   int64_t inner, int64_t n, void* stream) {
-  return launch<double, double>(x, dt, bm, cm, a, d_skip, y, scratch, batch,
-                                len, inner, n, stream);
+                   void* y, void* h_last, void* scratch, int64_t batch,
+                   int64_t len, int64_t inner, int64_t n, void* stream) {
+  return launch<double, double>(x, dt, bm, cm, a, d_skip, y, h_last, scratch,
+                                batch, len, inner, n, stream);
 }
 
 int mamba_scan_f32(const void* x, const void* dt, const void* bm,
                    const void* cm, const void* a, const void* d_skip,
-                   void* y, void* scratch, int64_t batch, int64_t len,
-                   int64_t inner, int64_t n, void* stream) {
-  return launch<float, float>(x, dt, bm, cm, a, d_skip, y, scratch, batch,
-                              len, inner, n, stream);
+                   void* y, void* h_last, void* scratch, int64_t batch,
+                   int64_t len, int64_t inner, int64_t n, void* stream) {
+  return launch<float, float>(x, dt, bm, cm, a, d_skip, y, h_last, scratch,
+                              batch, len, inner, n, stream);
 }
 
 int mamba_scan_bf16(const void* x, const void* dt, const void* bm,
                     const void* cm, const void* a, const void* d_skip,
-                    void* y, void* scratch, int64_t batch, int64_t len,
-                    int64_t inner, int64_t n, void* stream) {
-  return launch<__nv_bfloat16, float>(x, dt, bm, cm, a, d_skip, y, scratch,
-                                      batch, len, inner, n, stream);
+                    void* y, void* h_last, void* scratch, int64_t batch,
+                    int64_t len, int64_t inner, int64_t n, void* stream) {
+  return launch<__nv_bfloat16, float>(x, dt, bm, cm, a, d_skip, y, h_last,
+                                      scratch, batch, len, inner, n, stream);
 }
 
 // bytes of scratch for one call; acc_bytes is the size of
@@ -583,6 +600,8 @@ int64_t mamba_scan_scratch_bytes(int64_t batch, int64_t len, int64_t inner,
                                  int64_t n, int64_t acc_bytes) {
   return shape_of(batch, len, inner, n, acc_bytes).scratch_bytes;
 }
+
+int mamba_scan_abi() { return 2; }
 
 const char* mamba_scan_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

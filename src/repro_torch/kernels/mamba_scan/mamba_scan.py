@@ -3,10 +3,11 @@
 Replaces the TPU kernel ``repro/kernels/mamba_scan/mamba_scan.py::
 mamba_scan``: a chunked scan, parallel in L, in one grid (decoupled
 look-back between chunks of 64 steps; any L is taken). :func:`mamba_scan`
-checks its operands, allocates the output and the kernel's scratch (the
-flags and counter, which the launcher zeroes on the stream, and the
-chunks' records), launches the kernel on PyTorch's current stream and
-counts the call in :data:`launches`. It takes CUDA
+checks its operands, allocates the output (and, when asked, the final
+state h_L) and the kernel's scratch (the flags and counter, which the
+launcher zeroes on the stream, and the chunks' records), launches the
+kernel on PyTorch's current stream and counts the call in
+:data:`launches`. It takes CUDA
 tensors only: a kernel that does not build or launch raises, it never
 falls back to the plain version (:mod:`.ref`), which :mod:`.ops` runs
 for CPU tensors.
@@ -44,7 +45,9 @@ def _library() -> ctypes.CDLL:
         lib = _build.load(SOURCE)
         for name in _ENTRY.values():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4 + [
+            # x, dt, Bm, Cm, a, d_skip, y, h_last (null: not asked),
+            # scratch; the sizes; the stream
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 4 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.mamba_scan_scratch_bytes.argtypes = [ctypes.c_int64] * 5
@@ -61,11 +64,13 @@ def build() -> None:
 
 
 def mamba_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
-               Cm: torch.Tensor, a: torch.Tensor,
-               d_skip: torch.Tensor) -> torch.Tensor:
+               Cm: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+               return_state: bool = False):
     """x/dt (B, L, I); Bm/Cm (B, L, N); a (I, N); d_skip (I,) on the card,
     all of one dtype (float64, float32 or bfloat16); y (B, L, I) in that
-    dtype, the state carried in ``promote(dtype, float32)``."""
+    dtype, the state carried in ``promote(dtype, float32)``. With
+    ``return_state``, (y, h_L): the state after the last step, (B, I, N)
+    in ``promote(dtype, float32)``."""
     global launches
     ops = (x, dt, Bm, Cm, a, d_skip)
     if not all(t.is_cuda and t.device == x.device for t in ops):
@@ -92,11 +97,16 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"mamba scan kernel takes 1 <= N <= {MAX_N}, got "
                          f"N={n}")
     y = torch.empty_like(x)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    # a scan of no step leaves the state at 0
+    h_last = (torch.zeros if length == 0 else torch.empty)(
+        (batch, inner, n), dtype=acc, device=x.device) \
+        if return_state else None
     if batch == 0 or length == 0 or inner == 0:
-        return y                                    # nothing to compute
+        return (y, h_last) if return_state else y   # nothing to compute
     lib = _library()
     fn = getattr(lib, _ENTRY[x.dtype])
-    acc_bytes = torch.promote_types(x.dtype, torch.float32).itemsize
+    acc_bytes = acc.itemsize
     with torch.cuda.device(x.device):
         # the flags, the block counter and the chunks' records; the C
         # launcher zeroes the flags and counter on the stream
@@ -106,9 +116,10 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
             dtype=torch.uint8, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*(t.data_ptr() for t in ops), y.data_ptr(),
+                 None if h_last is None else h_last.data_ptr(),
                  scratch.data_ptr(), batch, length, inner, n, stream)
     if err != 0:
         msg = lib.mamba_scan_error_string(err).decode()
         raise RuntimeError(f"mamba scan kernel launch failed: {msg} ({err})")
     launches += 1
-    return y
+    return (y, h_last) if return_state else y

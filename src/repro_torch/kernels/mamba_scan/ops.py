@@ -1,8 +1,10 @@
 """Dispatch for the selective-scan kernel: CUDA tensors go to the
 hand-written kernel (:mod:`.mamba_scan`, which takes any L, so nothing
 is chunked here), CPU tensors to the kernel's plain version
-(:func:`.ref.mamba_scan_promoted_ref`). The choice follows only where
-the tensors lie."""
+(:func:`.ref.mamba_scan_promoted_ref`), counting those calls in
+:data:`plain_calls`. The choice follows only where the tensors lie.
+With ``return_state`` both return (y, h_L), the state after the last
+step in ``promote(dtype, float32)``."""
 
 from __future__ import annotations
 
@@ -11,10 +13,15 @@ import torch
 from . import mamba_scan as _kernel
 from .ref import mamba_scan_promoted_ref
 
+# calls that took the plain version (CPU tensors) in this process
+plain_calls = 0
+
 
 def mamba_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
-               Cm: torch.Tensor, a: torch.Tensor,
-               d_skip: torch.Tensor) -> torch.Tensor:
+               Cm: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+               return_state: bool = False):
+    global plain_calls
     if any(t.is_cuda for t in (x, dt, Bm, Cm, a, d_skip)):
-        return _kernel.mamba_scan(x, dt, Bm, Cm, a, d_skip)
-    return mamba_scan_promoted_ref(x, dt, Bm, Cm, a, d_skip)
+        return _kernel.mamba_scan(x, dt, Bm, Cm, a, d_skip, return_state)
+    plain_calls += 1
+    return mamba_scan_promoted_ref(x, dt, Bm, Cm, a, d_skip, return_state)

@@ -13,6 +13,10 @@ x/dt: (B, L, I);  Bm/Cm: (B, L, N);  a: (I, N) log-decay;  d: (I,) skip.
 * :func:`mamba_scan_promoted_ref` — exactly what the kernel computes
   (and the reference's Pallas kernel): the same recurrence on the
   inputs cast to ``promote(dtype, float32)``, cast to ``x``'s dtype.
+
+With ``return_state`` both return (y, h_L): the state after the last
+step, (B, I, N) in ``promote(dtype, float32)`` (zeros for L = 0), which
+a prompt's prefill hands to decode.
 * :func:`mamba_scan_chunked_ref` — the kernel's decomposition of the same
   function: walks of ``chunk`` steps from a zero state, the carry passed
   between them by the associative combine (a chunk maps h to
@@ -27,8 +31,8 @@ import torch
 
 
 def mamba_scan_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
-                   Cm: torch.Tensor, a: torch.Tensor,
-                   d_skip: torch.Tensor) -> torch.Tensor:
+                   Cm: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+                   return_state: bool = False):
     b, l, inner = x.shape
     n = Bm.shape[-1]
     decay = -torch.exp(a)                                  # (I, N)
@@ -41,16 +45,18 @@ def mamba_scan_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
             * Bm[:, t, None, :]
         ys.append((h * Cm[:, t, None, :]).sum(-1))          # (B, I)
     y = torch.stack(ys, dim=1) if ys else h.new_zeros((b, 0, inner))
-    return y + d_skip[None, None] * x
+    y = y + d_skip[None, None] * x
+    return (y, h) if return_state else y
 
 
 def mamba_scan_promoted_ref(x: torch.Tensor, dt: torch.Tensor,
                             Bm: torch.Tensor, Cm: torch.Tensor,
-                            a: torch.Tensor,
-                            d_skip: torch.Tensor) -> torch.Tensor:
+                            a: torch.Tensor, d_skip: torch.Tensor,
+                            return_state: bool = False):
     acc = torch.promote_types(x.dtype, torch.float32)
-    return mamba_scan_ref(*(t.to(acc) for t in (x, dt, Bm, Cm, a,
-                                                 d_skip))).to(x.dtype)
+    y, h = mamba_scan_ref(*(t.to(acc) for t in (x, dt, Bm, Cm, a, d_skip)),
+                          return_state=True)
+    return (y.to(x.dtype), h) if return_state else y.to(x.dtype)
 
 
 def mamba_scan_chunked_ref(x: torch.Tensor, dt: torch.Tensor,

@@ -62,9 +62,14 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.serve.engine", "repro_torch.serve.request",
                  "repro_torch.serve.kvcache", "repro_torch.models.common",
                  "repro_torch.models.transformer",
+                 "repro_torch.models.moe", "repro_torch.models.ssm",
                  "repro_torch.configs.registry",
                  "repro_torch.configs.gemma2_2b",
                  "repro_torch.configs.stablelm_3b",
+                 "repro_torch.configs.olmoe_1b_7b",
+                 "repro_torch.configs.qwen2_moe_a2_7b",
+                 "repro_torch.configs.jamba_1_5_large_398b",
+                 "repro_torch.configs.xlstm_125m",
                  "repro_torch.launch.serve"):
         assert name in res["modules"]
 

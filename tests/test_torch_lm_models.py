@@ -1,5 +1,7 @@
-"""The port's dense LM (``repro_torch.models``) against the reference's
-(``repro.models``), at small sizes on the CPU.
+"""The port's LM (``repro_torch.models``) against the reference's
+(``repro.models``), at small sizes on the CPU: the dense family, the MoE
+family (olmoe, qwen2_moe) and the recurrent ones (jamba: Mamba +
+attention + MoE; xlstm: mLSTM + sLSTM).
 
 Inputs are made with numpy from a seed and handed to both packages; the
 weights are the reference's own ``init_params(cfg, jax.random.key(0))``,
@@ -18,6 +20,15 @@ probabilities to bf16 where ``plain_attention`` casts normalised ones),
 so logits are compared at ``BF16_LOGIT_TOL`` of the largest logit's
 magnitude, a few bf16 ulps of it. The CUDA cases need a card and skip
 here.
+
+The MoE models are held to the reference's ``prefill`` and
+``decode_step``. The recurrent ones are not: the reference's prefill
+takes each recurrent mixer's single-token branch over the whole prompt
+(ROADMAP Queue 3, entry 7). Their prefill logits are held to the
+reference's cache-free ``forward`` of the prompt (the same tokens, so
+the same MoE capacity), and their decode logits to the reference's
+``decode_step`` run on the port's caches after prefill, carried back to
+the reference's layout (a second subprocess).
 """
 
 import dataclasses
@@ -41,10 +52,18 @@ MODEL_CASES = [(arch, dtype, max_seq)
                for arch in ("gemma2_2b", "stablelm_3b")
                for dtype in ("float32", "bfloat16")
                for max_seq in (64, 160)]
-# qkv bias (qwen) and the non-gated squared ReLU (nemotron)
+# qkv bias (qwen) and the non-gated squared ReLU (nemotron); the MoE
+# family (olmoe: 8 experts padded to 16; qwen2_moe: a shared expert)
 MODEL_CASES += [("qwen1_5_110b", "float32", 64),
-                ("nemotron_4_340b", "float32", 64)]
+                ("nemotron_4_340b", "float32", 64),
+                ("olmoe_1b_7b", "float32", 64),
+                ("qwen2_moe_a2_7b", "float32", 64)]
 MODEL_IDS = [f"{a}-{d}-{m}" for a, d, m in MODEL_CASES]
+# the recurrent families, held to the reference's forward (prefill) and
+# to its decode_step on the port's caches
+RECURRENT_CASES = [("jamba_1_5_large_398b", "float32", 64),
+                   ("xlstm_125m", "float32", 64)]
+RECURRENT_IDS = [f"{a}-{d}-{m}" for a, d, m in RECURRENT_CASES]
 PROMPT_LENS = {64: (7, 13), 160: (41, 90)}
 DECODE_STEPS = 6
 BF16_LOGIT_TOL = 0.03
@@ -127,11 +146,71 @@ for arch, dtype, max_seq in spec["models"]:
         logits, caches = decode(params, toks[:, t:t + 1], caches)
         steps.append(f64(logits))
     outputs[f"{key}/decode"] = np.stack(steps)
+for arch, dtype, max_seq in spec["recurrent"]:
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=DT[dtype])
+    params = jax.jit(lambda key: RT.init_params(cfg, key)[0])(
+        jax.random.key(0))
+    flat(f"params/{arch}/{dtype}", params)
+    key = f"recurrent/{arch}/{dtype}/{max_seq}"
+
+    def last_logits(p, t):
+        x = RT.embed_tokens(p, t, cfg)
+        x, _ = RT.forward(p, x, cfg, positions=jnp.arange(t.shape[1]))
+        x = RC.rmsnorm(x[:, -1:], p["final_ln"], cfg.norm_eps)
+        w = p.get("unembed", p["embed"])
+        return RC.mask_padded_vocab(jnp.einsum("btd,vd->btv", x, w),
+                                    cfg.vocab)[:, 0]
+
+    for slot in (0, 1):
+        outputs[f"{key}/forward{slot}"] = f64(jax.jit(last_logits)(
+            params, jnp.asarray(inputs[f"{key}/p{slot}"])[None]))
+"""
+
+# the reference's decode steps from the port's caches after prefill
+_REFERENCE_DECODE = """
+import dataclasses, json
+import jax
+import jax.numpy as jnp
+from repro.configs import get_smoke_config
+from repro.models import transformer as RT
+
+DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+for arch, dtype, max_seq in json.loads(str(inputs["spec"])):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=DT[dtype])
+    params = jax.jit(lambda key: RT.init_params(cfg, key)[0])(
+        jax.random.key(0))
+    key = f"recurrent/{arch}/{dtype}/{max_seq}"
+    caches = []
+    for i in range(cfg.period):
+        pre = f"{key}/cache/{i}/"
+        leaves = {k[len(pre):]: v for k, v in inputs.items()
+                  if k.startswith(pre)}
+        if cfg.layer_kind(i) == "attn":
+            caches.append({"kv": {
+                "k": jnp.asarray(leaves["k"], cfg.dtype),
+                "v": jnp.asarray(leaves["v"], cfg.dtype),
+                "index": jnp.asarray(leaves["index"], jnp.int32)}})
+        else:
+            caches.append({"ssm": {n: jnp.asarray(v, jnp.float32)
+                                   for n, v in leaves.items()}})
+    decode = jax.jit(lambda p, t, c: RT.decode_step(p, t, c, cfg))
+    toks = inputs[f"{key}/decode"]
+    steps = []
+    for t in range(toks.shape[1]):
+        logits, caches = decode(params, jnp.asarray(toks[:, t:t + 1]),
+                                caches)
+        steps.append(np.asarray(jnp.asarray(logits, jnp.float32),
+                                np.float64))
+    outputs[f"{key}/decode"] = np.stack(steps)
 """
 
 
 def _model_key(arch, dtype, max_seq):
     return f"model/{arch}/{dtype}/{max_seq}"
+
+
+def _recurrent_key(arch, dtype, max_seq):
+    return f"recurrent/{arch}/{dtype}/{max_seq}"
 
 
 def _model_inputs(arch, max_seq):
@@ -174,7 +253,8 @@ def _layer_inputs():
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     inputs = _layer_inputs()
-    spec = {"mlp_acts": list(MLP_ACTS), "attn": [], "models": []}
+    spec = {"mlp_acts": list(MLP_ACTS), "attn": [], "models": [],
+            "recurrent": []}
     for case in ATTN_CASES:
         cid, _, causal, window, cap, off = case
         spec["attn"].append([cid, causal, window, cap])
@@ -187,9 +267,45 @@ def reference(tmp_path_factory):
         p0, p1, dec = _model_inputs(arch, max_seq)
         inputs.update({f"{key}/p0": p0, f"{key}/p1": p1,
                        f"{key}/decode": dec})
+    for arch, dtype, max_seq in RECURRENT_CASES:
+        spec["recurrent"].append([arch, dtype, max_seq])
+        key = _recurrent_key(arch, dtype, max_seq)
+        p0, p1, _ = _model_inputs(arch, max_seq)
+        inputs.update({f"{key}/p0": p0, f"{key}/p1": p1})
     inputs["spec"] = np.asarray(json.dumps(spec))
     return run_reference(_REFERENCE, inputs,
                          tmp_path_factory.mktemp("lm_models_reference"))
+
+
+def _flat_caches(caches, prefix):
+    """The port's caches as numpy leaves under ``prefix/<i>/<name>``."""
+    out = {}
+    for i, c in enumerate(caches):
+        for leaves in c.values():
+            for name, t in leaves.items():
+                t = t.cpu()
+                out[f"{prefix}/{i}/{name}"] = (
+                    t.float() if t.is_floating_point() else t).numpy()
+    return out
+
+
+@pytest.fixture(scope="module")
+def recurrent_decode(reference, tmp_path_factory):
+    """The reference's decode logits from the port's caches after the
+    prefill of both prompts (``_port_prefill``)."""
+    inputs, spec = {}, []
+    for arch, dtype, max_seq in RECURRENT_CASES:
+        spec.append([arch, dtype, max_seq])
+        cfg = _port_cfg(arch, dtype)
+        params = reference_params(reference, arch, dtype, cfg)
+        key = _recurrent_key(arch, dtype, max_seq)
+        p0, p1, dec = _model_inputs(arch, max_seq)
+        _, caches = _port_prefill(params, cfg, (p0, p1), max_seq)
+        inputs.update(_flat_caches(caches, f"{key}/cache"))
+        inputs[f"{key}/decode"] = dec
+    inputs["spec"] = np.asarray(json.dumps(spec))
+    return run_reference(_REFERENCE_DECODE, inputs,
+                         tmp_path_factory.mktemp("lm_recurrent_decode"))
 
 
 def _to(tree, device):
@@ -274,7 +390,9 @@ def _port_cfg(arch, dtype):
 
 
 @pytest.mark.parametrize("arch", ["gemma2_2b", "stablelm_3b",
-                                  "qwen1_5_110b", "nemotron_4_340b"])
+                                  "qwen1_5_110b", "nemotron_4_340b",
+                                  "olmoe_1b_7b", "qwen2_moe_a2_7b",
+                                  "jamba_1_5_large_398b", "xlstm_125m"])
 def test_init_params_has_the_reference_layout(reference, arch):
     """Same tree, shapes and dtype as the reference's init (the values
     come from another generator)."""
@@ -307,26 +425,43 @@ def test_params_from_reference_keeps_bf16_values_exactly(reference):
     assert np.array_equal(wq.float().numpy(), want)
 
 
-def _port_model_run(params, cfg, key_inputs, max_seq):
-    """The reference subprocess's steps on the port: two prompts
-    prefilled alone and inserted into a 2-slot cache, then decode steps
-    with both slots at their own positions."""
+def _port_prefill(params, cfg, prompts, max_seq):
+    """Two prompts prefilled alone and inserted into a 2-slot cache:
+    (each prompt's last-token logits, the caches)."""
     dev = params["embed"].device
-    p0, p1, dec = (torch.from_numpy(a).to(dev) for a in key_inputs)
     caches = T.init_caches(cfg, 2, max_seq, device=dev)
     prefills = []
     with torch.inference_mode():
-        for slot, prompt in enumerate((p0, p1)):
-            one, logits = T.prefill(params, {"tokens": prompt[None]}, cfg,
-                                    max_seq)
+        for slot, prompt in enumerate(prompts):
+            one, logits = T.prefill(
+                params, {"tokens": torch.from_numpy(prompt).to(dev)[None]},
+                cfg, max_seq)
             prefills.append(logits.float().cpu().numpy())
             ServeEngine._insert(caches, one, slot)
-        steps = []
+    return prefills, caches
+
+
+def _port_decode(params, cfg, caches, dec):
+    """Decode steps of the tokens ``dec`` (2, steps) from ``caches``,
+    both slots at their own positions: the logits of each step."""
+    dec = torch.from_numpy(dec).to(params["embed"].device)
+    steps = []
+    with torch.inference_mode():
         for t in range(dec.shape[1]):
             logits, caches = T.decode_step(params, dec[:, t:t + 1], caches,
                                            cfg)
             steps.append(logits.float().cpu().numpy())
-    return prefills, np.stack(steps), caches
+    return np.stack(steps), caches
+
+
+def _port_model_run(params, cfg, key_inputs, max_seq):
+    """The reference subprocess's steps on the port: two prompts
+    prefilled alone and inserted into a 2-slot cache, then decode steps
+    with both slots at their own positions."""
+    p0, p1, dec = key_inputs
+    prefills, caches = _port_prefill(params, cfg, (p0, p1), max_seq)
+    steps, caches = _port_decode(params, cfg, caches, dec)
+    return prefills, steps, caches
 
 
 @pytest.mark.parametrize("case", MODEL_CASES, ids=MODEL_IDS)
@@ -353,6 +488,63 @@ def test_prefill_and_decode_logits_match_reference(reference, case):
         assert (c["kv"]["index"].cpu().numpy() == lens).all()
 
 
+@pytest.mark.parametrize("case", RECURRENT_CASES, ids=RECURRENT_IDS)
+def test_recurrent_prefill_matches_forward_and_decode_matches_reference(
+        reference, recurrent_decode, case):
+    """Prefill logits against the reference's cache-free forward of each
+    prompt; decode logits (6 steps, 2 slots at their own positions)
+    against the reference's decode_step from the port's caches after
+    prefill; f32 at 1e-4."""
+    arch, dtype, max_seq = case
+    cfg = _port_cfg(arch, dtype)
+    params = reference_params(reference, arch, dtype, cfg)
+    key = _recurrent_key(arch, dtype, max_seq)
+    p0, p1, dec = _model_inputs(arch, max_seq)
+    prefills, caches = _port_prefill(params, cfg, (p0, p1), max_seq)
+    for slot in (0, 1):
+        _close(prefills[slot], reference[f"{key}/forward{slot}"], 1e-4,
+               f"{key} prefill {slot} against forward")
+    steps, caches = _port_decode(params, cfg, caches, dec)
+    _close(steps, recurrent_decode[f"{key}/decode"], 1e-4, f"{key} decode")
+    lens = np.array(PROMPT_LENS[max_seq]) + DECODE_STEPS
+    for c in caches:
+        if "kv" in c:
+            assert (c["kv"]["index"].cpu().numpy() == lens).all()
+
+
+def test_init_params_keeps_the_reference_float32_leaves():
+    """At bf16 the router and Mamba's dt_bias, a_log and d_skip stay in
+    float32, in the port's init and in the reference's carried over."""
+    cfg = _port_cfg("jamba_1_5_large_398b", "bfloat16")
+    params, _ = T.init_params(cfg, torch.Generator().manual_seed(0))
+    mamba, moe = params["blocks"][0]["mamba"], params["blocks"][1]["moe"]
+    for leaf in (mamba["dt_bias"], mamba["a_log"], mamba["d_skip"],
+                 moe["router"]):
+        assert leaf.dtype == torch.float32
+    assert mamba["in_proj"].dtype == moe["wi"].dtype == torch.bfloat16
+    tree = {"router": np.ones((4, 16), np.float32),
+            "wi": np.ones((16, 4, 8), np.float32)}
+    got = T.params_from_reference(tree, cfg, "cpu")
+    assert got["router"].dtype == torch.float32
+    assert got["wi"].dtype == torch.bfloat16
+
+
+def test_shared_experts_are_one_set_of_tensors():
+    """``share_experts``: every MoE layer of a period holds its first
+    MoE layer's routed experts, the same tensors; routers stay apart."""
+    cfg = _port_cfg("jamba_1_5_large_398b", "float32")
+    params, specs = T.init_params(cfg, torch.Generator().manual_seed(0),
+                                  share_experts=True)
+    moes = [b["moe"] for b in params["blocks"] if "moe" in b]
+    assert len(moes) == 2
+    for w in ("wi", "wg", "wo"):
+        assert moes[0][w] is moes[1][w]
+    assert not torch.equal(moes[0]["router"], moes[1]["router"])
+    own, _ = T.init_params(cfg, torch.Generator().manual_seed(0))
+    assert sorted(own["blocks"][3]["moe"]) == sorted(moes[1])
+    assert sorted(specs["blocks"][3]["moe"]) == sorted(moes[1])
+
+
 def test_uniform_index_cache_writes_at_the_shared_position():
     """The reference's scalar-index cache (steady-state decode) writes
     each step at the one position, clamped to fit, and attends with that
@@ -377,15 +569,26 @@ def test_uniform_index_cache_writes_at_the_shared_position():
                                   "xlstm_125m", "seamless_m4t_medium",
                                   "llava_next_mistral_7b"])
 def test_families_not_ported_raise_naming_the_roadmap(arch):
+    """The audio and vlm families still raise, naming the roadmap; the
+    MoE, hybrid and ssm ones (ported since) load, full and smoke."""
+    ported = arch in ("jamba_1_5_large_398b", "olmoe_1b_7b", "xlstm_125m")
     for get in (get_config, get_smoke_config):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get(arch)
+        if ported:
+            assert get(arch).family in ("moe", "hybrid", "ssm")
+        else:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                get(arch)
 
 
 def test_model_refuses_a_hybrid_config():
+    """A hybrid (attention + Mamba) config builds now; one that is also
+    encoder-decoder is refused, naming the roadmap."""
     cfg = C.ArchConfig(name="hybrid", family="hybrid", layers=2, period=2,
                        d_model=32, n_heads=2, kv_heads=2, d_ff=64, vocab=64,
                        dtype=torch.float32)
+    params, _ = T.init_params(cfg, torch.Generator().manual_seed(0))
+    assert "mamba" in params["blocks"][1]
+    cfg = dataclasses.replace(cfg, is_encdec=True, enc_layers=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init_params(cfg, torch.Generator().manual_seed(0))
 
@@ -423,3 +626,32 @@ def test_cuda_prefill_and_decode_logits_match_the_cpu(cuda_device, case):
     for slot in (0, 1):
         _close(pre[slot], cpu_pre[slot], tol, f"{case} prefill {slot}")
     _close(steps, cpu_steps, tol, f"{case} decode on the card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RECURRENT_CASES, ids=RECURRENT_IDS)
+def test_cuda_recurrent_prefill_and_decode_match_the_cpu(cuda_device,
+                                                         case):
+    """The recurrent families on the card, every Mamba prefill on the
+    scan kernel and every attention layer on the flash kernel, against
+    the CPU path that the test above holds to the reference."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.mamba_scan import mamba_scan as sc
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+
+    arch, dtype, max_seq = case
+    cfg = _port_cfg(arch, dtype)
+    params, _ = T.init_params(cfg, torch.Generator().manual_seed(0))
+    inputs = _model_inputs(arch, max_seq)
+    cpu_pre, cpu_steps, _ = _port_model_run(params, cfg, inputs, max_seq)
+    card = _to(params, cuda_device)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.period)]
+    flash0, scan0, plain0 = fa.launches, sc.launches, scan_ops.plain_calls
+    pre, steps, _ = _port_model_run(card, cfg, inputs, max_seq)
+    assert fa.launches - flash0 == cfg.n_periods * kinds.count("attn") \
+        * (2 + DECODE_STEPS)
+    assert sc.launches - scan0 == cfg.n_periods * kinds.count("mamba") * 2
+    assert scan_ops.plain_calls == plain0
+    for slot in (0, 1):
+        _close(pre[slot], cpu_pre[slot], 1e-4, f"{case} prefill {slot}")
+    _close(steps, cpu_steps, 1e-4, f"{case} decode on the card")

@@ -8,9 +8,17 @@ carried over with ``transformer.params_from_reference``) at float32:
 slot and joins a running batch. Greedy tokens must be equal, token for
 token. At ``max_seq`` 64 the reference decodes through
 ``plain_attention``, at 160 through ``chunked_attention``. The reference
-runs in a subprocess (``tests/torch_reference.py``). Also: the engine's
-telemetry, its refusal to start on a missing card, and the launcher and
-example run on the CPU. The card's case skips here.
+runs in a subprocess (``tests/torch_reference.py``). The MoE family
+(olmoe, qwen2_moe) is served the same way: every slot's token, the free
+slots' too, competes for expert capacity in a decode step, in both
+engines. The recurrent families (jamba, xlstm) are not compared with the
+reference's engine, whose prefill is wrong for them (ROADMAP Queue 3,
+entry 7; ``tests/test_torch_lm_models.py`` holds them to its forward):
+a request that reuses a slot must give the tokens it gives in a fresh
+engine, so no recurrent state leaks from the slot's earlier request.
+Also: the engine's telemetry, its refusal to start on a missing card,
+and the launcher and example run on the CPU. The card's case skips
+here.
 """
 
 import dataclasses
@@ -39,7 +47,9 @@ ROOT = Path(__file__).resolve().parents[1]
 SERVE_CASES = [("gemma2_2b", 64, (5, 11, 8), 8),
                ("stablelm_3b", 64, (5, 11, 8), 8),
                ("gemma2_2b", 160, (40, 70, 25), 10),
-               ("stablelm_3b", 160, (40, 70, 25), 10)]
+               ("stablelm_3b", 160, (40, 70, 25), 10),
+               ("olmoe_1b_7b", 64, (5, 11, 8), 8),
+               ("qwen2_moe_a2_7b", 64, (5, 11, 8), 8)]
 SERVE_IDS = [f"{a}-{m}" for a, m, _, _ in SERVE_CASES]
 N_SLOTS = 2
 
@@ -191,6 +201,35 @@ def test_engine_admits_into_freed_slots_and_stops_at_max_seq():
         assert len(r.prompt) + len(r.generated) == 23
 
 
+@pytest.mark.parametrize("arch, n_slots", [("jamba_1_5_large_398b", 1),
+                                           ("xlstm_125m", 2)])
+def test_reused_slot_gives_the_tokens_of_a_fresh_engine(arch, n_slots):
+    """A request admitted into a slot that an earlier request's recurrent
+    state (and KV cache) filled generates what it generates alone in a
+    fresh engine: the insert overwrites every state leaf of the slot.
+    (Jamba on one slot: with more, the MoE capacity couples the slots.)"""
+    cfg = _port_cfg(arch)
+    params, _ = T.init_params(cfg, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(11)
+    first = [rng.integers(0, cfg.vocab, n) for n in (9, 6)[:n_slots]]
+    late = rng.integers(0, cfg.vocab, 7)
+
+    def serve(prompts):
+        eng = ServeEngine(params, cfg, n_slots=n_slots, max_seq=64,
+                          device="cpu")
+        for i, p in enumerate(prompts):
+            eng.add_request(Request(f"r{i}", p, max_tokens=6))
+        return {r.request_id: r for r in eng.run_until_done()}
+
+    reused = serve(first + [late])
+    alone = serve([late])
+    last = reused[f"r{n_slots}"]
+    # it waited for a slot, which an earlier request had used
+    assert last.first_token_s > min(r.finished_s for r in reused.values()
+                                    if r is not last)
+    assert last.generated == alone["r0"].generated
+
+
 def _run(args):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
@@ -204,6 +243,17 @@ def test_launcher_serves_the_smoke_model_on_the_cpu():
     assert out.returncode == 0, out.stderr[-2000:]
     assert "[serve] stablelm_3b_smoke:" in out.stdout
     assert "'requests': 4" in out.stdout and "'device': 'cpu'" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "jamba_1_5_large_398b",
+                                  "xlstm_125m"])
+def test_launcher_serves_the_moe_and_recurrent_families_on_the_cpu(arch):
+    out = _run(["-m", "repro_torch.launch.serve", "--arch", arch,
+                "--smoke", "--device", "cpu", "--requests", "3",
+                "--max-tokens", "4"])
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert f"[serve] {arch}_smoke:" in out.stdout
+    assert "'requests': 3" in out.stdout
 
 
 def test_example_serves_on_the_cpu():

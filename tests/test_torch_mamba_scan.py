@@ -334,3 +334,29 @@ def test_cuda_kernel_holds_under_strong_and_weak_decay(cuda_device, kind,
     _close(got.double().cpu().numpy(),
            mamba_scan_promoted_ref(*args).double().cpu().numpy(), dtype,
            kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", EDGES + [(2, 1000, 77, 32),
+                                           (1, 130, 40, 17)],
+                         ids=EDGE_IDS + ["B2-L1000-I77-N32",
+                                         "B1-L130-I40-N17"])
+def test_cuda_kernel_final_state_matches_plain_version(cuda_device, shape,
+                                                       dtype):
+    """h_L, written by the last chunk's last warp (in float64 at N > 16
+    in two passes of 16 states), against the plain version's; y is the
+    same bits with and without it."""
+    args = [torch.from_numpy(a).to(cuda_device, TORCH_DT[dtype])
+            for a in _inputs(shape + (0,))]
+    before = kernel.launches
+    y, h = ops.mamba_scan(*args, return_state=True)
+    plain = ops.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert torch.equal(y, plain)
+    acc = torch.promote_types(TORCH_DT[dtype], torch.float32)
+    assert h.dtype == acc and h.shape == (shape[0], shape[2], shape[3])
+    _, want = mamba_scan_promoted_ref(*args, return_state=True)
+    _close(h.double().cpu().numpy(), want.double().cpu().numpy(),
+           "float64" if dtype == "float64" else "float32", str(shape))
