@@ -9,9 +9,11 @@ exit:
 1. Environment: the card's name and power limit (``nvidia-smi``), the
    torch and CUDA versions; TF32 off for float32 products.
 2. Build: every hand-written kernel from the sources in this checkout
-   (one ``nvcc`` per source, started together), into ``build/kernels/``;
+   (one ``nvcc`` per source, started together; the flash attention's
+   backward has a source of its own), into ``build/kernels/``;
    fails if ptxas reports spill bytes for a float64 (DMMA) matmul kernel
-   or for any instantiation of flash attention or the selective scan.
+   or for any instantiation of the flash attention forward or the
+   selective scan, or more than SPILL_MAX's for the backward.
 3. Each kernel against its plain torch version on the card, in every
    dtype it takes, at its main path's chunk shape, at a language model's
    widths where the repo has one that runs it, and at a ragged shape;
@@ -42,6 +44,21 @@ exit:
    layer, at a ragged L, in float64 at N = 32 and at phase 10's shortest
    and longest Jamba prompts: h_L against the plain version's, and y the
    same bits as without it.
+   The flash attention's backward: the forward kernel's logsumexp and
+   output against the plain forward's, then the backward kernels (the
+   preamble, dK/dV and dQ), from the forward kernel's output and
+   logsumexp, against the plain ``flash_attention_bhsd_bwd_ref`` from
+   the plain forward's: dq, dk and dv within TOL and, in norm, within
+   BWD_NORM_TOL, at the attention path's chunk (float64, float32), a
+   stablelm_3b layer (2 sequences x 32 heads, S = 4096, D = 80,
+   causal), seamless's encoder and cross attention (2 x 16 heads, Sq =
+   Skv = 4096, D = 64, not causal), gemma2_2b's local layer (8 heads, S
+   = 8192, D = 288, window 4096, softcap 50) in bf16 and a ragged case.
+   Each case must fail that comparison with dK zeroed, with P uniform
+   over each row's mask and, with a softcap, with dS missing its
+   (1 - tanh^2). The library time is ``torch.autograd.grad`` through
+   ``scaled_dot_product_attention`` with the same mask or, where a case
+   has a softcap, through compiled ``flex_attention``.
    Each kernel redesigned for Hopper (the float64 matmul and flash
    attention on the tensor cores, the selective scan as a chunked scan
    parallel in L) is printed beside its time before the redesign; the
@@ -133,7 +150,30 @@ exit:
    replay of the engine's own calls (the same batches, so the same MoE
    capacity) on the plain attention and the plain scan. A replay that
    leaves each Jamba prefill's Mamba states at zero must fail that gate.
-11. Summary: one JSON line with every kernel's numbers, the card's line,
+11. Training on the card (TRAIN_RUNS), each run after the earlier
+   phases' garbage is collected (what stays allocated is printed, and
+   must stay within SETTLED_MAX_GIB), bf16, weights from the seed,
+   batches from the reference's pipeline (``SyntheticTokens``, seed
+   1234): stablelm_3b and seamless_m4t_medium at full width and depth,
+   each through ``repro_torch.train``'s step (microbatches of the
+   config, remat full, AdamW lr 3e-4, f32 moments, written in place)
+   for TRAIN_STEPS steps. Step 1's gradient (``accumulate_grads``) is
+   replayed with every attention's backward through the plain
+   ``flash_attention_bhsd_bwd_ref`` (the forward kernel kept) and must
+   agree within TRAIN_GATE (per leaf: cosine, relative norm error);
+   two controls must fail that gate (the attention output detached: no
+   attention gradient; the backward kernel with dK zeroed). It prints
+   step seconds, tokens/s, forward/backward/optimizer ms (CUDA events),
+   peak memory and the flash launches, and fails unless the trained
+   parameters' loss on step 1's batch is below step 1's (each step
+   draws a new batch, whose loss differs from the last by more than 4
+   steps at lr 3e-4 move seamless's; both are printed), a save
+   (``AsyncCheckpointer``) after step 2 restored
+   into fresh tensors gives steps 3-4 the same loss bits, every
+   attention call launched the backward kernels once and the forward
+   twice (remat), and no call took a plain version. A Jamba smoke preset
+   asked for a gradient on the card must be refused by the scan op.
+12. Summary: one JSON line with every kernel's numbers, the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the checkout's ``src/``; without either it
@@ -177,11 +217,13 @@ STAP_SAMPLE = 256
 GEMM_N = 4096
 # the served STAP phase: requests from two tenants, each one dwell of
 # this many range gates at the example's widths (16.8 MB of training
-# cube), served one by one and then coalesced (window, batch cap): ten
-# full coalesced batches a mode. They arrive at SERVE_LOAD times the
-# naive capacity, measured first on SERVE_CALIBRATE fresh requests
-# served back to back
-SERVE_REQUESTS = 160
+# cube), served one by one and then coalesced (window, batch cap): six
+# full coalesced batches a mode (cut from ten, 160 requests, when the
+# training phase was added: a mode takes SERVE_REQUESTS / (SERVE_LOAD x
+# capacity) seconds, 82 s at 160 on a host of 2.4 requests/s). They
+# arrive at SERVE_LOAD times the naive capacity, measured first on
+# SERVE_CALIBRATE fresh requests served back to back
+SERVE_REQUESTS = 96
 SERVE_GATES = 512
 SERVE_WINDOW_S = 0.01
 SERVE_MAX_BATCH = 16
@@ -338,9 +380,54 @@ FLEX_TRIES = {"gemma2": (None, FLEX_SMALL_TILES),
               "gemma2_prefill": (FLEX_SMALL_TILES,),
               "gemma2_decode_local": (None, FLEX_SMALL_TILES),
               "gemma2_decode_global": (None, FLEX_SMALL_TILES)}
+# and of the backward cases with a softcap: the gradient through it, its
+# forward at the small tiles at D = 288 and its backward's own tiles (or
+# these small ones, should those need more shared memory than an SM has)
+FLEX_BWD_SMALL_TILES = {**FLEX_SMALL_TILES, "BLOCK_M1": 16, "BLOCK_N1": 32,
+                        "BLOCK_M2": 32, "BLOCK_N2": 16}
+FLEX_BWD_TRIES = {"gemma2_local": (FLEX_SMALL_TILES, FLEX_BWD_SMALL_TILES),
+                  "ragged": (None,)}
 # the Jamba cases (no softcap) take scaled_dot_product_attention with
 # enable_gqa and a boolean mask at the query offsets as their library call
 SDPA_GQA = ("jamba_prefill", "jamba_decode")
+# phase 3 cases of the flash attention's backward, on the kernel's (BH,
+# S, D) layout: (label, (BH, Sq, Skv, D), causal, window, softcap,
+# dtype). The chunk is the attention path's (float64, and float32);
+# stablelm_3b's layer as phase 11 trains it (a microbatch of 1 x 32
+# heads; here 2 sequences), seamless's encoder and cross attention (16
+# heads, Sq = Skv = 4096, not causal; 2 sequences), gemma2_2b's local
+# layer (at S = 4096 a window of 4096 would mask nothing) and a ragged
+# case (Sq > Skv, causal, softcapped)
+FLASH_BWD_CASES = [
+    ("chunk", (1, ATTN_N // CHUNKS, ATTN_T, ATTN_D), False, 0, 0.0,
+     "float64"),
+    ("chunk", (1, ATTN_N // CHUNKS, ATTN_T, ATTN_D), False, 0, 0.0,
+     "float32"),
+    ("stablelm", (64, 4096, 4096, 80), True, 0, 0.0, "bfloat16"),
+    ("seamless_enc_cross", (32, 4096, 4096, 64), False, 0, 0.0,
+     "bfloat16"),
+    ("gemma2_local", (8, 8192, 8192, 288), True, 4096, 50.0, "bfloat16"),
+    ("ragged", (2, 1000, 777, 72), True, 0, 30.0, "float32")]
+# the training runs (phase 11): bf16, full width and depth, weights from
+# the seed on the card, batches of the reference's pipeline at
+# TRAIN_SEQ (train_4k's length; seamless's source frames too), global
+# batch TRAIN_BATCH (train_4k's 256 cut to fit one card), each config's
+# own microbatch count and remat, AdamW at TRAIN_LR with float32 moments
+TRAIN_RUNS = {"train_stablelm": "stablelm_3b",
+              "train_seamless": "seamless_m4t_medium"}
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4096, 2, 4, 3e-4
+TRAIN_DATA_SEED = 1234
+# step 1's gradient against its replay on the plain backward: every leaf
+# within these (cosine at least, relative norm error at most), and the
+# gradient norm and the loss within TRAIN_GATE["norm_rel"]. Set from the
+# probe readings on an H100 (PERF.md, section 6): stablelm's worst leaf
+# (layer 0's wq, bf16 dq rounded apart) at cosine 0.99997 and 0.0073 of
+# its norm, seamless's at 1.0 and 0; both controls at cosine 0 and 1.0
+TRAIN_GATE = {"cosine": 0.999, "norm_rel": 2e-2}
+# what may stay allocated on the card when a training run starts, after
+# the garbage of the earlier phases is collected (GiB; an H100 read
+# 0.126, and 15.0 before the collection: PERF.md, section 6)
+SETTLED_MAX_GIB = 1.0
 # phase 3 cases of the selective-scan kernel: (label, (B, L, I, N), dtype,
 # whether the final state h_L is asked for)
 SCAN_CASES = [
@@ -359,12 +446,16 @@ SCAN_CASES = [
     ("jamba_served", (1, min(JAMBA_LENS), 16384, 16), "float32", True),
     ("jamba_served", (1, max(JAMBA_LENS), 16384, 16), "float32", True)]
 
-# functions ptxas must report no spill byte for, by the pattern of their
-# mangled names: the float64 (DMMA) kernels of matmul (namespace f64)
-# and every instantiation of flash attention and of the scan
-SPILL_FREE = {"matmul": r"3f64\d+\w*_kernel",
-              "flash_attention": r"flash_kernel",
-              "mamba_scan": r"scan_kernel"}
+# the most spill bytes (stores, loads) ptxas may report for a function,
+# by the pattern of the mangled names checked: none for the float64
+# (DMMA) kernels of matmul (namespace f64) and every instantiation of
+# flash attention and of the scan; for the flash attention's backward,
+# the most it spilled when it was written (its bf16 dK/dV kernels at
+# two head-dim tiers: 8/32 and 4/4 bytes; PERF.md, section 6)
+SPILL_MAX = {"matmul": (r"3f64\d+\w*_kernel", (0, 0)),
+             "flash_attention": (r"flash_kernel", (0, 0)),
+             "mamba_scan": (r"scan_kernel", (0, 0)),
+             "flash_attention_bwd": (r"_kernel", (8, 32))}
 # main-path chunk times before each kernel's Hopper redesign (PERF.md
 # section 6), printed beside this run's: (ms, the commit and run of
 # chip_smoke.py they come from)
@@ -377,6 +468,11 @@ EARLIER_MS = {
 # max |kernel - plain| allowed, scaled like tests/test_kernels.py: the
 # f32/bf16 tolerance applies both absolutely and relative to |plain|
 TOL = {"float64": 1e-8, "float32": 2e-4, "bfloat16": 2e-2}
+# the backward's gradients must also hold ||kernel - plain|| / ||plain||
+# within these, each: set between an H100's readings of the kernel path
+# against a wholly plain gradient (at most 2.5e-15, 2.1e-6 and 2.2e-3)
+# and of the controls (at least 0.44; PERF.md, section 6)
+BWD_NORM_TOL = {"float64": 1e-10, "float32": 1e-4, "bfloat16": 1e-2}
 
 
 def gemm_rowscale(A: "ndarray[f64,2]", B: "ndarray[f64,2]",
@@ -837,6 +933,225 @@ def check_flash(torch, fa_kernel, fa_ops, fa_ref):
         del q, k, v, got, want, yardstick, library_fn
         torch.cuda.empty_cache()
     return out
+
+
+def _sdpa_bwd_library(torch, sdpa, q, k, v, do, causal):
+    """fn: the backward of ``scaled_dot_product_attention`` (one head
+    per batch row of the kernel's (BH, S, D) layout, the causal mask as
+    ``is_causal``) through ``torch.autograd.grad`` on a graph built
+    before the timing: one PyTorch call for the gradient of a case
+    without window or softcap. Returns (dq, dk, dv)."""
+    qg, kg, vg = (t.detach()[None].requires_grad_(True) for t in (q, k, v))
+    out = sdpa(qg, kg, vg, is_causal=causal)
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), do[None],
+                                       retain_graph=True)
+
+
+def _flex_bwd_library(torch, q, k, v, do, causal, window, cap, options):
+    """fn: the backward of compiled ``flex_attention`` (``_flex_library``
+    on the kernel's (BH, S, D) layout as one batch row of BH heads: the
+    softcap as its score_mod, the causal and sliding-window mask as its
+    block mask, tiles ``options``) through ``torch.autograd.grad`` on a
+    graph built before the timing: one PyTorch call for the gradient of
+    a case with a softcap. Returns (dq, dk, dv), each (1, BH, S, D)."""
+    qg, kg, vg = (t.detach()[None].requires_grad_(True) for t in (q, k, v))
+    out = _flex_library(torch, *(t.transpose(1, 2) for t in (qg, kg, vg)),
+                        causal, window, cap, options)()
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), do[None],
+                                       retain_graph=True)
+
+
+def _bwd_faulty(torch, fa_ref, q, k, v, o, do, lse, *, causal, window,
+                softcap, fault):
+    """The plain backward's steps (``flash_attention_bhsd_bwd_ref``) with
+    one fault, a negative control: ``"p_uniform"``, each row's P uniform
+    over its mask; ``"no_cap_factor"``, dS without the softcap's
+    (1 - tanh^2). Returns (dq, dk, dv) in q's dtype."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = q.shape[-1] ** -0.5
+    qa, ka, va, oa, da = (t.to(acc) for t in (q, k, v, o, do))
+    x = (qa @ ka.transpose(-1, -2)) * scale
+    if softcap:
+        t = torch.tanh(x / softcap)
+        x = t * softcap
+    mask = fa_ref._mask(q.shape[1], k.shape[1], causal, window, q.device)
+    if fault == "p_uniform":
+        p = (mask / mask.sum(dim=-1, keepdim=True).clamp(min=1)).to(acc)
+    else:
+        p = torch.where(mask, torch.exp(x - lse.to(acc)[..., None]),
+                        torch.zeros((), dtype=acc, device=q.device))
+    delta = (da * oa).sum(dim=-1)
+    dv = p.transpose(-1, -2) @ da
+    ds = p * (da @ va.transpose(-1, -2) - delta[..., None])
+    if softcap and fault != "no_cap_factor":
+        ds = ds * (1 - t * t)
+    dq = (ds @ ka) * scale
+    dk = (ds.transpose(-1, -2) @ qa) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_within(torch, got, want, dname):
+    """({gradient: [max |got - want|, ||got - want|| / ||want||]},
+    whether each of dq, dk and dv is finite and within TOL element by
+    element and BWD_NORM_TOL in norm)."""
+    errs, ok = {}, True
+    for n, g, w in zip(("dq", "dk", "dv"), got, want):
+        err, within = _within(torch, g, w, dname)
+        rel = _norm_err(g, w)
+        errs[n] = [err, rel]
+        ok = ok and within and rel <= BWD_NORM_TOL[dname]
+    return errs, ok
+
+
+def _norm_err(got, want) -> float:
+    """||got - want|| / ||want||, in float64."""
+    nw = float(want.double().norm())
+    return float((got.double() - want.double()).norm()) / nw if nw \
+        else float("inf")
+
+
+def check_flash_bwd(torch, fa_kernel, fa_ref):
+    """Phase 3: the flash attention's backward on FLASH_BWD_CASES. The
+    forward kernel's logsumexp and output against the plain forward's;
+    the backward kernels against the plain backward, both from the
+    forward kernel's output and logsumexp (element by element and in
+    norm), and three negative controls that must fail that comparison:
+    dK zeroed, P uniform over each row's mask and, with a softcap, dS
+    without its factor; and the kernel path as a whole (the forward
+    kernel, then the backward kernels) against a wholly plain gradient
+    (the plain backward from the plain forward's output and logsumexp),
+    in norm: in bf16 the two forwards' outputs round apart by an ulp,
+    which dS = P (dO V^T - rowsum(dO o)) magnifies in single elements."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(SEED + 5)
+    out = []
+    for label, (bh, sq, skv, d), causal, window, cap, dname in \
+            FLASH_BWD_CASES:
+        t_case = time.perf_counter()
+        dt = _dtypes(torch)[dname]
+        q, k, v = _bwd_inputs(torch, rng, bh, sq, skv, d, dt)
+        do = torch.from_numpy(rng.normal(size=(bh, sq, d))).to("cuda", dt)
+        opts = dict(causal=causal, window=window, softcap=cap)
+        o, lse = fa_kernel.flash_attention_bhsd(q, k, v, return_lse=True,
+                                                **opts)
+        o_ref, lse_ref = fa_ref.flash_attention_bhsd_ref(
+            q, k, v, return_lse=True, **opts)
+        # lse is float32 (float64 for float64 operands)
+        acc = "float64" if dname == "float64" else "float32"
+        lse_err = _compare(torch, "flash_attention", f"{label} lse", lse,
+                           lse_ref, acc)
+        o_err = _compare(torch, "flash_attention", f"{label} o", o, o_ref,
+                         dname)
+        before = fa_kernel.bwd_launches
+        got = fa_kernel.flash_attention_bhsd_bwd(q, k, v, o, do, lse, **opts)
+        if fa_kernel.bwd_launches != before + 1:
+            raise AssertionError("the backward did not count its launch")
+        kernel_fn = lambda: fa_kernel.flash_attention_bhsd_bwd(  # noqa: E731
+            q, k, v, o, do, lse, **opts)
+        plain_fn = lambda: fa_ref.flash_attention_bhsd_bwd_ref(  # noqa: E731
+            q, k, v, o, do, lse, **opts)
+        want = plain_fn()
+        errs, ok = _bwd_within(torch, got, want, dname)
+        scales = {n: float(w.double().abs().max())
+                  for n, w in zip(("dq", "dk", "dv"), want)}
+        whole = {n: _norm_err(g, w) for n, g, w in zip(
+            ("dq", "dk", "dv"), got, fa_ref.flash_attention_bhsd_bwd_ref(
+                q, k, v, o_ref, do, lse_ref, **opts))}
+        print(f"flash_attention_bwd {label} {dname}: lse max err "
+              f"{lse_err:.3e}, o max err {o_err:.3e}; [max err, norm err] "
+              f"{errs} against the gradients' largest values {scales} "
+              f"(tol {TOL[dname]:g}, norm {BWD_NORM_TOL[dname]:g}); the "
+              f"kernel path's norm err against the wholly plain gradient "
+              f"{whole}", flush=True)
+        if not ok or not max(whole.values()) <= BWD_NORM_TOL[dname]:
+            raise AssertionError(f"flash_attention_bwd {label} {dname}: "
+                                 f"{errs}, whole path {whole}: over the "
+                                 f"tolerance")
+        # the controls, each against the same comparison
+        faulty = {"dk_zero": lambda: (got[0], torch.zeros_like(got[1]),
+                                      got[2]),
+                  "p_uniform": lambda: _bwd_faulty(
+                      torch, fa_ref, q, k, v, o, do, lse, **opts,
+                      fault="p_uniform")}
+        if cap:
+            faulty["no_cap_factor"] = lambda: _bwd_faulty(
+                torch, fa_ref, q, k, v, o, do, lse, **opts,
+                fault="no_cap_factor")
+        controls = {}
+        for what, fn in faulty.items():
+            controls[what], passes = _bwd_within(torch, fn(), want, dname)
+            if passes:
+                raise AssertionError(f"flash_attention_bwd {label} {dname}: "
+                                     f"the {what} control passes the "
+                                     f"comparison {controls[what]}")
+        print(f"flash_attention_bwd {label} {dname}: controls' [max err, "
+              f"norm err] {json.dumps(controls)} (each fails the "
+              f"comparison)", flush=True)
+        library_fn = None
+        extra = {"errs": errs, "scales": scales, "lse_max_abs_err": lse_err,
+                 "o_max_abs_err": o_err, "whole_path_norm_err": whole,
+                 "controls": controls}
+        flex = bool(window or cap)
+        extra["library"] = "torch.autograd.grad through " + (
+            "flex_attention (compiled)" if flex
+            else "scaled_dot_product_attention")
+        extra["library_errors"] = []
+        for options in FLEX_BWD_TRIES.get(label, ()) if flex else (None,):
+            # one PyTorch call for the same gradient; it is no part of the
+            # port, and a failure (to build, or to agree) leaves
+            # library_ms None with the reason printed
+            try:
+                library_fn = _flex_bwd_library(
+                    torch, q, k, v, do, causal, window, cap, options) \
+                    if flex else _sdpa_bwd_library(
+                        torch, sdpa, q, k, v, do, causal)
+                lib = library_fn()
+                lib_err = max(float((a[0].double() - b.double()).abs().max())
+                              for a, b in zip(lib, want))
+                del lib
+                if not lib_err <= TOL[dname] * (1 + max(scales.values())):
+                    raise AssertionError(f"max err {lib_err:.3e}")
+                extra["library_max_abs_err"] = lib_err
+                if flex:
+                    extra["library_options"] = options
+                print(f"flash_attention_bwd {label} {dname}: "
+                      f"{extra['library']} (tiles {options}), max err "
+                      f"{lib_err:.3e}", flush=True)
+                break
+            except Exception as exc:  # noqa: BLE001 - a yardstick
+                library_fn = None
+                why = f"{type(exc).__name__}: {exc}"[:400]
+                extra["library_errors"].append({"options": options,
+                                                "error": why})
+                print(f"flash_attention_bwd {label} {dname}: "
+                      f"{extra['library']} (tiles {options}) not timed: "
+                      f"{why}", flush=True)
+        # five products of 2 D operations a valid pair (S, dO V^T, dV,
+        # dK, dQ); q, k, v, o, dO and lse read once, dq, dk, dv written
+        pairs = bh * attention_work(sq, skv, causal, window)[0]
+        nbytes = bh * ((4 * sq + 4 * skv) * d * q.element_size()
+                       + sq * lse.element_size())
+        out.append(_row(
+            torch, "flash_attention_bwd", label, [bh, sq, skv, d], dname,
+            max(e for e, _ in errs.values()), kernel_fn, plain_fn,
+            library_fn, 10.0 * pairs * d, nbytes, reps=5, causal=causal,
+            window=window, softcap=cap, **extra))
+        out[-1]["case_s"] = time.perf_counter() - t_case
+        print(f"flash_attention_bwd {label} {dname}: case took "
+              f"{out[-1]['case_s']:.1f} s", flush=True)
+        del q, k, v, do, o, lse, o_ref, lse_ref, got, want, library_fn, \
+            faulty
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bwd_inputs(torch, rng, bh, sq, skv, d, dt):
+    """q (BH, Sq, D) at FLASH_Q_STD (every FLASH_PUSH-th row at
+    FLASH_Q_PUSHED, past the softcap), k and v (BH, Skv, D) N(0, 1), on
+    the card in ``dt``."""
+    q, k, v = _flash_inputs(rng, bh, sq, 1, 1, skv, d)
+    return tuple(torch.from_numpy(t[:, :, 0]).to("cuda", dt).contiguous()
+                 for t in (q, k, v))
 
 
 def check_scan(torch, sc_kernel, plain):
@@ -2022,6 +2337,323 @@ def served_family(torch, card, name, kernels, device="cuda"):
             "replay_kernel": replays["kernel"], "card": card}
 
 
+def _grad_gate(torch, got, want, names):
+    """Each leaf of ``got`` against ``want`` (float32 lists in leaf
+    order): the worst cosine and relative norm error with their leaves,
+    the whole gradient's relative norm error, and whether all are within
+    TRAIN_GATE."""
+    worst = {"cosine": (2.0, None), "norm_rel": (-1.0, None)}
+    sq_got = sq_want = 0.0
+    for g, w, name in zip(got, want, names):
+        g64, w64 = g.double(), w.double()
+        ng, nw = float(g64.norm()), float(w64.norm())
+        sq_got, sq_want = sq_got + ng * ng, sq_want + nw * nw
+        if ng == 0.0 and nw == 0.0:
+            continue                     # a leaf no loss reaches
+        cos = float((g64 * w64).sum()) / (ng * nw) if ng and nw else 0.0
+        rel = float((g64 - w64).norm()) / nw if nw else float("inf")
+        if cos < worst["cosine"][0]:
+            worst["cosine"] = (cos, name)
+        if rel > worst["norm_rel"][0]:
+            worst["norm_rel"] = (rel, name)
+    norm_rel = abs(sq_got ** 0.5 - sq_want ** 0.5) / sq_want ** 0.5
+    passes = worst["cosine"][0] >= TRAIN_GATE["cosine"] \
+        and worst["norm_rel"][0] <= TRAIN_GATE["norm_rel"] \
+        and norm_rel <= TRAIN_GATE["norm_rel"]
+    return {"worst_cosine": worst["cosine"][0],
+            "worst_cosine_leaf": worst["cosine"][1],
+            "worst_norm_rel": worst["norm_rel"][0],
+            "worst_norm_rel_leaf": worst["norm_rel"][1],
+            "grad_norm": sq_got ** 0.5, "grad_norm_rel": norm_rel,
+            "passes": passes}
+
+
+def _settle(torch, what) -> float:
+    """Collect the garbage of the earlier phases, empty the allocator's
+    cache, and print the GiB allocated on the card before and after,
+    with the largest tensors still alive (by storage); returns the GiB
+    after."""
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    gc.collect()
+    torch.cuda.empty_cache()
+    gib = torch.cuda.memory_allocated() / 2 ** 30
+    alive = {}
+    for obj in gc.get_objects():
+        try:
+            if torch.is_tensor(obj) and obj.is_cuda:
+                st = obj.untyped_storage()
+                alive[st.data_ptr()] = (st.nbytes(), tuple(obj.shape),
+                                        str(obj.dtype))
+        except Exception:  # noqa: BLE001 - an object torch cannot inspect
+            continue
+    largest = sorted(alive.values(), reverse=True)[:8]
+    print(f"{what}: {held:.3f} GiB allocated on the card, {gib:.3f} GiB "
+          f"after collecting garbage; largest live tensors (bytes, shape, "
+          f"dtype) {largest}", flush=True)
+    return gib
+
+
+def _phase_ms(marks) -> dict:
+    """{phase: ms} of one step from its (phase, CUDA event) marks, each
+    phase running to the next mark."""
+    out = {}
+    for (what, a), (_, b) in zip(marks, marks[1:]):
+        if what != "end":
+            out[what] = out.get(what, 0.0) + a.elapsed_time(b)
+    return out
+
+
+def trained(torch, card, name, kernels, device="cuda"):
+    """Phase 11, one run of TRAIN_RUNS: the model at full width trained
+    on the card through ``repro_torch.train``; step 1's gradient gated
+    against its replay on the plain backward (and two controls that
+    must fail the gate), the loss falling, a resume from the step-2
+    checkpoint giving the same loss bits, and every attention call on
+    the kernels. ``kernels``: the flash kernel, its ops and its plain
+    module."""
+    import shutil
+
+    from repro_torch.checkpoint import ckpt as C
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import transformer as T
+    from repro_torch.train import (AdamWConfig, accumulate_grads,
+                                   init_opt_state, make_train_step)
+    from repro_torch.train.tree import leaves_with_paths, tree_map
+
+    fa, fa_ops, fa_ref = kernels
+    cfg = get_config(TRAIN_RUNS[name])
+    n_micro = max(1, cfg.microbatch)
+    attn_layers = cfg.n_periods * sum(cfg.layer_kind(i) == "attn"
+                                      for i in range(cfg.period))
+    # attention calls of one microbatch: each decoder layer's (twice in
+    # an enc-dec model: self and cross) and each encoder layer's
+    calls = attn_layers * (2 if cfg.is_encdec else 1) \
+        + (cfg.enc_layers if cfg.is_encdec else 0)
+    remat = 2 if cfg.remat in ("full", "dots") else 1
+    t0 = time.perf_counter()
+    params, _ = T.init_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED))
+    torch.cuda.synchronize(device)
+    t_init = time.perf_counter() - t0
+    names = ["/".join(p) for p, _ in leaves_with_paths(params)]
+    n_params = sum(t.numel() for _, t in leaves_with_paths(params))
+    data = SyntheticTokens(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=TRAIN_DATA_SEED,
+        embeds_dim=cfg.d_model if cfg.embeds_input else 0,
+        src_len=TRAIN_SEQ if cfg.is_encdec else 0, d_model=cfg.d_model))
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in data.batch_at(i).items()}
+
+    def zero():
+        fa.launches = fa.bwd_launches = fa_ops.plain_calls = 0
+
+    def counts():
+        return {"forward_launches": fa.launches,
+                "backward_launches": fa.bwd_launches,
+                "plain_calls": fa_ops.plain_calls}
+
+    def check_counts(what, got, steps):
+        want = {"forward_launches": remat * calls * n_micro * steps,
+                "backward_launches": calls * n_micro * steps,
+                "plain_calls": 0}
+        if got != want:
+            raise AssertionError(f"{name} {what}: flash counts {got}, want "
+                                 f"{want} ({calls} attention calls a "
+                                 f"microbatch, {n_micro} microbatches)")
+
+    enc = f" + {cfg.enc_layers} encoder" if cfg.is_encdec else ""
+    print(f"{name} ({cfg.name}): {n_params / 1e9:.3f} B parameters, "
+          f"{cfg.layers} layers{enc}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads (D = {cfg.head_dim}), vocab {cfg.vocab}; "
+          f"seq {TRAIN_SEQ}, global batch {TRAIN_BATCH} in {n_micro} "
+          f"microbatches, remat {cfg.remat}; init {t_init:.2f} s",
+          flush=True)
+
+    # 1. step 1's gradient on the kernels, its replay on the plain
+    # backward, and the two controls against the replay
+    b0 = batch(0)
+    zero()
+    t0 = time.perf_counter()
+    loss_k, g_k = accumulate_grads(cfg, params, b0)
+    torch.cuda.synchronize(device)
+    grad_s = time.perf_counter() - t0
+    check_counts("step-1 gradient", counts(), 1)
+    bwd_kernel, fwd_op = fa_ops.flash_attention_bhsd_bwd, \
+        fa_ops.flash_attention_bhsd
+    replayed = [0]
+
+    def plain_bwd(*args, **opts):
+        replayed[0] += 1
+        return fa_ref.flash_attention_bhsd_bwd_ref(*args, **opts)
+
+    def dk_zero(*args, **opts):
+        dq, dk, dv = bwd_kernel(*args, **opts)
+        return dq, torch.zeros_like(dk), dv
+
+    def detached(q, k, v, **opts):
+        with torch.no_grad():
+            return fwd_op(q, k, v, **opts)
+
+    def patched(attr, fn):
+        setattr(fa_ops, attr, fn)
+        try:
+            return accumulate_grads(cfg, params, b0)
+        finally:
+            setattr(fa_ops, attr, bwd_kernel
+                    if attr == "flash_attention_bhsd_bwd" else fwd_op)
+
+    loss_p, g_p = patched("flash_attention_bhsd_bwd", plain_bwd)
+    if replayed[0] != calls * n_micro:
+        raise AssertionError(f"{name}: the replay took the plain backward "
+                             f"{replayed[0]} times, want {calls * n_micro}")
+    gate = _grad_gate(torch, g_k, g_p, names)
+    gate["loss_rel"] = abs(float(loss_k) - float(loss_p)) / abs(
+        float(loss_p))
+    del g_k
+    print(f"{name} step-1 gradient, backward kernels against the plain "
+          f"backward: {json.dumps(gate)}", flush=True)
+    if not gate["passes"] or gate["loss_rel"] > TRAIN_GATE["norm_rel"]:
+        raise AssertionError(f"{name}: the kernels' gradient fails the "
+                             f"gate {TRAIN_GATE}: {gate}")
+    controls = {}
+    for ctl, attr, fn in (("detached", "flash_attention_bhsd", detached),
+                          ("dk_zero", "flash_attention_bhsd_bwd", dk_zero)):
+        _, g_c = patched(attr, fn)
+        controls[ctl] = _grad_gate(torch, g_c, g_p, names)
+        del g_c
+        print(f"{name} control {ctl}: {json.dumps(controls[ctl])}",
+              flush=True)
+        if controls[ctl]["passes"]:
+            raise AssertionError(f"{name}: the {ctl} control passes the "
+                                 f"gate {TRAIN_GATE}")
+    del g_p
+    torch.cuda.empty_cache()
+
+    # 2. TRAIN_STEPS steps, a checkpoint after step 2
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    opt = init_opt_state(params, opt_cfg)
+    marks = []
+
+    def mark(what):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((what, ev))
+
+    step = make_train_step(cfg, opt_cfg, mark=mark)
+    ckpt_dir = ROOT / "build" / "train_ckpt" / name
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ck = C.AsyncCheckpointer(str(ckpt_dir), keep=1)
+    torch.cuda.reset_peak_memory_stats(device)
+    zero()
+    losses, step_s, phases, save_s = [], [], [], None
+    for i in range(TRAIN_STEPS):
+        b = batch(i)
+        marks.clear()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize(device)
+        step_s.append(time.perf_counter() - t0)
+        phases.append(_phase_ms(marks))
+        print(f"{name} step {i + 1}: loss {losses[-1]!r}, grad norm "
+              f"{float(m['grad_norm']):.4f}, {step_s[-1]:.3f} s, "
+              f"{TRAIN_BATCH * TRAIN_SEQ / step_s[-1]:.1f} tokens/s, "
+              f"{json.dumps(phases[-1])} ms", flush=True)
+        if i + 1 == 2:
+            t0 = time.perf_counter()
+            ck.save_async(2, {"params": params, "opt": opt},
+                          extra={"data_step": 2})
+            save_s = time.perf_counter() - t0
+    train_counts = counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    t0 = time.perf_counter()
+    ck.wait()
+    write_wait_s = time.perf_counter() - t0
+    check_counts("training", train_counts, TRAIN_STEPS)
+    # the loss on step 1's batch, after the steps (no gradient)
+    with torch.no_grad():
+        after = float(T.loss_fn(params, b0, cfg))
+    print(f"{name}: loss on step 1's batch {losses[0]!r} before the "
+          f"steps, {after!r} after {TRAIN_STEPS}; step {TRAIN_STEPS}'s "
+          f"own batch {losses[-1]!r}", flush=True)
+    if not after < losses[0]:
+        raise AssertionError(f"{name}: the loss on step 1's batch did not "
+                             f"fall: {losses[0]!r} -> {after!r}")
+
+    # 3. resume from step 2 into fresh tensors: steps 3.. again
+    like = tree_map(lambda t: torch.empty((), dtype=t.dtype,
+                                          device=t.device),
+                    {"params": params, "opt": opt})
+    del params, opt, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state, extra = C.restore(str(ckpt_dir), 2, like)
+    torch.cuda.synchronize(device)
+    restore_s = time.perf_counter() - t0
+    params, opt = state["params"], state["opt"]
+    resumed = []
+    for i in range(int(extra["data_step"]), TRAIN_STEPS):
+        params, opt, m = step(params, opt, batch(i))
+        resumed.append(float(m["loss"]))
+    if resumed != losses[2:]:
+        raise AssertionError(f"{name}: resumed losses {resumed!r} are not "
+                             f"the uninterrupted run's {losses[2:]!r}")
+    del params, opt, m, state
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    out = {
+        "arch": cfg.name, "params": n_params, "layers": cfg.layers,
+        "enc_layers": cfg.enc_layers, "seq": TRAIN_SEQ,
+        "global_batch": TRAIN_BATCH, "microbatches": n_micro,
+        "remat": cfg.remat, "card": card, "init_s": t_init,
+        "step1_grad_s": grad_s, "losses": losses,
+        "step1_loss_as_gate": losses[0] == float(loss_k),
+        "loss_step1_batch_after": after,
+        "step_s": step_s, "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / t
+                                           for t in step_s],
+        "phase_ms": phases,
+        "mean_phase_ms_steps_2_on": {
+            k: mean([p[k] for p in phases[1:]]) for k in phases[-1]},
+        "peak_gib": peak, "attention_calls_per_microbatch": calls,
+        "counts": train_counts, "gate": gate, "controls": controls,
+        "checkpoint": {"save_call_s": save_s, "write_wait_s": write_wait_s,
+                       "restore_s": restore_s, "resumed_losses": resumed},
+        "reduced": {"global_batch": f"train_4k's 256 -> {TRAIN_BATCH}",
+                    "steps": TRAIN_STEPS}}
+    print(f"{name}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def hybrid_refused(torch, device="cuda") -> str:
+    """Phase 11: a Jamba smoke preset asked for a gradient on the card
+    must be refused by the scan op (its kernel has no backward)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train import accumulate_grads
+
+    cfg = get_smoke_config("jamba_1_5_large_398b")
+    params, _ = T.init_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED))
+    tokens = torch.zeros((1, 16), dtype=torch.int32, device=device)
+    try:
+        accumulate_grads(cfg, params, {"tokens": tokens, "labels": tokens})
+    except NotImplementedError as exc:
+        if "mamba scan" not in str(exc):
+            raise
+        print(f"jamba smoke gradient on the card refused: {exc}",
+              flush=True)
+        return str(exc)
+    raise AssertionError("a Jamba gradient on the card was not refused")
+
+
 def _summary(name, source, replaces, cases, path):
     """The kernel's entry of the ``{"kernels": [...]}`` line: the
     numbers of its main path's chunk case (the first), the worst error
@@ -2082,28 +2714,35 @@ def main() -> int:
 
     # 2. build, one nvcc per source, all started together
     kernels = {"matmul": mm, "flash_attention": fa, "mamba_scan": sc}
-    sources = [k.SOURCE for k in kernels.values()]
+    # (name, source)
+    sources = [(name, k.SOURCE) for name, k in kernels.items()] \
+        + [("flash_attention_bwd", fa.BWD_SOURCE)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(kbuild.build, sources))
-    for name, src, (lib, log, secs) in zip(kernels, sources, built):
+        built = list(pool.map(kbuild.build, [src for _, src in sources]))
+    for (name, src), (lib, log, secs) in zip(sources, built):
         print(f"built {src.relative_to(ROOT)} -> "
               f"{lib.relative_to(ROOT)} in {secs:.1f} s", flush=True)
         for line in log.splitlines():
             if "registers" in line or "spill" in line \
                     or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
-        found = spills(log, SPILL_FREE[name])
+        pattern, (stores, loads) = SPILL_MAX[name]
+        found = spills(log, pattern)
         print(f"  checked functions of {name}: {len(found)}, spill bytes "
-              f"(stores, loads) {sorted(set(found.values()))}", flush=True)
-        if not found or any(v != (0, 0) for v in found.values()):
-            raise AssertionError(f"{name}: ptxas reports spills (or no "
-                                 f"checked function): {found}")
+              f"(stores, loads) {sorted(set(found.values()))}, at most "
+              f"{(stores, loads)}", flush=True)
+        if not found or any(s > stores or ld > loads
+                            for s, ld in found.values()):
+            raise AssertionError(f"{name}: ptxas reports spills over "
+                                 f"{(stores, loads)} (or no checked "
+                                 f"function): {found}")
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. kernels against their plain versions
     cases = {"matmul": check_matmul(torch, mm, matmul_ref),
              "flash_attention": check_flash(torch, fa, fa_ops, fa_ref),
+             "flash_attention_bwd": check_flash_bwd(torch, fa, fa_ref),
              "mamba_scan": check_scan(torch, sc,
                                             mamba_scan_promoted_ref)}
     for name, (before, run) in EARLIER_MS.items():
@@ -2172,7 +2811,22 @@ def main() -> int:
     print(f"phase 10 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # 11. summary
+    # 11. training on the card, each run on a card the earlier phases
+    # have left (nearly) empty
+    train = {}
+    for name in TRAIN_RUNS:
+        left = _settle(torch, f"before {name}")
+        if left > SETTLED_MAX_GIB:
+            raise AssertionError(f"{name}: {left:.3f} GiB still allocated "
+                                 f"before the run (at most "
+                                 f"{SETTLED_MAX_GIB} GiB)")
+        train[name] = trained(torch, card, name, (fa, fa_ops, fa_ref))
+        train[name]["allocated_before_gib"] = left
+    refusal = hybrid_refused(torch)
+    print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # 12. summary
     base = "src/repro_torch/kernels"
     summary = [
         _summary("matmul", f"{base}/matmul/csrc/matmul.cu",
@@ -2193,13 +2847,45 @@ def main() -> int:
         "launches": f["flash_launches"], "plain_calls":
         f["flash_plain_calls"], "prefills": f["prefills"],
         "decode_steps": f["decode_steps"]} for name, f in families.items()}
+    # phase 11's runs: the forward twice (remat) and the backward once
+    # for every attention call
+    summary[1]["train_paths"] = {name: {
+        "launches": t["counts"]["forward_launches"],
+        "plain_calls": t["counts"]["plain_calls"],
+        "steps": TRAIN_STEPS} for name, t in train.items()}
+    bwd = cases["flash_attention_bwd"]
+    main_case = next(c for c in bwd if c["case"] == "stablelm")
+    summary[1]["backward"] = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": f"{base}/flash_attention/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:75"
+                    " (the gradient of the function it computes; the TPU "
+                    "package took it from JAX autodiff)",
+        "launches": sum(t["counts"]["backward_launches"]
+                        for t in train.values()),
+        "kernels_per_launch": 3,
+        "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+        "shape": main_case["shape"], "dtype": main_case["dtype"],
+        "dtypes": {c["dtype"]: max(d["max_abs_err"] for d in bwd
+                                   if d["dtype"] == c["dtype"])
+                   for c in bwd},
+        "cases": bwd,
+        "train_paths": {name: {
+            "launches": t["counts"]["backward_launches"],
+            "plain_calls": t["counts"]["plain_calls"]}
+            for name, t in train.items()}}
     summary[2]["family_paths"] = {name: {
         "launches": f["scan_launches"], "plain_calls":
         f["scan_plain_calls"], "prefills": f["prefills"]}
         for name, f in families.items() if f["scan_launches"]}
     print(json.dumps({"stap_path": stap, "whole_kernel_path": whole,
                       "served_stap": served, "raylite": raylite,
-                      "served_lm": lm, "served_families": families}),
+                      "served_lm": lm, "served_families": families,
+                      "trained": train, "hybrid_refused": refusal}),
           flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -17,6 +17,7 @@ def config() -> ArchConfig:
         alt_local_global=True, sliding_window=4096,
         attn_softcap=50.0, logit_softcap=30.0,
         mlp_act="gelu", tie_embeddings=True,
+        microbatch=2, remat="full", fused_xent=True,
         skip_shapes={"long_500k": "global-attention layers are quadratic"},
     )
 
@@ -27,4 +28,5 @@ def smoke_config() -> ArchConfig:
         layers=2, d_model=64, n_heads=4, kv_heads=2, d_ff=128,
         vocab=512, alt_local_global=True, sliding_window=32,
         attn_softcap=50.0, logit_softcap=30.0, mlp_act="gelu",
+        microbatch=1, remat="none",
     )

@@ -19,6 +19,7 @@ def config() -> ArchConfig:
         moe_every=2, moe_offset=1,
         ssm_state=16, ssm_expand=2,
         mlp_act="silu", tie_embeddings=False,
+        microbatch=16, remat="full", fused_xent=True, opt_8bit=True,
     )
 
 
@@ -30,4 +31,5 @@ def smoke_config() -> ArchConfig:
         n_experts=4, experts_topk=2, expert_d_ff=64,
         moe_every=2, moe_offset=1, ssm_state=4, ssm_expand=2,
         tie_embeddings=False,
+        microbatch=1, remat="none",
     )

@@ -14,6 +14,9 @@ def config() -> ArchConfig:
         layers=96, d_model=18432, n_heads=96, kv_heads=8,
         d_ff=73728, vocab=256000,
         mlp_act="sqrelu", tie_embeddings=False,
+        # §Perf hillclimb winner: dots-remat (the port checkpoints as
+        # "full": transformer.forward)
+        microbatch=16, remat="dots", fused_xent=True, opt_8bit=True,
         skip_shapes={"long_500k": "full quadratic attention"},
     )
 
@@ -23,4 +26,5 @@ def smoke_config() -> ArchConfig:
         name="nemotron_4_340b_smoke", family="dense",
         layers=2, d_model=96, n_heads=8, kv_heads=2, d_ff=192,
         vocab=512, mlp_act="sqrelu", tie_embeddings=False,
+        microbatch=1, remat="none",
     )

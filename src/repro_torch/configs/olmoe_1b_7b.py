@@ -12,6 +12,7 @@ def config() -> ArchConfig:
         n_experts=64, experts_topk=8, expert_d_ff=1024,
         moe_every=1, moe_offset=0,
         mlp_act="silu", tie_embeddings=False,
+        microbatch=2, remat="full", fused_xent=True,
         skip_shapes={"long_500k": "full quadratic attention"},
     )
 
@@ -22,4 +23,5 @@ def smoke_config() -> ArchConfig:
         layers=2, d_model=64, n_heads=4, kv_heads=4, d_ff=32,
         vocab=512, n_experts=8, experts_topk=2, expert_d_ff=32,
         moe_every=1, tie_embeddings=False,
+        microbatch=1, remat="none",
     )

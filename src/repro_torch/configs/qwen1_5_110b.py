@@ -10,6 +10,7 @@ def config() -> ArchConfig:
         layers=80, d_model=8192, n_heads=64, kv_heads=8,
         d_ff=49152, vocab=152064,
         qkv_bias=True, mlp_act="silu", tie_embeddings=False,
+        microbatch=16, remat="full", fused_xent=True, opt_8bit=True,
         skip_shapes={"long_500k": "full quadratic attention"},
     )
 
@@ -19,4 +20,5 @@ def smoke_config() -> ArchConfig:
         name="qwen1_5_110b_smoke", family="dense",
         layers=2, d_model=64, n_heads=8, kv_heads=2, d_ff=128,
         vocab=512, qkv_bias=True, tie_embeddings=False,
+        microbatch=1, remat="none",
     )

@@ -16,6 +16,7 @@ def config() -> ArchConfig:
         n_experts=60, experts_topk=4, n_shared_experts=4,
         expert_d_ff=1408, moe_every=1, moe_offset=0,
         qkv_bias=True, mlp_act="silu", tie_embeddings=False,
+        microbatch=2, remat="full", fused_xent=True,
         skip_shapes={"long_500k": "full quadratic attention"},
     )
 
@@ -26,4 +27,5 @@ def smoke_config() -> ArchConfig:
         layers=2, d_model=64, n_heads=4, kv_heads=4, d_ff=32,
         vocab=512, n_experts=6, experts_topk=2, n_shared_experts=1,
         expert_d_ff=32, qkv_bias=True, tie_embeddings=False,
+        microbatch=1, remat="none",
     )

@@ -1,7 +1,6 @@
 """Architecture and shape registry: the 10 assigned (arch × shape) grids,
-as the reference's ``repro/configs/registry.py``. The port carries the
-configs of the families its models run (``PORTED_FAMILIES``); asking for
-another arch raises ``NotImplementedError``.
+as the reference's ``repro/configs/registry.py``, with every arch's
+config.
 
 Shapes (LM family):
   train_4k     seq 4,096   global_batch 256   → train_step
@@ -69,32 +68,8 @@ def canon(arch: str) -> str:
     return _ALIASES.get(arch, arch)
 
 
-# the families the port's models run, and the arch of each other family
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
-_FAMILY = {
-    "seamless_m4t_medium": "audio",
-    "olmoe_1b_7b": "moe",
-    "qwen2_moe_a2_7b": "moe",
-    "qwen1_5_110b": "dense",
-    "nemotron_4_340b": "dense",
-    "gemma2_2b": "dense",
-    "stablelm_3b": "dense",
-    "llava_next_mistral_7b": "vlm",
-    "jamba_1_5_large_398b": "hybrid",
-    "xlstm_125m": "ssm",
-}
-
-
 def _module(arch: str):
-    name = canon(arch)
-    family = _FAMILY.get(name)
-    if family is not None and family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{name} ({family}): the port runs the "
-            f"{', '.join(PORTED_FAMILIES)} families; its {family} model "
-            f"waits for the encoder-decoder and frontend-stub slice "
-            f"(ROADMAP Queue 1, item 3)")
-    return importlib.import_module(f"repro_torch.configs.{name}")
+    return importlib.import_module(f"repro_torch.configs.{canon(arch)}")
 
 
 def get_config(arch: str) -> ArchConfig:

@@ -10,6 +10,7 @@ def config() -> ArchConfig:
         layers=32, d_model=2560, n_heads=32, kv_heads=32,
         d_ff=6912, vocab=50304,
         mlp_act="silu", tie_embeddings=False,
+        microbatch=2, remat="full", fused_xent=True,
         skip_shapes={"long_500k": "full quadratic attention"},
     )
 
@@ -19,4 +20,5 @@ def smoke_config() -> ArchConfig:
         name="stablelm_3b_smoke", family="dense",
         layers=2, d_model=64, n_heads=4, kv_heads=4, d_ff=128,
         vocab=512, tie_embeddings=False,
+        microbatch=1, remat="none",
     )

@@ -16,6 +16,7 @@ def config() -> ArchConfig:
         d_ff=0, vocab=50304,
         xlstm_pattern=("mlstm", "slstm"),
         tie_embeddings=True,
+        microbatch=1, remat="full", fused_xent=True,
     )
 
 
@@ -24,4 +25,5 @@ def smoke_config() -> ArchConfig:
         name="xlstm_125m_smoke", family="ssm",
         layers=2, d_model=64, n_heads=2, kv_heads=2, d_ff=0,
         vocab=512, xlstm_pattern=("mlstm", "slstm"),
+        microbatch=1, remat="none",
     )

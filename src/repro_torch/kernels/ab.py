@@ -7,9 +7,10 @@ Each checkout builds its own ``matmul.cu``, ``flash_attention.cu`` and
 ``mamba_scan.cu`` with its own ``kernels/build.py`` (in a subprocess, so
 its headers are its own) into its own ``build/kernels/``. This process
 loads both sets of libraries and calls their C entries on the same
-inputs (the flash entry by this checkout's signature, which takes the
-query offset, so the other checkout's must take it too; the scan entry
-by each library's own): the matmul main path's chunk (4096 x 2048
+inputs (the flash entry by each library's own signature: the query
+offset, which the other checkout's must take too, and where
+``flash_attention_abi() >= 2`` a null logsumexp pointer after o; the
+scan entry by each library's own): the matmul main path's chunk (4096 x 2048
 @ 2048 x 2048), a ragged matmul (odd K), the attention path's chunk (Sq =
 Skv = 4096, D = 128) and gemma2_2b's widest head (8 heads, S = 2048, D =
 288, causal, window 4096, softcap 50), all float64; and the selective
@@ -60,9 +61,10 @@ def _libraries(root: Path):
                   for p in json.loads(out.stdout.splitlines()[-1]))
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
     mm.matmul_f64.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
-    # q, k, v, o, q_offset (passed null: every row at its own index)
-    fa.flash_attention_f64.argtypes = [ptr] * 5 + [i64] * 4 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_double, ptr]
+    # q, k, v, o, [lse,] q_offset (passed null: every row at its own
+    # index; no logsumexp)
+    fa.flash_attention_f64.argtypes = [ptr] * (5 + _with_lse(fa)) + [
+        i64] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_double, ptr]
     # the serial kernel's signature (no scratch, no plan) is here only to
     # time the chunked scan against the tree before it, commit d9c8578
     chunked = hasattr(sc, "mamba_scan_scratch_bytes")
@@ -74,6 +76,11 @@ def _libraries(root: Path):
         sc.mamba_scan_scratch_bytes.argtypes = [i64] * 5
         sc.mamba_scan_scratch_bytes.restype = i64
     return mm, fa, sc
+
+
+def _with_lse(fa) -> bool:
+    """Whether ``fa``'s entries take the logsumexp pointer after o."""
+    return hasattr(fa, "flash_attention_abi") and fa.flash_attention_abi() >= 2
 
 
 def _with_state(sc) -> bool:
@@ -139,7 +146,7 @@ def _cases(torch, mm, fa, sc):
             lambda fa=fa, q=q, kk=kk, v=v, o=o, bh=bh, s=s, d=d, c=causal,
             w=window, cap=cap: _check(fa.flash_attention_f64(
                 q.data_ptr(), kk.data_ptr(), v.data_ptr(), o.data_ptr(),
-                None, bh, s, s, d, c, w, cap,
+                *(None,) * (1 + _with_lse(fa)), bh, s, s, d, c, w, cap,
                 torch.cuda.current_stream().cuda_stream)),
             o, None)
     for label, (b, length, inner, n), dtype in (

@@ -7,9 +7,10 @@ takes seconds. A source may include the headers of the shared
 of its own ``csrc/``; both are on the include path. Libraries land in
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 source, every header it may include and the flags, so an edited source
-or header never loads a stale library. A build runs under a file lock:
-the cluster head builds before any worker starts, and a process that
-finds the library already built only loads it.
+or header never loads a stale library. A build runs under a file lock
+of its own library: the cluster head builds before any worker starts,
+a process that finds the library already built only loads it, and
+different sources compile at once.
 
 Nothing here runs at import time; the CPU tests import every module on
 a host without ``nvcc``.
@@ -72,7 +73,7 @@ def build(src: Path) -> Tuple[Path, str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = _target(src)
     log = lib.with_suffix(".log")
-    with open(BUILD_DIR / ".lock", "w") as lock:
+    with open(lib.with_suffix(".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if lib.exists():
             return lib, log.read_text() if log.exists() else "", 0.0

@@ -71,9 +71,16 @@
 //
 // Types: double in, double accumulation; float in, float; bf16 in, float.
 //
-// C interface (loaded with ctypes): pointers (q, k, v, o and q_offset, an
-// int32 array of BH positions or null), the sizes, the options and the
-// CUDA stream; each entry returns a cudaError_t (0 on success).
+// Logsumexp (for the backward kernels, csrc/flash_attention_bwd.cu): with
+// a non-null lse pointer each stored row r also writes lse[r] = m + log(l),
+// the log of its softmax denominator over the scaled, capped and masked
+// scores in the accumulation type, so that the probabilities are
+// P = exp(S - lse). A null pointer (the served path) writes nothing.
+//
+// C interface (loaded with ctypes): pointers (q, k, v, o, lse or null, and
+// q_offset, an int32 array of BH positions or null), the sizes, the
+// options and the CUDA stream; each entry returns a cudaError_t (0 on
+// success). flash_attention_abi() is 2 for this signature (1 had no lse).
 
 #include <cmath>
 #include <cstdint>
@@ -164,6 +171,7 @@ template <typename T, typename Acc, int NC>
 __global__ void __launch_bounds__(THREADS, 3)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o,
+             Acc* __restrict__ lse,
              const int* __restrict__ q_offset, int sq, int skv, int d,
              Acc scale, int causal, int window, Acc softcap) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -299,6 +307,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty + 16 * i;
     if (r >= sq) continue;
     const Acc den = mx(l[i], Acc(1e-30));
+    if (lse != nullptr && tx == 0) lse[bh * sq + r] = m[i] + logf(den);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
@@ -309,7 +318,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, typename Acc, int NC>
 int launch_nc(const void* q, const void* k, const void* v, void* o,
-              const int* q_offset, int bh, int sq, int skv, int d, int causal,
+              void* lse, const int* q_offset, int bh, int sq, int skv, int d,
+              int causal,
               int window, double softcap, void* stream) {
   const size_t smem = (size_t)(BQ * (d + 1) + BK * (d + 1) + BQ * BK)
                       * sizeof(Acc);
@@ -320,18 +330,19 @@ int launch_nc(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)((sq + BQ - 1) / BQ), (unsigned)bh);
   kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), q_offset, sq, skv, d,
-      Acc(1.0 / sqrt((double)d)), causal, window, Acc(softcap));
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<Acc*>(lse),
+      q_offset, sq, skv, d, Acc(1.0 / sqrt((double)d)), causal, window,
+      Acc(softcap));
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename Acc>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            const int* q_offset, int64_t bh, int64_t sq, int64_t skv,
            int64_t d, int causal, int window, double softcap, void* stream) {
   if (!sizes_ok(bh, sq, skv, d)) return (int)cudaErrorInvalidValue;
   // the register tile's width: the least instantiated ceil(D / 16)
-  using Launch = int (*)(const void*, const void*, const void*, void*,
+  using Launch = int (*)(const void*, const void*, const void*, void*, void*,
                          const int*, int, int, int, int, int, int, double,
                          void*);
   Launch fn = launch_nc<T, Acc, 18>;
@@ -339,8 +350,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (d <= 128) fn = launch_nc<T, Acc, 8>;
   if (d <= 64) fn = launch_nc<T, Acc, 4>;
   if (d <= 32) fn = launch_nc<T, Acc, 2>;
-  return fn(q, k, v, o, q_offset, (int)bh, (int)sq, (int)skv, (int)d, causal,
-            window, softcap, stream);
+  return fn(q, k, v, o, lse, q_offset, (int)bh, (int)sq, (int)skv, (int)d,
+            causal, window, softcap, stream);
 }
 
 // ---- float64 on the tensor cores (DMMA) ----
@@ -384,7 +395,8 @@ template <int DP, int CS, int G, int BKV, bool VEC>
 __global__ void __launch_bounds__(Tile<DP, CS, G, BKV>::THREADS, 1)
 flash_kernel(const double* __restrict__ q, const double* __restrict__ k,
              const double* __restrict__ v, double* __restrict__ o,
-             const int* __restrict__ q_offset, int sq, int skv, int d,
+             double* __restrict__ lse, const int* __restrict__ q_offset,
+             int sq, int skv, int d,
              double scale, int causal, int window, double softcap) {
   using TL = Tile<DP, CS, G, BKV>;
   constexpr int LDQ = TL::LDQ, LDV = TL::LDV, FS = TL::FS, FO = TL::FO;
@@ -581,6 +593,8 @@ flash_kernel(const double* __restrict__ q, const double* __restrict__ k,
     const int r = q0 + wr + g + 8 * h;
     if (r >= sq) continue;
     const double den = fmax(l[h], 1e-30);
+    if (lse != nullptr && t == 0 && wc == 0)
+      lse[bh * sq + r] = m[h] + log(den);
 #pragma unroll
     for (int c = 0; c < FO; ++c) {
       const int col = wc + 8 * c + 2 * t;
@@ -593,7 +607,7 @@ flash_kernel(const double* __restrict__ q, const double* __restrict__ k,
 
 template <int DP, int CS, int G, int BKV>
 int launch_tile(const void* q, const void* k, const void* v, void* o,
-                const int* q_offset, int bh, int sq, int skv, int d,
+                void* lse, const int* q_offset, int bh, int sq, int skv, int d,
                 int causal, int window, double softcap, void* stream) {
   using TL = Tile<DP, CS, G, BKV>;
   // 16-byte copies where every row starts on 16 bytes
@@ -608,18 +622,19 @@ int launch_tile(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)((sq + BQ - 1) / BQ), (unsigned)bh);
   kern<<<grid, TL::THREADS, TL::SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(q), static_cast<const double*>(k),
-      static_cast<const double*>(v), static_cast<double*>(o), q_offset, sq,
-      skv, d, 1.0 / sqrt((double)d), causal, window, softcap);
+      static_cast<const double*>(v), static_cast<double*>(o),
+      static_cast<double*>(lse), q_offset, sq, skv, d, 1.0 / sqrt((double)d),
+      causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            const int* q_offset, int64_t bh, int64_t sq, int64_t skv,
            int64_t d, int causal, int window, double softcap, void* stream) {
   if (!sizes_ok(bh, sq, skv, d)) return (int)cudaErrorInvalidValue;
   // the tile of D's class: a warp's accumulator (16 rows x DP / CS
   // columns) stays in registers and Q, K, V in shared memory
-  using Launch = int (*)(const void*, const void*, const void*, void*,
+  using Launch = int (*)(const void*, const void*, const void*, void*, void*,
                          const int*, int, int, int, int, int, int, double,
                          void*);
   Launch fn = launch_tile<288, 2, 1, 16>;
@@ -627,8 +642,8 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (d <= 128) fn = launch_tile<128, 1, 2, 32>;
   if (d <= 64) fn = launch_tile<64, 1, 2, 32>;
   if (d <= 32) fn = launch_tile<32, 1, 2, 32>;
-  return fn(q, k, v, o, q_offset, (int)bh, (int)sq, (int)skv, (int)d, causal,
-            window, softcap, stream);
+  return fn(q, k, v, o, lse, q_offset, (int)bh, (int)sq, (int)skv, (int)d,
+            causal, window, softcap, stream);
 }
 
 }  // namespace f64
@@ -638,30 +653,32 @@ int launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 int flash_attention_f64(const void* q, const void* k, const void* v, void* o,
-                        const void* q_offset, int64_t bh, int64_t sq,
-                        int64_t skv, int64_t d, int causal, int window,
-                        double softcap, void* stream) {
-  return f64::launch(q, k, v, o, static_cast<const int*>(q_offset), bh, sq,
-                     skv, d, causal, window, softcap, stream);
+                        void* lse, const void* q_offset, int64_t bh,
+                        int64_t sq, int64_t skv, int64_t d, int causal,
+                        int window, double softcap, void* stream) {
+  return f64::launch(q, k, v, o, lse, static_cast<const int*>(q_offset), bh,
+                     sq, skv, d, causal, window, softcap, stream);
 }
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        const void* q_offset, int64_t bh, int64_t sq,
-                        int64_t skv, int64_t d, int causal, int window,
-                        double softcap, void* stream) {
-  return launch<float, float>(q, k, v, o, static_cast<const int*>(q_offset),
-                              bh, sq, skv, d, causal, window, softcap,
-                              stream);
+                        void* lse, const void* q_offset, int64_t bh,
+                        int64_t sq, int64_t skv, int64_t d, int causal,
+                        int window, double softcap, void* stream) {
+  return launch<float, float>(q, k, v, o, lse,
+                              static_cast<const int*>(q_offset), bh, sq, skv,
+                              d, causal, window, softcap, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* o, const void* q_offset, int64_t bh,
+                         void* o, void* lse, const void* q_offset, int64_t bh,
                          int64_t sq, int64_t skv, int64_t d, int causal,
                          int window, double softcap, void* stream) {
   return launch<__nv_bfloat16, float>(
-      q, k, v, o, static_cast<const int*>(q_offset), bh, sq, skv, d, causal,
-      window, softcap, stream);
+      q, k, v, o, lse, static_cast<const int*>(q_offset), bh, sq, skv, d,
+      causal, window, softcap, stream);
 }
+
+int flash_attention_abi() { return 2; }
 
 const char* flash_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,13 +1,20 @@
-"""Wrapper of the hand-written CUDA flash attention
-(``csrc/flash_attention.cu``).
+"""Wrappers of the hand-written CUDA flash attention
+(``csrc/flash_attention.cu``) and of its gradient
+(``csrc/flash_attention_bwd.cu``).
 
-Replaces the TPU kernel
-``repro/kernels/flash_attention/flash_attention.py::flash_attention_bhsd``.
-:func:`flash_attention_bhsd` checks its operands, allocates the output,
+The forward replaces the TPU kernel
+``repro/kernels/flash_attention/flash_attention.py::flash_attention_bhsd``;
+the backward computes the gradient of that function, which the TPU
+package took from JAX's autodiff of its plain attention.
+:func:`flash_attention_bhsd` checks its operands, allocates the output
+(and, asked for, the logsumexp per query row that the backward needs),
 launches the kernel on PyTorch's current stream and counts the launch in
-:data:`launches`. It takes CUDA tensors only: a kernel that does not
-build or launch raises, it never falls back to the plain version
-(:mod:`.ref`), which :mod:`.ops` runs for CPU tensors.
+:data:`launches`; :func:`flash_attention_bhsd_bwd` launches the
+backward's three kernels (the preamble Δ = rowsum(dO ⊙ O), dK/dV, dQ)
+and counts the call in :data:`bwd_launches`. They take CUDA tensors
+only: a kernel that does not build or launch raises, it never falls
+back to the plain versions (:mod:`.ref`), which :mod:`.ops` runs for
+CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,14 +28,20 @@ import torch
 from .. import build as _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
 # launches of the kernel in this process; a plain integer the worker
 # drains into its chunk counters (repro_torch.kernels.api.take_stats)
 launches = 0
+# backward calls in this process, each one launch of the preamble, the
+# dK/dV and the dQ kernels
+bwd_launches = 0
 
 _ENTRY = {torch.float64: "flash_attention_f64",
           torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_BWD_ENTRY = {dt: name.replace("attention_", "attention_bwd_")
+              for dt, name in _ENTRY.items()}
 
 # the kernel's limits: head dims up to gemma2_2b's 288; the grid holds
 # one block row per (batch x head)
@@ -36,17 +49,19 @@ MAX_D = 288
 _MAX_BH = 65535
 
 _lib = None
+_bwd_lib = None
 
 
 def _library() -> ctypes.CDLL:
     """The kernel library (built first if needed), with the ctypes
-    signature of every entry point declared."""
+    signature of every entry point declared: q, k, v, o, lse (null: not
+    asked), q_offset, the sizes, the options and the stream."""
     global _lib
     if _lib is None:
         lib = _build.load(SOURCE)
         for name in _ENTRY.values():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 4 + [
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 4 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_double,
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -56,21 +71,66 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def _bwd_library() -> ctypes.CDLL:
+    """The backward's library: q, k, v, o, dO, lse, the Δ scratch, dq,
+    dk, dv, the sizes, the options and the stream."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = _build.load(BWD_SOURCE)
+        for name in _BWD_ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 4 + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
+
+
 def build() -> None:
-    """Compile (or find) and load the library without launching."""
+    """Compile (or find) and load both libraries without launching."""
     _library()
+    _bwd_library()
+
+
+def _check(q, k, v, what: str) -> None:
+    """Raise for operands the kernels do not take."""
+    if not (q.is_cuda and k.is_cuda and v.is_cuda) \
+            or not q.device == k.device == v.device:
+        raise ValueError(f"{what} needs q, k, v on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if not q.dtype == k.dtype == v.dtype or q.dtype not in _ENTRY:
+        raise TypeError(f"{what} takes float64, float32 or bfloat16 "
+                        f"operands of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"{what} needs q (BH, Sq, D) and k, v (BH, Skv, "
+                         f"D), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous operands")
+    bh, _, d = q.shape
+    if not 1 <= d <= MAX_D or bh > _MAX_BH or k.shape[1] == 0:
+        raise ValueError(f"{what} takes 1 <= D <= {MAX_D}, BH <= {_MAX_BH} "
+                         f"and Skv >= 1, got D={d}, BH={bh}, "
+                         f"Skv={k.shape[1]}")
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0,
-                         q_offset: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         q_offset: Optional[torch.Tensor] = None,
+                         return_lse: bool = False):
     """Attention of q ``(BH, Sq, D)`` over k/v ``(BH, Skv, D)`` on the
     card, in the operands' dtype (float64, float32 or bfloat16; float64
     accumulates in float64, the others in float32). Query row ``i`` of
     batch-head ``r`` sits at position ``q_offset[r] + i`` (``q_offset``:
-    int32 ``(BH,)`` on q's device; None: every row at ``i``)."""
+    int32 ``(BH,)`` on q's device; None: every row at ``i``). With
+    ``return_lse``, (out, lse): lse ``(BH, Sq)`` in the accumulation
+    type, the log of each row's softmax denominator."""
     global launches
     if q_offset is not None and (
             q_offset.dtype != torch.int32 or q_offset.device != q.device
@@ -80,36 +140,20 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"contiguous int32 ({q.shape[0]},) tensor on "
                          f"{q.device}, got {q_offset.dtype} "
                          f"{tuple(q_offset.shape)} on {q_offset.device}")
-    if not (q.is_cuda and k.is_cuda and v.is_cuda) \
-            or not q.device == k.device == v.device:
-        raise ValueError(f"flash attention kernel needs q, k, v on one "
-                         f"CUDA device, got {q.device}, {k.device}, "
-                         f"{v.device}")
-    if not q.dtype == k.dtype == v.dtype or q.dtype not in _ENTRY:
-        raise TypeError(f"flash attention kernel takes float64, float32 "
-                        f"or bfloat16 operands of one dtype, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
-            or k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
-        raise ValueError(f"flash attention kernel needs q (BH, Sq, D) and "
-                         f"k, v (BH, Skv, D), got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash attention kernel needs contiguous operands")
+    _check(q, k, v, "flash attention kernel")
     bh, sq, d = q.shape
     skv = k.shape[1]
-    if not 1 <= d <= MAX_D or bh > _MAX_BH or skv == 0:
-        raise ValueError(f"flash attention kernel takes 1 <= D <= {MAX_D}, "
-                         f"BH <= {_MAX_BH} and Skv >= 1, got D={d}, "
-                         f"BH={bh}, Skv={skv}")
     out = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.promote_types(
+        q.dtype, torch.float32), device=q.device) if return_lse else None
     if bh == 0 or sq == 0:
-        return out                                  # nothing to compute
+        return (out, lse) if return_lse else out    # nothing to compute
     lib = _library()
     fn = getattr(lib, _ENTRY[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  None if q_offset is None else q_offset.data_ptr(),
                  bh, sq, skv, d, int(bool(causal)), int(window or 0),
                  float(softcap or 0.0), stream)
@@ -118,4 +162,49 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash attention kernel launch failed: {msg} "
                            f"({err})")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bhsd_bwd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             softcap: float = 0.0):
+    """(dq, dk, dv) of :func:`flash_attention_bhsd` (no query offset) on
+    the card, in the operands' dtype: from its output ``o`` and logsumexp
+    ``lse`` and the output's gradient ``do`` (each contiguous, ``o`` and
+    ``do`` as q, ``lse`` (BH, Sq) in the accumulation type)."""
+    global bwd_launches
+    what = "flash attention backward kernel"
+    _check(q, k, v, what)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    bh, sq, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype or lse.shape != (bh, sq) \
+            or lse.dtype != acc or not all(
+                t.is_contiguous() and t.device == q.device
+                for t in (o, do, lse)):
+        raise ValueError(f"{what} needs contiguous o and do as q "
+                         f"{tuple(q.shape)} {q.dtype} and lse ({bh}, {sq}) "
+                         f"{acc} on {q.device}, got o {tuple(o.shape)} "
+                         f"{o.dtype}, do {tuple(do.shape)} {do.dtype}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    skv = k.shape[1]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if bh == 0 or sq == 0:
+        return dq, dk.zero_(), dv.zero_()           # no query sees a key
+    lib = _bwd_library()
+    fn = getattr(lib, _BWD_ENTRY[q.dtype])
+    with torch.cuda.device(q.device):
+        delta = torch.empty((bh, sq), dtype=acc, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq,
+                                          dk, dv)),
+                 bh, sq, skv, d, int(bool(causal)), int(window or 0),
+                 float(softcap or 0.0), stream)
+    if err != 0:
+        msg = lib.flash_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash attention backward kernel launch "
+                           f"failed: {msg} ({err})")
+    bwd_launches += 1
+    return dq, dk, dv

@@ -11,6 +11,18 @@ nothing is padded here) and CPU tensors to the kernel's plain version
 back. Its ``q_offset`` (the reference's ``plain_attention(...,
 q_offset=...)``) is an int or one position per batch row, ``(B,)``,
 repeated over the heads.
+
+Gradients: where grad mode is on and an operand requires grad,
+:func:`flash_attention_bhsd` runs through :class:`FlashAttention`, a
+``torch.autograd.Function`` on both devices: its forward keeps the
+logsumexp of each row, its backward calls
+:func:`flash_attention_bhsd_bwd` (the backward kernels for CUDA tensors,
+:func:`.ref.flash_attention_bhsd_bwd_ref` for CPU tensors, counted in
+:data:`plain_calls` too). :func:`flash_attention`'s regroup is plain
+autograd, so dK and dV are summed over the repeated groups. A gradient
+with a query offset, or through a row with no valid key, raises
+``NotImplementedError``: training passes neither. Without grad the op
+is the forward alone, as served.
 """
 
 from __future__ import annotations
@@ -20,10 +32,59 @@ from typing import Optional, Union
 import torch
 
 from . import flash_attention as _kernel
-from .ref import flash_attention_bhsd_ref
+from .ref import flash_attention_bhsd_bwd_ref, flash_attention_bhsd_ref
 
-# calls that took the plain version (CPU tensors) in this process
+# calls that took a plain version (CPU tensors: forward or backward) in
+# this process
 plain_calls = 0
+
+
+def _forward(q, k, v, *, causal, window, softcap, q_offset=None,
+             return_lse=False):
+    global plain_calls
+    if q.is_cuda or k.is_cuda or v.is_cuda:
+        return _kernel.flash_attention_bhsd(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            q_offset=q_offset, return_lse=return_lse)
+    plain_calls += 1
+    return flash_attention_bhsd_ref(q, k, v, causal=causal, window=window,
+                                    softcap=softcap, q_offset=q_offset,
+                                    return_lse=return_lse)
+
+
+def flash_attention_bhsd_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0):
+    """(dq, dk, dv) of :func:`flash_attention_bhsd` from its output, its
+    logsumexp and the output's gradient: the backward kernels for CUDA
+    tensors, the plain backward for CPU tensors."""
+    global plain_calls
+    if q.is_cuda:
+        return _kernel.flash_attention_bhsd_bwd(
+            q, k, v, o, do, lse, causal=causal, window=window,
+            softcap=softcap)
+    plain_calls += 1
+    return flash_attention_bhsd_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                        window=window, softcap=softcap)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention on ``(BH, S, D)`` with its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = _forward(q, k, v, causal=causal, window=window,
+                            softcap=softcap, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        # looked up at call time, so a caller may swap the backward
+        dq, dk, dv = flash_attention_bhsd_bwd(q, k, v, out, do.contiguous(),
+                                              lse, **ctx.opts)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -32,14 +93,21 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_offset: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """``q_offset``: None or int32 ``(BH,)``."""
-    global plain_calls
-    if q.is_cuda or k.is_cuda or v.is_cuda:
-        return _kernel.flash_attention_bhsd(q, k, v, causal=causal,
-                                            window=window, softcap=softcap,
-                                            q_offset=q_offset)
-    plain_calls += 1
-    return flash_attention_bhsd_ref(q, k, v, causal=causal, window=window,
-                                    softcap=softcap, q_offset=q_offset)
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return _forward(q, k, v, causal=causal, window=window,
+                        softcap=softcap, q_offset=q_offset)
+    if q_offset is not None:
+        raise NotImplementedError(
+            "flash attention: no gradient with a query offset (training "
+            "passes none)")
+    sq, skv = q.shape[1], k.shape[1]
+    if window and window > 0 and sq >= skv + window:
+        raise NotImplementedError(
+            f"flash attention: no gradient through rows with no valid key "
+            f"(Sq {sq} >= Skv {skv} + window {window})")
+    return FlashAttention.apply(q, k, v, bool(causal), int(window or 0),
+                                float(softcap or 0.0))
 
 
 def regroup(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,6 +10,13 @@ the path CPU tensors take).
   and ``acc / max(l, 1e-30)``, all in ``promote(dtype, float32)``, cast
   to ``q``'s dtype. A row whose every key is masked averages all of
   ``v``, as the kernel's (and the reference's) running state does.
+  Asked for, it also returns the logsumexp ``m + log(l)`` of each row.
+* :func:`flash_attention_bhsd_bwd_ref` — exactly what the backward
+  kernels compute (``csrc/flash_attention_bwd.cu``), step by step from
+  the forward's ``lse``: ``P = exp(S - lse)`` on the valid pairs,
+  ``Δ = rowsum(dO ⊙ O)``, ``dV = Pᵀ dO``, ``dS = P ⊙ (dO Vᵀ - Δ)``
+  (times ``1 - tanh²`` under a softcap), ``dK = dSᵀ Q · scale``,
+  ``dQ = dS K · scale``, in ``promote(dtype, float32)``.
 
 Both take the reference's ``q_offset`` (``plain_attention(...,
 q_offset=...)``): query row ``i`` sits at position ``q_offset + i``, an
@@ -57,6 +64,14 @@ def _scores(q, k, acc, softcap: float):
     return s
 
 
+def _masked_scores(q, k, acc, causal, window, softcap, q_offset=0):
+    """(BH, Sq, Skv) scores of the kernel's layout, masked at NEG_INF."""
+    s = _scores(q, k, acc, softcap)
+    return torch.where(_mask(q.shape[1], k.shape[1], causal, window,
+                             q.device, q_offset), s,
+                       torch.tensor(NEG_INF, dtype=acc, device=q.device))
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   softcap: float = 0.0, q_offset: Offset = 0
@@ -84,16 +99,47 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bhsd_ref(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              window: int = 0, softcap: float = 0.0,
-                             q_offset: Offset = 0) -> torch.Tensor:
+                             q_offset: Offset = 0, return_lse: bool = False):
     """q: (BH, Sq, D); k/v: (BH, Skv, D) — the kernel's function;
-    ``q_offset``: an int or (BH,)."""
+    ``q_offset``: an int or (BH,). With ``return_lse``, (out, lse), lse
+    (BH, Sq) in ``promote(dtype, float32)``."""
     acc = torch.promote_types(q.dtype, torch.float32)
-    s = _scores(q, k, acc, softcap)                           # bh q s
-    s = torch.where(_mask(q.shape[1], k.shape[1], causal, window,
-                          q.device, q_offset), s,
-                    torch.tensor(NEG_INF, dtype=acc, device=q.device))
+    s = _masked_scores(q, k, acc, causal, window, softcap, q_offset)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     o = p.to(v.dtype).to(acc) @ v.to(acc)
-    return (o / torch.clamp(l, min=1e-30)).to(q.dtype)
+    den = torch.clamp(l, min=1e-30)
+    out = (o / den).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(den))[..., 0]
+    return out
+
+
+def flash_attention_bhsd_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, o: torch.Tensor,
+                                 do: torch.Tensor, lse: torch.Tensor, *,
+                                 causal: bool = True, window: int = 0,
+                                 softcap: float = 0.0):
+    """(dq, dk, dv) of :func:`flash_attention_bhsd_ref` (no query offset)
+    from its output ``o``, its logsumexp ``lse`` (BH, Sq) and the
+    output's gradient ``do``, in q's dtype. Every row needs a valid key
+    (a row with none is not differentiated)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qa, ka, va, oa, da = (t.to(acc) for t in (q, k, v, o, do))
+    x = (qa @ ka.transpose(-1, -2)) * scale                   # bh q s
+    if softcap and softcap > 0:
+        t = torch.tanh(x / softcap)
+        x = t * softcap
+    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    p = torch.where(mask, torch.exp(x - lse.to(acc)[..., None]),
+                    torch.zeros((), dtype=acc, device=q.device))
+    delta = (da * oa).sum(dim=-1)                             # bh q
+    dv = p.transpose(-1, -2) @ da
+    ds = p * (da @ va.transpose(-1, -2) - delta[..., None])
+    if softcap and softcap > 0:
+        ds = ds * (1 - t * t)
+    dq = (ds @ ka) * scale
+    dk = (ds.transpose(-1, -2) @ qa) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

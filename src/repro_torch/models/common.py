@@ -22,13 +22,16 @@ What changes against the reference, and why:
 * :func:`apply_attn` writes the KV cache in place (the reference
   returns a new cache): a served cache of several GB is not copied each
   step. Its three ``index`` cases are the reference's.
-* Gone, since serving on one card needs none of them: the sharding
-  knobs' effect (``with_sharding_constraint``), remat, encoder-decoder
-  cross attention (``cross_kv``, with the enc-dec slice), and the losses
-  (``cross_entropy``, ``lm_head_loss``: with training). So are the
-  config's planner and training knobs (``microbatch``, ``remat``,
-  ``attn_chunk``, ``seq_shard``, ...) and ``param_count``: each comes back
-  with the slice that reads it.
+* :func:`lm_head_loss` with ``fused_xent`` walks the same chunks along S
+  as the reference's scan, each under ``torch.utils.checkpoint`` when a
+  gradient is asked for, so that only one chunk's logits are ever live
+  (autograd would otherwise keep every chunk's for the backward).
+* Gone, since one card needs none of them: the sharding knobs' effect
+  (``with_sharding_constraint``) and the planner's knobs (``attn_chunk``:
+  the flash op takes any length, ``seq_shard``, the mesh axes,
+  ``force_strategy``) and ``param_count``. The training knobs the port
+  reads are back: ``microbatch`` and ``opt_8bit`` (``train/``),
+  ``remat`` (``transformer.forward``) and ``fused_xent``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..kernels.flash_attention import ops as flash_ops
 
@@ -92,6 +96,11 @@ class ArchConfig:
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
+    # training knobs (filled by configs)
+    microbatch: int = 1          # grad-accumulation steps
+    remat: str = "full"          # 'full' | 'dots' | 'none'
+    fused_xent: bool = True      # cross-entropy chunked along S
+    opt_8bit: bool = False       # int8 Adam moments
     # skip list: shapes this arch cannot run (with reason)
     skip_shapes: Dict[str, str] = field(default_factory=dict)
 
@@ -273,12 +282,22 @@ def _write_cache(cache, k, v):
         cv[:, :s_new] = v
 
 
-def apply_attn(p, x, cfg: ArchConfig, *, positions, window=0, cache=None):
+def apply_attn(p, x, cfg: ArchConfig, *, positions, window=0, cache=None,
+               cross_kv=None):
     """x: (B, S, D). cache: dict(k, v, index) for decode, written in
     place; the returned cache holds the same k and v and the advanced
-    index."""
+    index. cross_kv: (k, v) for encoder-decoder cross attention (no
+    cache, not causal, no window; the softcap is the model's)."""
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    if cross_kv is not None:
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        k, v = cross_kv
+        q = rope(q, positions, cfg.rope_theta)
+        out = attention(q, k, v, cfg, causal=False, window=0)
+        y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        return x + y.to(x.dtype), cache
     k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
     if cfg.qkv_bias:
@@ -298,6 +317,12 @@ def apply_attn(p, x, cfg: ArchConfig, *, positions, window=0, cache=None):
         out = attention(q, k, v, cfg, causal=True, window=window)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return x + y.to(x.dtype), cache
+
+
+def cross_kv_from_encoder(p, enc_out, cfg: ArchConfig):
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -343,3 +368,67 @@ def mask_padded_vocab(logits, vocab: int):
         return logits
     mask = torch.arange(vpad, device=logits.device) < vocab
     return torch.where(mask, logits, -1e30)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def _xent_terms(logits, labels):
+    """(sum of the valid positions' losses, their count) in float32;
+    labels < 0 are ignored."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = labels >= 0
+    loss = torch.where(valid, lse - gold, torch.zeros((), device=lse.device))
+    return loss.sum(), valid.sum().float()
+
+
+def cross_entropy(logits, labels, vocab: int):
+    """logits: (B,S,V) f32-able; labels: (B,S) int; -100 → ignore.
+    Entries ≥ vocab in the padded dimension are masked (by the caller,
+    :func:`mask_padded_vocab`)."""
+    tot, cnt = _xent_terms(logits, labels)
+    return tot / torch.clamp(cnt, min=1)
+
+
+def lm_head_loss(params, x, labels, cfg: ArchConfig, padded_vocab: int):
+    """Final norm + unembed + xent. With cfg.fused_xent the (B,S,V) logit
+    tensor is consumed chunk-wise along S (the reference's chunks), each
+    chunk's logits recomputed in the backward, so only a chunk is ever
+    live."""
+    x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
+    w = params.get("unembed", params["embed"])  # (Vpad, D)
+
+    def logit_fn(chunk):
+        logits = torch.einsum("btd,vd->btv", chunk, w)
+        return mask_padded_vocab(softcap(logits, cfg.logit_softcap),
+                                 cfg.vocab)
+
+    if not cfg.fused_xent:
+        return cross_entropy(logit_fn(x), labels, cfg.vocab)
+
+    # chunk along sequence to bound live logits
+    b, s, d = x.shape
+    n_chunks = min(8, s) if s >= 8 else 1
+    while s % n_chunks:
+        n_chunks -= 1
+    size = s // n_chunks
+
+    def chunk_terms(xc, lc):
+        return _xent_terms(logit_fn(xc), lc)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        xc = x[:, c * size:(c + 1) * size]
+        lc = labels[:, c * size:(c + 1) * size]
+        if torch.is_grad_enabled():
+            t, n = torch.utils.checkpoint.checkpoint(
+                chunk_terms, xc, lc, use_reentrant=False)
+        else:
+            t, n = chunk_terms(xc, lc)
+        tot = tot + t
+        cnt = cnt + n
+    return tot / torch.clamp(cnt, min=1.0)

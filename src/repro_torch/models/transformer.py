@@ -1,19 +1,29 @@
-"""Model assembly of the port: init, forward, prefill, decode — for the
-dense, MoE, hybrid (Jamba: attention + Mamba) and ssm (xLSTM: mLSTM +
-sLSTM) families, as the reference's ``repro/models/transformer.py``
-builds them.
+"""Model assembly of the port: init, forward, loss, prefill, decode —
+for every family of the reference's ``repro/models/transformer.py``:
+dense, MoE, hybrid (Jamba: attention + Mamba), ssm (xLSTM: mLSTM +
+sLSTM), encoder-decoder (seamless: a non-causal encoder, cross attention
+in every decoder layer) and the frontend stubs (inputs given as
+embeddings: llava's patches, seamless's audio frames).
 
-Each layer = mixer (attn | mamba | mlstm | slstm) + optional FFN (dense
-MLP | MoE). Layer parameters are stacked over period instances (leading
-dim ``n_periods``), as in the reference, and :func:`forward` walks the
-periods in a Python loop where the reference scans them (no remat, no
-sharding constraints: the serving path on one card needs neither).
+Each layer = mixer (attn | mamba | mlstm | slstm) + optional cross
+attention + optional FFN (dense MLP | MoE). Layer parameters are stacked
+over period instances (leading dim ``n_periods``), as in the reference,
+and :func:`forward` walks the periods in a Python loop where the
+reference scans them (no sharding constraints: one card needs none).
+``cfg.remat`` "full" checkpoints each period (and each encoder layer)
+with ``torch.utils.checkpoint`` (non-reentrant) when a gradient is
+asked for: the backward runs its forward again. "dots" (nemotron's:
+the reference keeps the products' outputs) takes the same path here.
 Caches are the reference's stacked pytrees and are written in place
-(``common.apply_attn`` for KV; the recurrent states are copied into
-theirs). A prefill's recurrent layers hand their state after the prompt
-to decode (``models/ssm.py``; the reference's took a single-token branch
-over the prompt). Encoder-decoder models wait for their slice (ROADMAP
-Queue 1, item 3) and raise ``NotImplementedError``.
+(``common.apply_attn`` for KV; the recurrent states and the cross
+attention's keys and values are copied into theirs). A prefill's
+recurrent layers hand their state after the prompt to decode
+(``models/ssm.py``; the reference's took a single-token branch over the
+prompt). The encoder's self attention and the cross attention run
+through the flash op, not causal: softcap 0 in the encoder (the
+reference's ``plain_attention(q, k, v, causal=False)``), the model's in
+cross attention; the cross query is roped, the keys taken from the
+encoder's output are not.
 """
 
 from __future__ import annotations
@@ -23,11 +33,14 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from . import moe as moe_mod
 from . import ssm as ssm_mod
+from ..kernels.flash_attention import ops as flash_ops
 from .common import (ArchConfig, KeyGen, _init, apply_attn, apply_mlp,
-                     init_attn, init_mlp, mask_padded_vocab, rmsnorm,
+                     cross_kv_from_encoder, init_attn, init_mlp,
+                     lm_head_loss, mask_padded_vocab, rmsnorm, rope,
                      softcap)
 
 TP_DEFAULT = 16  # production mesh model-axis size (vocab/expert padding)
@@ -39,29 +52,24 @@ _MIXERS = {"mamba": ssm_mod.apply_mamba, "mlstm": ssm_mod.apply_mlstm,
            "slstm": ssm_mod.apply_slstm}
 
 
-def _require_supported(cfg: ArchConfig) -> None:
-    """Raise for what only the reference runs yet."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs decoder-only stacks; "
-            f"encoder-decoder models wait for their slice (ROADMAP Queue "
-            f"1, item 3)")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 def _init_layer(kg: KeyGen, cfg: ArchConfig, idx_in_period: int,
-                experts: bool = True) -> Tuple[Dict, Dict]:
+                experts: bool = True, with_cross: bool = False
+                ) -> Tuple[Dict, Dict]:
     """One layer's params and specs; ``experts=False`` leaves a MoE
-    layer's routed experts out (see :func:`init_params`)."""
+    layer's routed experts out (see :func:`init_params`);
+    ``with_cross`` adds cross attention (an enc-dec decoder layer)."""
     kind = cfg.layer_kind(idx_in_period)
     p: Dict = {}
     s: Dict = {}
     init = {"attn": init_attn, "mamba": ssm_mod.init_mamba,
             "mlstm": ssm_mod.init_mlstm, "slstm": ssm_mod.init_slstm}[kind]
     p[kind], s[kind] = init(kg, cfg)
+    if with_cross:
+        p["cross"], s["cross"] = init_attn(kg, cfg)
     if cfg.layer_is_moe(idx_in_period):
         p["moe"], s["moe"] = moe_mod.init_moe(kg, cfg, TP_DEFAULT, experts)
     elif cfg.d_ff > 0:
@@ -87,8 +95,10 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     MoE layers of a period hold its first MoE layer's routed experts
     (``wi``, ``wg``, ``wo``: the same tensors; each layer's router, norm
     and shared experts are its own): a cut that fits a model's full
-    width on one card, each layer still computing at that width."""
-    _require_supported(cfg)
+    width on one card, each layer still computing at that width. An
+    enc-dec model adds cross attention to each decoder layer, an
+    ``encoder`` stack of ``cfg.enc_layers`` attention + MLP layers and
+    ``enc_final_ln``, as the reference's."""
     kg = KeyGen(gen)
     vpad = cfg.padded_vocab(TP_DEFAULT)
     params: Dict = {
@@ -111,7 +121,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     shared = None
     for i in range(cfg.period):
         own = shared is None or not cfg.layer_is_moe(i)
-        layers = [_init_layer(kg, cfg, i, own)
+        layers = [_init_layer(kg, cfg, i, own, cfg.is_encdec)
                   for _ in range(cfg.n_periods)]
         block = _stack([p for p, _ in layers])
         if cfg.layer_is_moe(i) and share_experts:
@@ -123,6 +133,13 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
         bspecs.append(_stack_specs(layers[0][1]))
     params["blocks"] = blocks
     specs["blocks"] = bspecs
+    if cfg.is_encdec:
+        layers = [_init_layer(kg, cfg, 0) for _ in range(cfg.enc_layers)]
+        params["encoder"] = _stack([p for p, _ in layers])
+        specs["encoder"] = _stack_specs(layers[0][1])
+        params["enc_final_ln"] = torch.zeros(
+            (cfg.d_model,), dtype=cfg.dtype, device=gen.device)
+        specs["enc_final_ln"] = ("embed",)
     return params, specs
 
 
@@ -150,7 +167,7 @@ def params_from_reference(tree, cfg: ArchConfig, device,
 # ---------------------------------------------------------------------------
 
 def _apply_layer(p, x, cfg: ArchConfig, idx_in_period: int, *, positions,
-                 cache=None):
+                 cache=None, enc_out=None):
     kind = cfg.layer_kind(idx_in_period)
     if kind == "attn":
         window = cfg.layer_window(idx_in_period)
@@ -162,6 +179,18 @@ def _apply_layer(p, x, cfg: ArchConfig, idx_in_period: int, *, positions,
         x, st = _MIXERS[kind](p[kind], x, cfg,
                               None if cache is None else cache["ssm"])
         new_cache = None if st is None else {"ssm": st}
+    if "cross" in p:
+        if enc_out is not None:
+            ckv = cross_kv_from_encoder(p["cross"], enc_out, cfg)
+        elif cache is not None and "cross_kv" in cache:
+            ckv = cache["cross_kv"]
+        else:
+            ckv = None
+        if ckv is not None:
+            x, _ = apply_attn(p["cross"], x, cfg, positions=positions,
+                              cross_kv=ckv)
+            if new_cache is not None and enc_out is not None:
+                new_cache["cross_kv"] = ckv      # new: stored by forward
     if "moe" in p:
         x = moe_mod.apply_moe(p["moe"], x, cfg)
     elif "mlp" in p:
@@ -171,30 +200,96 @@ def _apply_layer(p, x, cfg: ArchConfig, idx_in_period: int, *, positions,
 
 def _period(tree, j: int):
     """Period instance ``j`` of a stacked tree: every leaf's j-th slice
-    (a view, so writes land in the stacked tensor)."""
-    return {k: _period(v, j) if isinstance(v, dict) else v[j]
+    (a view, so writes land in the stacked tensor); a tuple (the cross
+    attention's keys and values) slices each of its tensors."""
+    if isinstance(tree, tuple):
+        return tuple(t[j] for t in tree)
+    return {k: _period(v, j) if isinstance(v, (dict, tuple)) else v[j]
             for k, v in tree.items()}
 
 
-def forward(params, x, cfg: ArchConfig, *, positions, caches=None):
+def _remat(cfg: ArchConfig) -> bool:
+    """Whether a forward checkpoints its periods: remat asked for by the
+    config and a gradient by the caller."""
+    return cfg.remat in ("full", "dots") and torch.is_grad_enabled()
+
+
+def _store_cross_kv(cache, ckv, j: int, n: int) -> None:
+    """Write period ``j``'s cross keys and values into the stacked slot
+    of ``cache`` (allocated, for ``n`` periods, where it is missing or
+    of another source length)."""
+    slot = cache.get("cross_kv")
+    if slot is None or slot[0].shape[1:] != ckv[0].shape:
+        slot = tuple(t.new_zeros((n,) + tuple(t.shape)) for t in ckv)
+        cache["cross_kv"] = slot
+    for dst, src in zip(slot, ckv):
+        dst[j] = src
+
+
+def forward(params, x, cfg: ArchConfig, *, positions, caches=None,
+            enc_out=None):
     """x: (B, S, D) embeddings. caches: list per idx_in_period of stacked
     cache pytrees (leading dim n_periods) or None; they are updated in
-    place. Returns (x, caches)."""
-    _require_supported(cfg)
+    place. enc_out: the encoder's output (enc-dec). Returns (x,
+    caches)."""
     blocks = params["blocks"]
-    for j in range(cfg.n_periods):
+
+    def period(x, j):
         for i in range(cfg.period):
-            cache = None if caches is None else _period(caches[i], j)
+            x, _ = _apply_layer(_period(blocks[i], j), x, cfg, i,
+                                positions=positions, enc_out=enc_out)
+        return x
+
+    for j in range(cfg.n_periods):
+        if caches is None:
+            x = torch.utils.checkpoint.checkpoint(
+                period, x, j, use_reentrant=False) if _remat(cfg) \
+                else period(x, j)
+            continue
+        for i in range(cfg.period):
             x, nc = _apply_layer(_period(blocks[i], j), x, cfg, i,
-                                 positions=positions, cache=cache)
-            if caches is None:
-                continue
+                                 positions=positions,
+                                 cache=_period(caches[i], j),
+                                 enc_out=enc_out)
             if "kv" in nc:         # k and v are already written in place
                 caches[i]["kv"]["index"][j] = nc["kv"]["index"]
             else:
                 for name, st in nc["ssm"].items():
                     caches[i]["ssm"][name][j] = st
+            if "cross_kv" in nc:
+                _store_cross_kv(caches[i], nc["cross_kv"], j, cfg.n_periods)
     return x, caches
+
+
+def encode(params, src_embeds, cfg: ArchConfig):
+    """Encoder stack (non-causal attention, no softcap) for enc-dec
+    archs."""
+    enc = params["encoder"]
+    positions = torch.arange(src_embeds.shape[1], device=src_embeds.device)
+
+    def layer(x, j):
+        bp = _period(enc, j)
+        h = rmsnorm(x, bp["attn"]["ln"], cfg.norm_eps)
+        q = torch.einsum("bsd,dhk->bshk", h, bp["attn"]["wq"])
+        k = torch.einsum("bsd,dhk->bshk", h, bp["attn"]["wk"])
+        v = torch.einsum("bsd,dhk->bshk", h, bp["attn"]["wv"])
+        if cfg.qkv_bias:
+            q, k, v = q + bp["attn"]["bq"], k + bp["attn"]["bk"], \
+                v + bp["attn"]["bv"]
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        out = flash_ops.flash_attention(q, k, v, causal=False, window=0,
+                                        softcap=0.0)
+        x = x + torch.einsum("bshk,hkd->bsd", out,
+                             bp["attn"]["wo"]).to(x.dtype)
+        return apply_mlp(bp["mlp"], x, cfg)
+
+    x = src_embeds
+    for j in range(cfg.enc_layers):
+        x = torch.utils.checkpoint.checkpoint(
+            layer, x, j, use_reentrant=False) if _remat(cfg) \
+            else layer(x, j)
+    return rmsnorm(x, params["enc_final_ln"], cfg.norm_eps)
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig):
@@ -207,15 +302,37 @@ def _unembed(params):
 
 
 # ---------------------------------------------------------------------------
-# Top-level steps (prefill / decode)
+# Top-level steps (loss / prefill / decode)
 # ---------------------------------------------------------------------------
 
+def _input(params, batch, cfg: ArchConfig):
+    if cfg.embeds_input and "embeds" in batch:
+        return batch["embeds"].to(cfg.dtype)
+    return embed_tokens(params, batch["tokens"], cfg)
+
+
+def _encoded(params, batch, cfg: ArchConfig):
+    return encode(params, batch["src_embeds"].to(cfg.dtype), cfg) \
+        if cfg.is_encdec else None
+
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    """batch: {'tokens' or 'embeds', 'labels', optional 'src_embeds'}."""
+    x = _input(params, batch, cfg)
+    enc_out = _encoded(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = forward(params, x, cfg, positions=positions, enc_out=enc_out)
+    return lm_head_loss(params, x, batch["labels"], cfg,
+                        cfg.padded_vocab(TP_DEFAULT))
+
+
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
-                uniform_index: bool = False, device="cpu"):
-    """Stacked decode caches: list per idx_in_period.
+                cross_len: int = 0, uniform_index: bool = False,
+                device="cpu"):
+    """Stacked decode caches: list per idx_in_period. ``cross_len`` > 0
+    adds encoder cross-KV slots (enc-dec decode entry point).
     ``uniform_index`` → scalar per-layer position (steady-state decode)
     instead of per-slot positions (continuous batching)."""
-    _require_supported(cfg)
     caches = []
     for i in range(cfg.period):
         kind = cfg.layer_kind(i)
@@ -224,27 +341,28 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
                      cfg.head_dim)
             idx_shape = (cfg.n_periods,) if uniform_index \
                 else (cfg.n_periods, batch)
-            caches.append({"kv": {
+            c = {"kv": {
                 "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "index": torch.zeros(idx_shape, dtype=torch.int32,
-                                     device=device)}})
-            continue
-        if kind == "mamba":
-            st = ssm_mod.init_mamba_state(cfg, batch, device)
+                                     device=device)}}
         else:
-            st = ssm_mod.init_xlstm_state(cfg, kind, batch, device)
-        # one state per period instance, written in place
-        caches.append({"ssm": {
-            name: a[None].repeat((cfg.n_periods,) + (1,) * a.dim())
-            for name, a in st.items()}})
+            if kind == "mamba":
+                st = ssm_mod.init_mamba_state(cfg, batch, device)
+            else:
+                st = ssm_mod.init_xlstm_state(cfg, kind, batch, device)
+            # one state per period instance, written in place
+            c = {"ssm": {
+                name: a[None].repeat((cfg.n_periods,) + (1,) * a.dim())
+                for name, a in st.items()}}
+        if cfg.is_encdec and cross_len > 0:
+            shape = (cfg.n_periods, batch, cross_len, cfg.kv_heads,
+                     cfg.head_dim)
+            c["cross_kv"] = tuple(torch.zeros(shape, dtype=cfg.dtype,
+                                              device=device)
+                                  for _ in range(2))
+        caches.append(c)
     return caches
-
-
-def _input(params, batch, cfg: ArchConfig):
-    if cfg.embeds_input and "embeds" in batch:
-        return batch["embeds"].to(cfg.dtype)
-    return embed_tokens(params, batch["tokens"], cfg)
 
 
 def prefill(params, batch, cfg: ArchConfig, max_seq: int):
@@ -253,17 +371,21 @@ def prefill(params, batch, cfg: ArchConfig, max_seq: int):
     logits take no final softcap (decode's do); the argmax is the same."""
     x = _input(params, batch, cfg)
     b, s = x.shape[0], x.shape[1]
+    enc_out = _encoded(params, batch, cfg)
     caches = init_caches(cfg, b, max_seq, device=x.device)
     positions = torch.arange(s, device=x.device)
-    x, caches = forward(params, x, cfg, positions=positions, caches=caches)
+    x, caches = forward(params, x, cfg, positions=positions, caches=caches,
+                        enc_out=enc_out)
     x = rmsnorm(x[:, -1:], params["final_ln"], cfg.norm_eps)
     logits = mask_padded_vocab(
         torch.einsum("btd,vd->btv", x, _unembed(params)), cfg.vocab)[:, 0]
     return caches, logits
 
 
-def decode_step(params, tokens, caches, cfg: ArchConfig):
-    """One decode step. tokens: (B, 1) int. Returns (logits, caches)."""
+def decode_step(params, tokens, caches, cfg: ArchConfig, *, enc_out=None):
+    """One decode step. tokens: (B, 1) int. Returns (logits, caches). An
+    enc-dec model takes its cross keys and values from ``enc_out`` or,
+    without it, from the caches (as prefill left them)."""
     x = embed_tokens(params, tokens, cfg)
     # position from the first attention cache's index (all layers share
     # it); a stack without attention (xLSTM) has none: zeros, as in the
@@ -277,7 +399,8 @@ def decode_step(params, tokens, caches, cfg: ArchConfig):
         positions = pos0 + steps
     else:
         positions = pos0[:, None] + steps[None, :]
-    x, caches = forward(params, x, cfg, positions=positions, caches=caches)
+    x, caches = forward(params, x, cfg, positions=positions, caches=caches,
+                        enc_out=enc_out)
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
     logits = torch.einsum("btd,vd->btv", x, _unembed(params))
     logits = mask_padded_vocab(softcap(logits, cfg.logit_softcap),

@@ -1,0 +1,132 @@
+"""Training step factory: grad accumulation, remat, compression, optimizer
+— the reference's ``repro/train/train_loop.py`` on torch tensors.
+
+``make_train_step(cfg)`` returns
+
+    train_step(params, opt_state, batch) -> (params, opt_state, metrics)
+
+with the global batch split into ``cfg.microbatch`` accumulation steps
+run in turn (each microbatch's loss rematerialized per period where
+``cfg.remat`` asks: ``models/transformer.py``), their gradients summed
+in float32 and averaged, optional int8 gradient compression, and AdamW
+(optionally 8-bit moments) applied once. Where the reference's step is
+a pure function, this one writes the new parameters and moments into
+the given tensors (one card cannot hold two copies of a model's
+optimizer state) and returns them. ``mark``, where given,
+is called with "forward", "backward", "optimizer" and "end" as each
+phase of a step begins and the step ends (a caller's timer: CUDA
+events); it costs nothing when left out.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models import transformer as T
+from repro_torch.models.common import ArchConfig
+
+from . import grad_compress
+from .optimizer import AdamWConfig, adamw_update, init_opt_state
+from .tree import leaves, unflatten
+
+
+def _split_microbatches(batch: Dict, n: int) -> List[Dict]:
+    """(B, …) → n microbatches of (B/n, …), every leaf split alike."""
+    def split(x):
+        b = x.shape[0]
+        assert b % n == 0, f"global batch {b} not divisible by {n}"
+        return x.reshape(n, b // n, *x.shape[1:])
+
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def make_loss_fn(cfg: ArchConfig):
+    def loss_fn(params, microbatch):
+        return T.loss_fn(params, microbatch, cfg)
+
+    return loss_fn
+
+
+Mark = Optional[Callable[[str], None]]
+
+
+def _no_mark(_: str) -> None:
+    pass
+
+
+def value_and_grad(loss_fn, params, batch, mark: Mark = None
+                   ) -> Tuple[torch.Tensor, List]:
+    """(loss, the gradient of every leaf of ``params`` in leaf order, in
+    the leaf's dtype): the reference's ``jax.value_and_grad`` on torch,
+    through leaves that alias the parameters' storage."""
+    mark = mark or _no_mark
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    with torch.enable_grad():
+        mark("forward")
+        loss = loss_fn(unflatten(params, iter(flat)), batch)
+        mark("backward")
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    mark("end")
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(flat, grads)]
+
+
+def accumulate_grads(cfg: ArchConfig, params, batch, mark: Mark = None
+                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """(mean loss, mean gradient of every leaf in float32, in leaf order)
+    over the ``cfg.microbatch`` microbatches of ``batch``: the gradient a
+    train step applies."""
+    loss_fn = make_loss_fn(cfg)
+    n = max(1, cfg.microbatch)
+    gsum = lsum = None
+    for mb in _split_microbatches(batch, n):
+        loss, grads = value_and_grad(loss_fn, params, mb, mark)
+        if gsum is None:
+            gsum = [torch.zeros(g.shape, dtype=torch.float32,
+                                device=g.device) for g in grads]
+            lsum = torch.zeros((), dtype=torch.float32, device=loss.device)
+        for a, g in zip(gsum, grads):
+            a.add_(g.to(torch.float32))
+        del grads
+        lsum = lsum + loss.to(torch.float32)
+    for g in gsum:
+        g.div_(n)
+    return lsum / n, gsum
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
+                    compress: Optional[str] = None, mark: Mark = None):
+    opt_cfg = opt_cfg or AdamWConfig(quantize_moments=cfg.opt_8bit)
+
+    def train_step(params, opt_state, batch):
+        loss, gsum = accumulate_grads(cfg, params, batch, mark)
+        grads = unflatten(params, iter(gsum))
+        if compress == "int8":
+            grads = grad_compress.roundtrip_int8(grads)
+        (mark or _no_mark)("optimizer")
+        new_params, new_opt = adamw_update(params, grads, opt_state,
+                                           opt_cfg)
+        (mark or _no_mark)("end")
+        metrics = {
+            "loss": loss,
+            "grad_norm": torch.sqrt(sum(
+                torch.sum(torch.square(g)) for g in leaves(grads))),
+            "step": new_opt.step.clone(),
+        }
+        return new_params, new_opt, metrics
+
+    return train_step
+
+
+def make_init(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None):
+    opt_cfg = opt_cfg or AdamWConfig(quantize_moments=cfg.opt_8bit)
+
+    def init(gen: torch.Generator):
+        params, specs = T.init_params(cfg, gen)
+        opt_state = init_opt_state(params, opt_cfg)
+        return params, opt_state, specs
+
+    return init

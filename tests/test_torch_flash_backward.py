@@ -1,0 +1,261 @@
+"""The gradient of the port's flash attention against the reference's.
+
+The op (``repro_torch.kernels.flash_attention.ops``) runs through its
+``torch.autograd.Function`` whenever an operand requires grad; on CPU
+tensors its backward is the plain ``flash_attention_bhsd_bwd_ref``. Its
+gradients through the GQA dispatch are held, on the same inputs made
+from a numpy seed, to ``jax.grad`` of the reference's attention: float32
+to the model's ``plain_attention`` and ``chunked_attention`` (16-key
+chunks), float64 to the kernel's oracle ``attention_ref``
+(``plain_attention`` takes its scores in float32 whatever the operands,
+``preferred_element_type``, so only the oracle is a float64 reference).
+Cases: causal, sliding window, tanh softcap, GQA, Sq != Skv
+(non-causal, as cross attention), Sq > Skv (causal). Tolerances, on the
+largest difference relative to the largest reference value: float64
+1e-10, float32 1e-5. The plain backward is also held to autograd of the
+plain forward ``flash_attention_bhsd_ref`` at float64 (1e-12).
+
+The op never returns a tensor without ``grad_fn`` when it is asked for a
+gradient: it refuses (``NotImplementedError``) a gradient with a query
+offset or through a row with no valid key; the selective scan's op
+refuses a gradient on the card, shown here with tensors that claim to
+be on it. The reference side runs once per module in a subprocess
+(``tests/torch_reference.py``). The backward kernels run only on a
+card: their tests carry the ``cuda`` marker and skip here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention as kernel
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_bhsd_bwd_ref, flash_attention_bhsd_ref)
+from repro_torch.kernels.mamba_scan import ops as scan_ops
+from torch_reference import run_reference
+
+TOL = {"float32": 1e-5, "float64": 1e-10}
+TORCH_DT = {"float32": torch.float32, "float64": torch.float64,
+            "bfloat16": torch.bfloat16}
+
+# (id, (B, Sq, Skv, H, KVH, D), causal, window, softcap)
+CASES = [
+    ("causal", (2, 40, 40, 4, 4, 16), True, 0, 0.0),
+    ("gqa-window-cap", (1, 48, 48, 4, 2, 16), True, 16, 30.0),
+    ("cross", (2, 24, 40, 4, 2, 8), False, 0, 0.0),
+    ("cross-cap", (1, 30, 18, 2, 1, 16), False, 0, 20.0),
+    ("window-noncausal", (1, 40, 40, 2, 2, 8), False, 8, 0.0),
+    ("causal-sq-over-skv", (1, 30, 20, 2, 1, 8), True, 0, 10.0),
+]
+CASE_IDS = [c[0] for c in CASES]
+
+_REFERENCE = """
+import jax.numpy as jnp
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.models.common import chunked_attention, plain_attention
+for key in sorted({k.rsplit("/", 1)[0] for k in inputs}):
+    q, k, v, g = (jnp.asarray(inputs[key + "/" + n]) for n in "qkvg")
+    causal, window, cap = inputs[key + "/opts"]
+    causal, window, cap = bool(causal), int(window), float(cap)
+    fns = {"oracle": lambda q, k, v: attention_ref(
+        q, k, v, causal=causal, window=window, softcap=cap)}
+    if key.endswith("float32"):
+        fns["plain"] = lambda q, k, v: plain_attention(
+            q, k, v, causal=causal, window=window, cap=cap)
+        fns["chunked"] = lambda q, k, v: chunked_attention(
+            q, k, v, causal=causal, window=window, cap=cap, chunk=16)
+    for name, fn in fns.items():
+        grads = jax.jit(jax.grad(lambda q, k, v: jnp.sum(fn(q, k, v) * g),
+                                 argnums=(0, 1, 2)))(q, k, v)
+        for n, gr in zip("qkv", grads):
+            outputs[f"{key}/{name}/d{n}"] = np.asarray(gr, np.float64)
+"""
+
+
+def _inputs(case):
+    case_id, (b, sq, skv, h, kvh, d), *_ = case
+    rng = np.random.default_rng(sq * 3 + skv + h + d + len(case_id))
+    return (rng.normal(size=(b, sq, h, d)), rng.normal(size=(b, skv, kvh, d)),
+            rng.normal(size=(b, skv, kvh, d)), rng.normal(size=(b, sq, h, d)))
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """Every case's reference gradients, from one subprocess."""
+    inputs = {}
+    for case in CASES:
+        _, _, causal, window, softcap = case
+        for dtype in TOL:
+            key = f"{case[0]}/{dtype}"
+            for n, a in zip("qkvg", _inputs(case)):
+                inputs[f"{key}/{n}"] = a.astype(dtype)
+            inputs[f"{key}/opts"] = np.array([causal, window, softcap])
+    return run_reference(_REFERENCE, inputs,
+                         tmp_path_factory.mktemp("flash_bwd_reference"))
+
+
+def _grads(case, dtype, device="cpu"):
+    """(dq, dk, dv) of the op through the GQA dispatch, and its output."""
+    _, _, causal, window, softcap = case
+    q, k, v, g = (torch.from_numpy(a).to(device, TORCH_DT[dtype])
+                  for a in _inputs(case))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
+    assert out.grad_fn is not None
+    return torch.autograd.grad(out, (q, k, v), g), out
+
+
+def _rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_gradient_matches_reference_autodiff(reference, case, dtype):
+    before = ops.plain_calls
+    grads, _ = _grads(case, dtype)
+    # one plain forward and one plain backward on the CPU
+    assert ops.plain_calls == before + 2
+    names = ["oracle"] + (["plain", "chunked"] if dtype == "float32" else [])
+    for name in names:
+        for n, got in zip("qkv", grads):
+            want = reference[f"{case[0]}/{dtype}/{name}/d{n}"]
+            err = _rel(got.detach().numpy(), want)
+            assert err <= TOL[dtype], (name, n, err)
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_plain_backward_matches_autograd_of_plain_forward(case):
+    _, (b, sq, skv, h, kvh, d), causal, window, softcap = case
+    rng = np.random.default_rng(len(case[0]))
+    q, k, v = (torch.from_numpy(rng.normal(size=(b * h, s, d)))
+               .requires_grad_(True) for s in (sq, skv, skv))
+    do = torch.from_numpy(rng.normal(size=(b * h, sq, d)))
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = flash_attention_bhsd_ref(q, k, v, return_lse=True, **opts)
+    assert torch.equal(out, flash_attention_bhsd_ref(q, k, v, **opts))
+    want = torch.autograd.grad(out, (q, k, v), do)
+    got = flash_attention_bhsd_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       out.detach(), do, lse.detach(),
+                                       **opts)
+    for g, w in zip(got, want):
+        assert _rel(g.numpy(), w.numpy()) <= 1e-12
+
+
+def test_lse_is_the_log_of_each_rows_softmax_denominator():
+    rng = np.random.default_rng(3)
+    q, k = (torch.from_numpy(rng.normal(size=(2, n, 8))) for n in (9, 13))
+    _, lse = flash_attention_bhsd_ref(q, k, k, causal=True, window=4,
+                                      softcap=5.0, return_lse=True)
+    s = torch.tanh(q @ k.transpose(1, 2) / 8 ** 0.5 / 5.0) * 5.0
+    i, j = torch.arange(9)[:, None], torch.arange(13)[None]
+    s = s.masked_fill(~((j <= i) & (j > i - 4)), -float("inf"))
+    assert torch.allclose(lse, torch.logsumexp(s, dim=-1), rtol=0,
+                          atol=1e-14)
+
+
+def test_no_grad_call_is_the_forward_alone():
+    t = torch.ones(1, 4, 2, 8, dtype=torch.float64, requires_grad=True)
+    with torch.no_grad():
+        out = ops.flash_attention(t, t, t)
+    assert out.grad_fn is None and not out.requires_grad
+    plain = ops.flash_attention(t.detach(), t.detach(), t.detach())
+    assert plain.grad_fn is None
+
+
+def test_gradient_with_a_query_offset_is_refused():
+    t = torch.ones(1, 4, 2, 8, dtype=torch.float64, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="query offset"):
+        ops.flash_attention(t, t, t, q_offset=3)
+
+
+def test_gradient_through_rows_without_a_key_is_refused():
+    q = torch.ones(1, 12, 1, 8, dtype=torch.float64, requires_grad=True)
+    kv = torch.ones(1, 4, 1, 8, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="no valid key"):
+        ops.flash_attention(q, kv, kv, causal=False, window=4)
+
+
+def test_scan_refuses_a_gradient_on_the_card(monkeypatch):
+    """On the card the scan kernel has no backward: with grad asked for,
+    the op raises before launching rather than return a detached y."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda s: True))
+    launched = []
+    monkeypatch.setattr(scan_ops._kernel, "mamba_scan",
+                        lambda *a, **k: launched.append(1))
+    x = torch.ones(1, 4, 3, requires_grad=True)
+    bm = torch.ones(1, 4, 2)
+    args = (x, torch.ones(1, 4, 3), bm, bm, torch.zeros(3, 2),
+            torch.zeros(3))
+    with pytest.raises(NotImplementedError, match="backward"):
+        scan_ops.mamba_scan(*args)
+    assert not launched
+    with torch.no_grad():          # serving: the kernel, as before
+        scan_ops.mamba_scan(*args)
+    assert launched == [1]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written backward "
+                    "kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+# the card's cases: (B·H, Sq, Skv, D), causal, window, softcap; ragged
+# tiles, every D class, Sq != Skv both ways
+CUDA_CASES = [((3, 100, 100, 64), True, 0, 0.0),
+              ((2, 77, 130, 40), False, 0, 30.0),
+              ((2, 150, 90, 80), True, 0, 0.0),
+              ((2, 200, 200, 24), True, 40, 50.0),
+              ((1, 120, 120, 128), False, 32, 0.0),
+              ((1, 70, 70, 192), True, 0, 20.0),
+              ((1, 66, 66, 288), True, 16, 50.0)]
+CUDA_TOL = {"float64": 1e-8, "float32": 2e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(CUDA_TOL))
+@pytest.mark.parametrize("case", CUDA_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}-{c[3]}"
+                              for c in CUDA_CASES])
+def test_cuda_backward_matches_plain_backward(cuda_device, case, dtype):
+    (bh, sq, skv, d), causal, window, softcap = case
+    rng = np.random.default_rng(bh + sq + d)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(bh, n, d)))
+                   .to(cuda_device, TORCH_DT[dtype])
+                   for n in (sq, skv, skv, sq))
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = kernel.flash_attention_bhsd(q, k, v, return_lse=True, **opts)
+    want_out, want_lse = flash_attention_bhsd_ref(q, k, v, return_lse=True,
+                                                  **opts)
+    tol = CUDA_TOL[dtype]
+    assert float((lse - want_lse).abs().max()) <= tol * (
+        1 + float(want_lse.abs().max()))
+    before = kernel.bwd_launches
+    got = kernel.flash_attention_bhsd_bwd(q, k, v, out, do, lse, **opts)
+    torch.cuda.synchronize()
+    assert kernel.bwd_launches == before + 1
+    want = flash_attention_bhsd_bwd_ref(q, k, v, out, do, lse, **opts)
+    for g, w in zip(got, want):
+        diff = (g.double() - w.double()).abs()
+        allowed = tol if dtype == "float64" else tol + tol * w.double().abs()
+        assert bool(torch.isfinite(g.double()).all())
+        assert not bool((diff > allowed).any()), float(diff.max())
+    again = kernel.flash_attention_bhsd_bwd(q, k, v, out, do, lse, **opts)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_gradient_through_the_gqa_dispatch(cuda_device):
+    case = CASES[1]
+    got, out = _grads(case, "float32", cuda_device)
+    want, _ = _grads(case, "float32")
+    assert out.is_cuda
+    for g, w in zip(got, want):
+        assert _rel(g.cpu().numpy(), w.numpy()) <= 2e-4

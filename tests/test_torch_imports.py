@@ -1,12 +1,14 @@
 """Import guard of the PyTorch/CUDA port: ``repro_torch`` and every one
 of its modules (``core/txp.py``, the torch backend's namespace, the
 raylite runtime ``repro_torch.runtime``, the serving plane
-``repro_torch.serve``, the LM models, configs and launcher included), the
-port's examples ``examples/torch_stap.py``,
-``examples/torch_stap_pipeline.py`` and ``examples/torch_serve_lm.py``
-and ``chip_smoke.py`` load neither jax nor any module of the JAX package
-``repro``, and no source file of the port imports them. No kernel's
-wrapper or source calls a library kernel for its work (a GEMM, fused
+``repro_torch.serve``, the LM models, configs and launchers, the
+training path ``repro_torch.train``, ``checkpoint`` and ``data``
+included), the port's examples ``examples/torch_stap.py``,
+``examples/torch_stap_pipeline.py``, ``examples/torch_serve_lm.py`` and
+``examples/torch_train_lm.py`` and ``chip_smoke.py`` load neither jax nor
+any module of the JAX package ``repro``, and no source file of the port
+imports them. No kernel's wrapper or source (the flash backward's
+included) calls a library kernel for its work (a GEMM, fused
 attention, cuDNN)."""
 
 import json
@@ -70,7 +72,16 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.configs.qwen2_moe_a2_7b",
                  "repro_torch.configs.jamba_1_5_large_398b",
                  "repro_torch.configs.xlstm_125m",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve",
+                 "repro_torch.kernels.flash_attention.ref",
+                 "repro_torch.configs.seamless_m4t_medium",
+                 "repro_torch.configs.llava_next_mistral_7b",
+                 "repro_torch.data.pipeline", "repro_torch.train",
+                 "repro_torch.train.optimizer",
+                 "repro_torch.train.grad_compress",
+                 "repro_torch.train.train_loop", "repro_torch.train.tree",
+                 "repro_torch.checkpoint.ckpt",
+                 "repro_torch.launch.train"):
         assert name in res["modules"]
 
 
@@ -89,7 +100,11 @@ print(json.dumps({"bad": bad}))
                                      "repro_torch.models.transformer",
                                      "repro_torch.serve.engine",
                                      "repro_torch.launch.serve",
-                                     "repro_torch.configs"])
+                                     "repro_torch.configs",
+                                     "repro_torch.launch.train",
+                                     "repro_torch.train",
+                                     "repro_torch.checkpoint.ckpt",
+                                     "repro_torch.data.pipeline"])
 def test_importing_runtime_and_serve_alone_loads_no_jax_and_no_repro(
         package):
     env = dict(os.environ)
@@ -116,8 +131,10 @@ import json, sys
 import examples.torch_stap as ex
 import examples.torch_stap_pipeline as pipe
 import examples.torch_serve_lm as lm
+import examples.torch_train_lm as train
 assert callable(ex.stap_adaptive) and callable(ex.main)
 assert callable(pipe.main) and callable(lm.main_local)
+assert callable(train.main)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -137,16 +154,17 @@ def test_importing_the_port_stap_example_loads_no_jax_and_no_repro():
 @pytest.mark.parametrize("rel", ["examples/torch_stap.py",
                                  "examples/torch_stap_pipeline.py",
                                  "examples/torch_serve_lm.py",
+                                 "examples/torch_train_lm.py",
                                  "chip_smoke.py"])
 def test_port_entry_scripts_import_no_jax_or_repro(rel):
     lines = (ROOT / rel).read_text().splitlines()
     assert [ln for ln in lines if _FORBIDDEN.match(ln)] == []
 
 
-def _assert_calls_no_library_kernel(name):
+def _assert_calls_no_library_kernel(name, source_name=None):
     kdir = PORT / "kernels" / name
     wrapper = (kdir / f"{name}.py").read_text()
-    source = (kdir / "csrc" / f"{name}.cu").read_text()
+    source = (kdir / "csrc" / f"{source_name or name}.cu").read_text()
     for word in ("torch.matmul", "torch.mm", "torch.bmm", "einsum",
                  "scaled_dot_product", "torch.nn", "cublas", "cudnn",
                  "cutlass"):
@@ -164,3 +182,8 @@ def test_matmul_kernel_calls_no_library_gemm():
 @pytest.mark.parametrize("name", ["flash_attention", "mamba_scan"])
 def test_kernel_calls_no_library_kernel(name):
     _assert_calls_no_library_kernel(name)
+
+
+def test_flash_backward_kernel_calls_no_library_kernel():
+    _assert_calls_no_library_kernel("flash_attention",
+                                    "flash_attention_bwd")

@@ -569,28 +569,29 @@ def test_uniform_index_cache_writes_at_the_shared_position():
                                   "xlstm_125m", "seamless_m4t_medium",
                                   "llava_next_mistral_7b"])
 def test_families_not_ported_raise_naming_the_roadmap(arch):
-    """The audio and vlm families still raise, naming the roadmap; the
-    MoE, hybrid and ssm ones (ported since) load, full and smoke."""
-    ported = arch in ("jamba_1_5_large_398b", "olmoe_1b_7b", "xlstm_125m")
+    """Every family is ported now: the MoE, hybrid and ssm ones and the
+    audio (encoder-decoder) and vlm (embeddings input) ones load, full
+    and smoke, and none raises any more."""
+    family = {"jamba_1_5_large_398b": "hybrid", "olmoe_1b_7b": "moe",
+              "xlstm_125m": "ssm", "seamless_m4t_medium": "audio",
+              "llava_next_mistral_7b": "vlm"}[arch]
     for get in (get_config, get_smoke_config):
-        if ported:
-            assert get(arch).family in ("moe", "hybrid", "ssm")
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                get(arch)
+        assert get(arch).family == family
 
 
 def test_model_refuses_a_hybrid_config():
-    """A hybrid (attention + Mamba) config builds now; one that is also
-    encoder-decoder is refused, naming the roadmap."""
+    """A hybrid (attention + Mamba) config builds; so does one that is
+    also encoder-decoder (no longer refused): cross attention in each
+    decoder layer, an encoder stack and its final norm."""
     cfg = C.ArchConfig(name="hybrid", family="hybrid", layers=2, period=2,
                        d_model=32, n_heads=2, kv_heads=2, d_ff=64, vocab=64,
                        dtype=torch.float32)
     params, _ = T.init_params(cfg, torch.Generator().manual_seed(0))
     assert "mamba" in params["blocks"][1]
     cfg = dataclasses.replace(cfg, is_encdec=True, enc_layers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(cfg, torch.Generator().manual_seed(0))
+    params, _ = T.init_params(cfg, torch.Generator().manual_seed(0))
+    assert "cross" in params["blocks"][1] and "enc_final_ln" in params
+    assert params["encoder"]["attn"]["wq"].shape[0] == 1
 
 
 # ---------------------------------------------------------------------------
