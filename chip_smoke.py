@@ -11,9 +11,10 @@ exit:
 2. Build: every hand-written kernel from the sources in this checkout
    (one ``nvcc`` per source, started together; the flash attention's
    backward has a source of its own), into ``build/kernels/``;
-   fails if ptxas reports spill bytes for a float64 (DMMA) matmul kernel
-   or for any instantiation of the flash attention forward or the
-   selective scan, or more than SPILL_MAX's for the backward.
+   fails if ptxas reports spill bytes for a float64 (DMMA) matmul kernel,
+   for any instantiation of the flash attention forward or the selective
+   scan or for the backward's bf16 tensor-core kernels, or more than
+   SPILL_MAX's for the backward's FMA kernels.
 3. Each kernel against its plain torch version on the card, in every
    dtype it takes, at its main path's chunk shape, at a language model's
    widths where the repo has one that runs it, and at a ragged shape;
@@ -58,10 +59,14 @@ exit:
    over each row's mask and, with a softcap, with dS missing its
    (1 - tanh^2). The library time is ``torch.autograd.grad`` through
    ``scaled_dot_product_attention`` with the same mask or, where a case
-   has a softcap, through compiled ``flex_attention``.
+   has a softcap, through compiled ``flex_attention``. A ``torch.profiler``
+   trace of one call of each case names the kernels that ran: a bf16 case
+   fails unless it ran the tensor-core kernels and no FMA dK/dV or dQ
+   kernel (D <= BWD_MMA_MAX_D), or the FMA kernels past that D.
    Each kernel redesigned for Hopper (the float64 matmul and flash
    attention on the tensor cores, the selective scan as a chunked scan
-   parallel in L) is printed beside its time before the redesign; the
+   parallel in L, the bf16 backward on the tensor cores) is printed
+   beside its time before the redesign; the
    float32 scan's bound includes its SFU roof (its exps at the SFU's
    rate), printed beside it.
 4. The main paths at full size, each compiled by
@@ -447,23 +452,35 @@ SCAN_CASES = [
     ("jamba_served", (1, max(JAMBA_LENS), 16384, 16), "float32", True)]
 
 # the most spill bytes (stores, loads) ptxas may report for a function,
-# by the pattern of the mangled names checked: none for the float64
-# (DMMA) kernels of matmul (namespace f64) and every instantiation of
-# flash attention and of the scan; for the flash attention's backward,
-# the most it spilled when it was written (its bf16 dK/dV kernels at
-# two head-dim tiers: 8/32 and 4/4 bytes; PERF.md, section 6)
-SPILL_MAX = {"matmul": (r"3f64\d+\w*_kernel", (0, 0)),
-             "flash_attention": (r"flash_kernel", (0, 0)),
-             "mamba_scan": (r"scan_kernel", (0, 0)),
-             "flash_attention_bwd": (r"_kernel", (8, 32))}
-# main-path chunk times before each kernel's Hopper redesign (PERF.md
-# section 6), printed beside this run's: (ms, the commit and run of
-# chip_smoke.py they come from)
+# by patterns of the mangled names checked (each must match a function):
+# none for the float64 (DMMA) kernels of matmul (namespace f64), every
+# instantiation of flash attention and of the scan, and the flash
+# attention backward's bf16 tensor-core kernels (mma_dkdv_kernel,
+# mma_dq_kernel); for the backward's FMA kernels (float64, float32, bf16
+# past BWD_MMA_MAX_D), the most they spilled when they were written (bf16
+# dK/dV at two head-dim tiers: 8/32 and 4/4 bytes; PERF.md, section 6)
+SPILL_MAX = {"matmul": [(r"3f64\d+\w*_kernel", (0, 0))],
+             "flash_attention": [(r"flash_kernel", (0, 0))],
+             "mamba_scan": [(r"scan_kernel", (0, 0))],
+             "flash_attention_bwd": [(r"mma_d\w+_kernel", (0, 0)),
+                                     (r"\d(?:dkdv|dq|delta)_kernel",
+                                      (8, 32))]}
+# the backward runs bf16 up to this head dim on the tensor-core kernels
+# and past it on the FMA kernels (csrc/flash_attention_bwd.cu's
+# MMA_MAX_D, a static choice by D); phase 3 checks by name which ran
+BWD_MMA_MAX_D = 128
+# times before each kernel's Hopper redesign (PERF.md section 6), printed
+# beside this run's: (case, ms, the commit and run of chip_smoke.py they
+# come from)
 EARLIER_MS = {
-    "matmul": (2.271, "commit a5ae05a run 4, H100 80GB HBM3, 700 W"),
-    "flash_attention": (1.347, "commit a5ae05a run 4, H100 80GB HBM3, "
+    "matmul": ("chunk", 2.271, "commit a5ae05a run 4, H100 80GB HBM3, "
                                "700 W"),
-    "mamba_scan": (1.588, "commit d9c8578 run 6, H100 80GB HBM3, 700 W")}
+    "flash_attention": ("chunk", 1.347, "commit a5ae05a run 4, H100 80GB "
+                                        "HBM3, 700 W"),
+    "flash_attention_bwd": ("stablelm", 48.073, "commit 58c7205 run 5, "
+                                                "H100 80GB HBM3, 700 W"),
+    "mamba_scan": ("chunk", 1.588, "commit d9c8578 run 6, H100 80GB HBM3, "
+                                   "700 W")}
 
 # max |kernel - plain| allowed, scaled like tests/test_kernels.py: the
 # f32/bf16 tolerance applies both absolutely and relative to |plain|
@@ -1050,6 +1067,7 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
             q, k, v, o, do, lse, **opts)
         plain_fn = lambda: fa_ref.flash_attention_bhsd_bwd_ref(  # noqa: E731
             q, k, v, o, do, lse, **opts)
+        ran = _bwd_route(torch, label, dname, d, kernel_fn)
         want = plain_fn()
         errs, ok = _bwd_within(torch, got, want, dname)
         scales = {n: float(w.double().abs().max())
@@ -1090,7 +1108,7 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
         library_fn = None
         extra = {"errs": errs, "scales": scales, "lse_max_abs_err": lse_err,
                  "o_max_abs_err": o_err, "whole_path_norm_err": whole,
-                 "controls": controls}
+                 "controls": controls, "kernels_run": ran}
         flex = bool(window or cap)
         extra["library"] = "torch.autograd.grad through " + (
             "flex_attention (compiled)" if flex
@@ -1143,6 +1161,34 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
             faulty
         torch.cuda.empty_cache()
     return out
+
+
+def _bwd_route(torch, label, dname, d, kernel_fn) -> dict:
+    """{kernel: launches} of one backward call, by name from
+    ``torch.profiler``. A bf16 case must have run the tensor-core kernels
+    (mma_dkdv_kernel, mma_dq_kernel) and no FMA dK/dV or dQ kernel up to
+    BWD_MMA_MAX_D, and the FMA kernels past it; fails otherwise."""
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        kernel_fn()
+        torch.cuda.synchronize()
+    ran = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            found = re.search(r"(\w+_kernel)\b", e.name)
+            name = found.group(1) if found else e.name
+            ran[name] = ran.get(name, 0) + 1
+    print(f"flash_attention_bwd {label} {dname}: kernels run {ran}",
+          flush=True)
+    if dname == "bfloat16":
+        mma = {"mma_dkdv_kernel", "mma_dq_kernel"}
+        fma = {"dkdv_kernel", "dq_kernel"}
+        want, not_want = (mma, fma) if d <= BWD_MMA_MAX_D else (fma, mma)
+        if not want <= set(ran) or not_want & set(ran):
+            raise AssertionError(f"flash_attention_bwd {label} {dname} (D = "
+                                 f"{d}): ran {sorted(ran)}, not {sorted(want)}"
+                                 f" alone")
+    return ran
 
 
 def _bwd_inputs(torch, rng, bh, sq, skv, d, dt):
@@ -2727,16 +2773,17 @@ def main() -> int:
             if "registers" in line or "spill" in line \
                     or "Compiling entry" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
-        pattern, (stores, loads) = SPILL_MAX[name]
-        found = spills(log, pattern)
-        print(f"  checked functions of {name}: {len(found)}, spill bytes "
-              f"(stores, loads) {sorted(set(found.values()))}, at most "
-              f"{(stores, loads)}", flush=True)
-        if not found or any(s > stores or ld > loads
-                            for s, ld in found.values()):
-            raise AssertionError(f"{name}: ptxas reports spills over "
-                                 f"{(stores, loads)} (or no checked "
-                                 f"function): {found}")
+        for pattern, (stores, loads) in SPILL_MAX[name]:
+            found = spills(log, pattern)
+            print(f"  checked functions of {name} ({pattern}): "
+                  f"{len(found)}, spill bytes (stores, loads) "
+                  f"{sorted(set(found.values()))}, at most "
+                  f"{(stores, loads)}", flush=True)
+            if not found or any(s > stores or ld > loads
+                                for s, ld in found.values()):
+                raise AssertionError(f"{name}: ptxas reports spills over "
+                                     f"{(stores, loads)} (or no checked "
+                                     f"function) in {pattern}: {found}")
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. kernels against their plain versions
@@ -2745,10 +2792,10 @@ def main() -> int:
              "flash_attention_bwd": check_flash_bwd(torch, fa, fa_ref),
              "mamba_scan": check_scan(torch, sc,
                                             mamba_scan_promoted_ref)}
-    for name, (before, run) in EARLIER_MS.items():
-        chunk = cases[name][0]
-        print(f"{name} chunk {chunk['dtype']} {chunk['shape']}: "
-              f"{chunk['ms']:.3f} ms redesigned for Hopper, {before:.3f} "
+    for name, (label, before, run) in EARLIER_MS.items():
+        row = next(c for c in cases[name] if c["case"] == label)
+        print(f"{name} {label} {row['dtype']} {row['shape']}: "
+              f"{row['ms']:.3f} ms redesigned for Hopper, {before:.3f} "
               f"ms before ({run})", flush=True)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -1,0 +1,194 @@
+"""Time the bf16 flash-attention backward of this checkout against other
+checkouts' on one GPU, interleaved (the others, this, this, the others in
+reverse), beside ``torch.autograd.grad`` through
+``scaled_dot_product_attention`` (the library call; the port never calls
+it).
+
+    PYTHONPATH=src python3 -m repro_torch.kernels.flash_attention.bwd_ab \\
+        [OTHER_CHECKOUT ...]
+
+Each checkout builds its own ``flash_attention.cu`` and
+``flash_attention_bwd.cu`` with its own ``kernels/build.py`` (in a
+subprocess, so its headers are its own) into its own ``build/kernels/``;
+this process loads every library and calls its C entries on the same
+inputs: this checkout's forward gives o and lse once, then each
+checkout's ``flash_attention_bwd_bf16`` computes (dq, dk, dv). Cases: a
+stablelm_3b layer as training runs it (64 batch-heads, S = 4096, D = 80,
+causal) and seamless_m4t_medium's encoder and cross attention (32, S =
+4096, D = 64, not causal), inputs drawn as ``chip_smoke.py`` phase 3
+draws them (q at standard deviation 3, every 4th row at 40; k, v, dO
+N(0, 1)). It prints one JSON line per case and round (mean CUDA-event
+time over 10 launches after a warm-up), each checkout's device time by
+kernel over one call (``torch.profiler``), each checkout's largest
+difference from this checkout's gradients and, on the first 4
+batch-heads, this checkout's largest difference and norm error against
+the plain backward (``ref.flash_attention_bhsd_bwd_ref``), the bound
+(five products of 2 D operations a valid pair at 989 TFLOP/s) and the
+card's name and power limit. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+_BUILD = ("import json, sys; from pathlib import Path; "
+          "from repro_torch.kernels import build; "
+          "print(json.dumps([str(build.build(Path(s))[0]) "
+          "for s in sys.argv[1:]]))")
+_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
+# (label, (BH, Sq, Skv, D), causal)
+CASES = [("stablelm", (64, 4096, 4096, 80), True),
+         ("seamless_enc_cross", (32, 4096, 4096, 64), False)]
+PEAK_BF16 = 989e12
+REPS = 10
+
+
+def _library(root: Path) -> ctypes.CDLL:
+    """The backward's library of the checkout at ``root``."""
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    out = subprocess.run([sys.executable, "-c", _BUILD, str(root / _SOURCE)],
+                         cwd=root, env=env, capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"build in {root} failed:\n{out.stderr}")
+    lib = ctypes.CDLL(json.loads(out.stdout.splitlines()[-1])[0])
+    fn = lib.flash_attention_bwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _time_ms(torch, fn, reps: int = REPS) -> float:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _by_kernel(torch, fn) -> dict:
+    """{kernel name: device ms} of one call of ``fn`` (torch.profiler)."""
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            found = re.search(r"(\w+_kernel)\b", e.name)
+            name = found.group(1) if found else e.name[:60]
+            times[name] = times.get(name, 0.0) + e.device_time_total / 1e3
+    return times
+
+
+def _inputs(torch, rng, bh, sq, skv, d):
+    import numpy as np
+    pushed = np.arange(sq) % 4 == 0
+    std = np.where(pushed, 40.0, 3.0)[None, :, None]
+    q = std * rng.normal(size=(bh, sq, d))
+    k, v = (rng.normal(size=(bh, skv, d)) for _ in range(2))
+    do = rng.normal(size=(bh, sq, d))
+    return tuple(torch.from_numpy(t).to("cuda", torch.bfloat16).contiguous()
+                 for t in (q, k, v, do))
+
+
+def main(argv) -> int:
+    import numpy as np
+    import torch
+
+    from . import flash_attention as fa
+    from .ref import flash_attention_bhsd_bwd_ref
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    here = Path(__file__).resolve().parents[4]
+    roots = [Path(a).resolve() for a in argv] + [here]
+    with ThreadPoolExecutor(len(roots)) as pool:    # one nvcc each, at once
+        libs = dict(zip(map(str, roots), pool.map(_library, roots)))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rng = np.random.default_rng(5)
+    for label, (bh, sq, skv, d), causal in CASES:
+        q, k, v, do = _inputs(torch, rng, bh, sq, skv, d)
+        o, lse = fa.flash_attention_bhsd(q, k, v, causal=causal,
+                                         return_lse=True)
+        delta = torch.empty_like(lse)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call(lib, out):
+            err = lib.flash_attention_bwd_bf16(
+                *(t.data_ptr() for t in (q, k, v, o, do, lse, delta,
+                                         *out)),
+                bh, sq, skv, d, int(causal), 0, 0.0, stream)
+            if err:
+                raise RuntimeError(f"launch failed ({err})")
+
+        grads = {r: tuple(torch.empty_like(t) for t in (q, k, v))
+                 for r in libs}
+        for r, lib in libs.items():
+            call(lib, grads[r])
+        torch.cuda.synchronize()
+        mine = grads[str(here)]
+        diffs = {r: max(float((a.double() - b.double()).abs().max())
+                        for a, b in zip(g, mine))
+                 for r, g in grads.items()}
+        n = min(4, bh)
+        want = flash_attention_bhsd_bwd_ref(q[:n], k[:n], v[:n], o[:n],
+                                            do[:n], lse[:n], causal=causal)
+        plain = {name: [float((g[:n].double() - w.double()).abs().max()),
+                        float((g[:n].double() - w.double()).norm()
+                              / w.double().norm())]
+                 for name, g, w in zip(("dq", "dk", "dv"), mine, want)}
+        # one head per batch row of the (BH, S, D) layout, as chip_smoke.py
+        qs, ks, vs = (t.detach()[None].requires_grad_(True)
+                      for t in (q, k, v))
+        out = sdpa(qs, ks, vs, is_causal=causal)
+
+        def library():
+            torch.autograd.grad(out, (qs, ks, vs), do[None],
+                                retain_graph=True)
+
+        pairs = bh * (sq * (sq + 1) // 2 if causal else sq * skv)
+        bound_ms = 10.0 * pairs * d / PEAK_BF16 * 1e3
+        order = list(libs) + list(reversed(libs))
+        for rnd, r in enumerate(order):
+            ms = _time_ms(torch, lambda: call(libs[r], grads[r]))
+            print(json.dumps({"case": label, "shape": [bh, sq, skv, d],
+                              "causal": causal, "round": rnd,
+                              "checkout": r, "ms": ms}), flush=True)
+        for r in libs:
+            print(json.dumps({"case": label, "checkout": r,
+                              "kernels_ms": _by_kernel(
+                                  torch, lambda: call(libs[r], grads[r]))}),
+                  flush=True)
+        lib_ms = _time_ms(torch, library)
+        print(json.dumps({"case": label, "library_ms": lib_ms,
+                          "bound_ms": bound_ms,
+                          "max_diff_from_this": diffs,
+                          "this_vs_plain_first_heads": plain,
+                          "card": card}), flush=True)
+        del q, k, v, do, o, lse, delta, grads, mine, want, out, qs, ks, vs
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

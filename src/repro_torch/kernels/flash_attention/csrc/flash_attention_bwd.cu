@@ -18,32 +18,95 @@
 //   dK = dSᵀ Q · scale,  dQ = dS K · scale
 //
 // Three kernels, launched in turn on the caller's stream by one C entry:
-// delta_kernel (a warp per query row); dkdv_kernel, one block per
-// (batch-head, tile of 16·TA keys) that walks the query tiles its keys can
-// be seen from and keeps its dK and dV rows in registers; dq_kernel, one
-// block per (batch-head, tile of 16·TA query rows) that walks the key
-// tiles its rows see (the forward's bounds) and keeps its dQ rows in
-// registers. Both recompute S and dO Vᵀ from shared tiles. No block writes
-// what another block writes and nothing is atomic, so a rerun gives the
-// same bits.
-//
-// Design: the forward's FMA kernel, twice. 256 threads as 16 x 16; thread
-// (ty, tx) owns rows ty + 16a (a < TA) of the block's own tile and
-// columns tx + 16c (c < NC, NC = ceil(D / 16) rounded up to an
-// instantiated size) of its accumulators, and the pairs (ty + 16a,
-// tx + 16b) of each score tile (b < TB). Tiles live in shared memory in
-// the accumulation type with rows of D + 1 values (conflict-free column
-// reads); P and dS pass through two small shared tiles. Float64 takes
-// TB = 1 (16 rows a step), so the tiles of D = 288 fit the 227 KB a block
-// may have; float32 and bf16 take TB = 2. No wgmma, TMA or DMMA yet: a
-// later design.
+// the preamble (a warp per query row); a dK/dV kernel, one block per
+// (batch-head, tile of keys) that walks the query tiles its keys can be
+// seen from and keeps its dK and dV rows in registers; a dQ kernel, one
+// block per (batch-head, tile of query rows) that walks the key tiles its
+// rows see (the forward's bounds) and keeps its dQ rows in registers. Both
+// recompute S and dO Vᵀ. No block writes what another block writes and
+// nothing is atomic, so a rerun gives the same bits (the training's resume
+// compares loss bits across a restart).
 //
 // Bound on an H100 SXM: 5 products of 2·D operations for each valid
 // (query, key) pair (S, dO Vᵀ, dV, dK, dQ) against (4 Sq + 4 Skv) D
 // values moved: bound by operations at a training layer's shapes (S =
-// 4096: ~1000 operations a byte). This design computes 7 products a pair
-// (dq_kernel recomputes S and dO Vᵀ) on the FMA pipes, at about one
-// shared-memory read per FMA.
+// 4096: ~1000 operations a byte), on the bf16 tensor cores 989 TFLOP/s.
+// The design computes 7 products a pair, 8 on the tensor cores: dq's
+// kernel recomputes S and dO Vᵀ, since a dQ summed across the dK/dV
+// blocks needs atomics (other bits each run) or a workspace of one dQ
+// per key tile (gigabytes at a training layer's shape); and dK takes dS
+// in two bf16 parts (below).
+//
+// bf16, D <= 128: the tensor cores (mma_dkdv_kernel, mma_dq_kernel).
+// Every product is mma.sync m16n8k16 (bf16 in, float32 accumulation; the
+// helpers are kernels/csrc/mma_bf16.cuh):
+//   - dK/dV: a block of 8 warps owns 128 keys, a warp 16 of them, and
+//     walks BR query rows a step. Sᵀ = K Qᵀ and dPᵀ = V dOᵀ land in
+//     float32 fragments; P and dS are computed there (grad_pair's math,
+//     the exponent in base 2: grad_pair2); their fragments, rounded to
+//     bf16, are the A operands of dV += Pᵀ dO and dK += dSᵀ Q without
+//     passing through shared memory (an accumulator's layout is the A
+//     fragment's).
+//   - dQ: a block of 4 warps owns 64 query rows, a warp 16, and walks 64
+//     keys a step: S = Q Kᵀ, dP = dO Vᵀ, dS in registers, dQ += dS
+//     K. Blocks run from the last rows, which walk the most keys under a
+//     causal mask.
+//   - P and dS go into their second products rounded to bf16, as SDPA's
+//     backward does, but dK takes dS as its rounding plus the rounding's
+//     rest (two products, dS to ~16 bits): a query row drawn far larger
+//     than the rest (a pushed row) multiplies dS's rounding into dK beyond
+//     the 2e-2 element tolerance the kernel is held to, which an
+//     emulation of the single rounding crossed (2.6 times it at
+//     stablelm's shape), the two parts do not (0.37). The second part
+//     costs ~7 % of the time.
+//   - The walked tile (Q and dO; K and V) is double-buffered: the next
+//     step's 16-byte cp.async copies fly while the step computes. The
+//     own tile stays in shared memory for the whole walk.
+//   - Shared tiles hold bf16 rows padded with zeros to DP, D rounded up to
+//     a multiple of 16 of at least 32 (one instantiation each), at a
+//     stride of DP + 8: an odd number of 16-byte chunks, so the 8 rows an
+//     ldmatrix block reads start in 8 different bank quads and ldmatrix /
+//     ldmatrix.trans read without conflicts at every DP. (An XOR swizzle
+//     of the chunks needs 8 chunks a row: D = 80 has 10.) Rows of D % 8 !=
+//     0, or operands not 16-byte aligned, are copied element by element.
+//   - The element mask runs only on steps that cross the causal diagonal,
+//     the window's edge or the ragged end (a warp-uniform test); the
+//     tile bounds are the FMA kernels'. The softcap is a template
+//     argument: tested in the element loop it cost ~7 %.
+//   - Tiles and registers, chosen on an H100 with kernels/flash_attention/
+//     bwd_ab.py at stablelm's (D = 80) and seamless's (D = 64) training
+//     shapes (PERF.md section 6), times of the whole backward:
+//     * BR = 64 up to DP = 80, 32 above (at DP = 128 the dK and dV
+//       accumulators alone take 128 registers a thread): 64 rows against
+//       32 took the D = 80 case from 4.12 to 3.87 ms.
+//     * A warp keeps its 16 rows' A fragments of the own tile (K and V; Q
+//       and dO) in registers instead of reading them at every step where
+//       that neither spills nor costs a block an SM: dK/dV up to DP = 80
+//       (64 with the softcap; 3.92 -> 3.65 ms at D = 80), dQ up to DP =
+//       32.
+//     * dQ is bounded to 3 blocks an SM up to DP = 80 (168 registers; 2
+//       above): at 174 registers (DP = 64 with its fragments held) it ran
+//       2 blocks an SM and took 1.47 ms of seamless's case, against 1.05
+//       at 3 blocks, which spilled 4 bytes; without the held fragments
+//       1.26.
+//     * dK/dV blocks of 8 warps rather than 4 (one block an SM either way,
+//       at 246-254 registers): the Q and dO tiles feed twice the keys a
+//       copy; 3.20 -> 3.10 ms at D = 80, 2.69 -> 2.59 at D = 64.
+//     * ex2.approx.ftz for P (ex2_ftz) rather than exp2f: 3.61 -> 3.11
+//       ms at D = 80.
+//
+// Every other case (float64, float32, and bf16 with D > 128: gemma2_2b's
+// 288) runs the FMA kernels dkdv_kernel and dq_kernel, chosen statically
+// by dtype and D in launch(). 256 threads as 16 x 16; thread (ty, tx)
+// owns rows ty + 16a (a < TA) of the block's own tile and columns tx + 16c
+// (c < NC, NC = ceil(D / 16) rounded up to an instantiated size) of its
+// accumulators, and the pairs (ty + 16a, tx + 16b) of each score tile
+// (b < TB). Tiles live in shared memory in the accumulation type with rows
+// of D + 1 values (conflict-free column reads); P and dS pass through two
+// small shared tiles. Float64 takes TB = 1 (16 rows a step), so the tiles
+// of D = 288 fit the 227 KB a block may have; float32 and bf16 take TB =
+// 2. At D = 288 the tensor-core design's dK and dV rows (16 keys x 288
+// columns x 2 in float32) would take 288 registers a thread.
 //
 // Types: double in, double accumulation; float in, float; bf16 in, float.
 // Rows with no valid key (a window that lies past the last key) are not
@@ -57,11 +120,16 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
+
+#include "dmma.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;        // 16 row groups x 16 column groups
 constexpr int MAX_D = 288;          // gemma2_2b: 2304 / 8 heads
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename Acc, typename T>
 __device__ __forceinline__ Acc to_acc(T v) { return static_cast<Acc>(v); }
@@ -156,6 +224,42 @@ __device__ __forceinline__ void grad_pair(Acc s, Acc dp, bool ok, Acc lse,
   const Acc p = ok ? ex(x - lse) : Acc(0);
   Acc ds = ok ? p * (dp - delta) : Acc(0);
   if (softcap > Acc(0)) ds *= Acc(1) - t * t;
+  *p_out = p;
+  *ds_out = ds;
+}
+
+// 2^x on the SFU, results below 2^-126 flushed to 0 (exp2f keeps them,
+// at several instructions more an element: 15 % of the backward's time)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// grad_pair in base 2, for the tensor-core kernels: P = 2^(x log2 e -
+// lse log2 e), the exponent one FMA from the raw score s (scale2 = scale
+// log2 e, lse2 = lse log2 e) and the power ex2_ftz, where expf takes
+// several instructions more; P's relative error from the rounded
+// exponent (~|x - lse| 2^-24) and from ex2 (~2^-22) lies far below the
+// bf16 rounding P then takes, and a P below 2^-126 adds nothing a bf16
+// sum of the gradients keeps. CAP: with the softcap (a template argument
+// of the kernels: a branch on the softcap in the element loop costs
+// registers and time)
+template <bool CAP>
+__device__ __forceinline__ void grad_pair2(float s, float dp, bool ok,
+                                           float lse2, float delta,
+                                           float scale, float scale2,
+                                           float softcap, float* p_out,
+                                           float* ds_out) {
+  float e2 = s * scale2 - lse2;
+  float t = 0.0f;
+  if constexpr (CAP) {
+    t = tanhf(s * scale / softcap);
+    e2 = t * softcap * LOG2E - lse2;
+  }
+  const float p = ok ? ex2_ftz(e2) : 0.0f;
+  float ds = ok ? p * (dp - delta) : 0.0f;
+  if constexpr (CAP) ds *= 1.0f - t * t;
   *p_out = p;
   *ds_out = ds;
 }
@@ -396,6 +500,414 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 on the tensor cores (D <= MMA_MAX_D)
+// ---------------------------------------------------------------------
+
+// a dK/dV block: KV_WARPS warps, 16 keys each; a dQ block: Q_THREADS
+// threads, 16 query rows a warp, walking Q_STEP keys a step
+constexpr int KV_WARPS = 8;
+constexpr int KV_THREADS = 32 * KV_WARPS;
+constexpr int KV_KEYS = 16 * KV_WARPS;
+constexpr int Q_THREADS = 128;
+constexpr int Q_ROWS = 16 * (Q_THREADS / 32);
+constexpr int Q_STEP = 64;
+constexpr int MMA_MAX_D = 128;
+
+// rows of a shared bf16 tile padded to DP columns: DP + 8 elements, an odd
+// number of 16-byte chunks, so the 8 rows that one ldmatrix block reads
+// start in 8 different bank quads
+template <int DP>
+__host__ __device__ constexpr int mma_ld() { return DP + 8; }
+
+// copies rows [r0, r0 + ROWS) of a row-major (n, d) bf16 matrix into a
+// ROWS x (DP + 8) shared tile; elements past row n or column d are zero.
+// With vec (d % 8 == 0 and a 16-byte aligned src), 16-byte cp.async copies
+// that the caller commits and waits for; else element by element.
+template <int ROWS, int DP, int THREADS>
+__device__ __forceinline__ void mma_stage(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          int r0, int n, int d, bool vec,
+                                          int tid) {
+  constexpr int LD = mma_ld<DP>();
+  if (vec) {
+    constexpr int CH = DP / 8;          // 16-byte chunks a row
+#pragma unroll 1
+    for (int e = tid; e < ROWS * CH; e += THREADS) {
+      const int r = e / CH;
+      const int c = 8 * (e - r * CH);
+      const bool ok = r0 + r < n && c < d;
+      const __nv_bfloat16* from =
+          ok ? src + (int64_t)(r0 + r) * d + c : src;
+      dmma::copy16(dst + r * LD + c, from, ok);
+    }
+  } else {
+#pragma unroll 1
+    for (int e = tid; e < ROWS * DP; e += THREADS) {
+      const int r = e / DP;
+      const int c = e - r * DP;
+      dst[r * LD + c] = (r0 + r < n && c < d)
+          ? src[(int64_t)(r0 + r) * d + c] : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+// the A fragments of a warp's 16 rows of a shared tile, DP / 16 blocks of
+// 16 columns; the kernels keep their own tile's in registers for the walk
+template <int DP>
+__device__ __forceinline__ void mma_load_a(uint32_t (&f)[DP / 16][4],
+                                           const __nv_bfloat16* rows,
+                                           int lane) {
+  constexpr int LD = mma_ld<DP>();
+  const int o = mma_bf16::a_row(lane) * LD + mma_bf16::a_col(lane);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    mma_bf16::ldmatrix_x4(f[kk], rows + o + 16 * kk);
+}
+
+// the raw scores and dO . V of one warp's 16 own rows of shared tiles x1,
+// x2 against NT * 8 walked rows of shared tiles y1, y2, each a float32 C
+// fragment: s = x1 y1ᵀ, dp = x2 y2ᵀ (in mma_dkdv_kernel x = (K, V), y =
+// (Q, dO), giving Sᵀ and dPᵀ; in mma_dq_kernel x = (Q, dO), y = (K, V),
+// giving S and dP). With HOLD the own rows' A fragments come from x1f,
+// x2f (mma_load_a), else from x1, x2 at every call.
+template <int DP, int NT, bool HOLD>
+__device__ __forceinline__ void mma_pair_products(
+    const uint32_t (&x1f)[HOLD ? DP / 16 : 1][4],
+    const uint32_t (&x2f)[HOLD ? DP / 16 : 1][4],
+    const __nv_bfloat16* x1, const __nv_bfloat16* x2,
+    const __nv_bfloat16* y1, const __nv_bfloat16* y2, int lane,
+    float (&s)[NT][4], float (&dp)[NT][4]) {
+  constexpr int LD = mma_ld<DP>();
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+  const int xo = mma_bf16::a_row(lane) * LD + mma_bf16::a_col(lane);
+  const int yo = mma_bf16::b_row(lane) * LD + mma_bf16::b_col(lane);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t a1[4], a2[4];
+    if constexpr (HOLD) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a1[i] = x1f[kk][i];
+        a2[i] = x2f[kk][i];
+      }
+    } else {
+      mma_bf16::ldmatrix_x4(a1, x1 + xo + 16 * kk);
+      mma_bf16::ldmatrix_x4(a2, x2 + xo + 16 * kk);
+    }
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      uint32_t b[4];
+      mma_bf16::ldmatrix_x4(b, y1 + 16 * jp * LD + yo + 16 * kk);
+      mma_bf16::mma(s[2 * jp], a1, b[0], b[1]);
+      mma_bf16::mma(s[2 * jp + 1], a1, b[2], b[3]);
+      mma_bf16::ldmatrix_x4(b, y2 + 16 * jp * LD + yo + 16 * kk);
+      mma_bf16::mma(dp[2 * jp], a2, b[0], b[1]);
+      mma_bf16::mma(dp[2 * jp + 1], a2, b[2], b[3]);
+    }
+  }
+}
+
+// dK and dV of the KV_KEYS keys from k0 of batch-head blockIdx.y: warp w
+// owns keys k0 + 16w .. + 15 and walks BR query rows a step; with HOLD it
+// keeps its keys' K and V fragments in registers; CAP: with the softcap
+template <int DP, int BR, bool HOLD, bool CAP>
+__global__ void __launch_bounds__(KV_THREADS)
+mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const __nv_bfloat16* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dk,
+                __nv_bfloat16* __restrict__ dv, int sq, int skv, int d,
+                float scale, int causal, int window, float softcap,
+                int vec) {
+  constexpr int LD = mma_ld<DP>();
+  constexpr int NT = BR / 8;          // 8-row tiles of the walked rows
+  constexpr int DT = DP / 8;          // 8-column tiles of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + KV_KEYS * LD;
+  __nv_bfloat16* qs = vs + KV_KEYS * LD;             // 2 x BR x LD
+  __nv_bfloat16* dos = qs + 2 * BR * LD;             // 2 x BR x LD
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * BR * LD);  // 2 x BR
+  float* del_s = lse_s + 2 * BR;                                // 2 x BR
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int64_t bh = blockIdx.y;
+  const int k0 = blockIdx.x * KV_KEYS;
+  const int kw = k0 + 16 * warp;                     // the warp's keys
+  const float scale2 = scale * LOG2E;
+  const __nv_bfloat16* qb = q + bh * sq * d;
+  const __nv_bfloat16* dob = dout + bh * sq * d;
+  const float* lb = lse + bh * sq;
+  const float* db = delta + bh * sq;
+
+  // the query rows that see a key of the block (as dkdv_kernel)
+  const int k_last = min(k0 + KV_KEYS, skv) - 1;
+  int q_begin = causal ? k0 : 0;
+  const int q_end = window > 0 ? min(sq, k_last + window) : sq;
+  q_begin = (q_begin / BR) * BR;
+
+  auto load_rows = [&](int qt, int buf) {
+    mma_stage<BR, DP, KV_THREADS>(qs + buf * BR * LD, qb, qt, sq, d, vec,
+                                  tid);
+    mma_stage<BR, DP, KV_THREADS>(dos + buf * BR * LD, dob, qt, sq, d, vec,
+                                  tid);
+    if (tid < BR) {
+      lse_s[buf * BR + tid] = qt + tid < sq ? lb[qt + tid] * LOG2E : 0.0f;
+      del_s[buf * BR + tid] = qt + tid < sq ? db[qt + tid] : 0.0f;
+    }
+  };
+  mma_stage<KV_KEYS, DP, KV_THREADS>(ks, k + bh * skv * d, k0, skv, d, vec,
+                                     tid);
+  mma_stage<KV_KEYS, DP, KV_THREADS>(vs, v + bh * skv * d, k0, skv, d, vec,
+                                     tid);
+  if (q_begin < q_end) load_rows(q_begin, 0);
+  dmma::commit();
+
+  float gk[DT][4], gv[DT][4];
+#pragma unroll
+  for (int c = 0; c < DT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[c][e] = gv[c][e] = 0.0f;
+
+  // the warp's K and V fragments, once the first copies have landed
+  dmma::wait<0>();
+  __syncthreads();
+  const __nv_bfloat16* kw_s = ks + 16 * warp * LD;
+  const __nv_bfloat16* vw_s = vs + 16 * warp * LD;
+  uint32_t kf[HOLD ? DP / 16 : 1][4], vf[HOLD ? DP / 16 : 1][4];
+  if constexpr (HOLD) {
+    mma_load_a<DP>(kf, kw_s, lane);
+    mma_load_a<DP>(vf, vw_s, lane);
+  }
+  const int to = mma_bf16::a_row(lane) * LD + mma_bf16::a_col(lane);
+  int buf = 0;
+#pragma unroll 1
+  for (int qt = q_begin; qt < q_end; qt += BR, buf ^= 1) {
+    dmma::wait<0>();            // this thread's copies of the step's rows
+    __syncthreads();            // everyone's; the last step is done
+    if (qt + BR < q_end) load_rows(qt + BR, buf ^ 1);
+    dmma::commit();             // the next rows' copies overlap this step
+    const __nv_bfloat16* qc = qs + buf * BR * LD;
+    const __nv_bfloat16* doc = dos + buf * BR * LD;
+    const float* lc = lse_s + buf * BR;
+    const float* dc = del_s + buf * BR;
+
+    float s[NT][4], dp[NT][4];
+    mma_pair_products<DP, NT, HOLD>(kf, vf, kw_s, vw_s, qc, doc, lane, s,
+                                    dp);
+
+    // Pᵀ and dSᵀ in place; the element mask only where the warp's keys
+    // and the step's rows are not all valid pairs
+    const bool edge = kw + 16 > skv || qt + BR > sq
+        || (causal && qt < kw + 15)
+        || (window > 0 && qt + BR - 1 - window >= kw);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * j + 2 * t + (e & 1);
+        const int kp = kw + g + 8 * (e >> 1);
+        const bool ok = !edge
+            || (kp < skv && qt + r < sq && valid(qt + r, kp, causal, window));
+        grad_pair2<CAP>(s[j][e], dp[j][e], ok, lc[r], dc[r], scale, scale2,
+                        softcap, &s[j][e], &dp[j][e]);
+      }
+
+    // dV += Pᵀ dO and dK += dSᵀ Q, 16 query rows at a time; dS goes in as
+    // its bf16 rounding plus the rounding's rest
+#pragma unroll
+    for (int kq = 0; kq < BR / 16; ++kq) {
+      uint32_t pa[4], da[4], dr[4];
+      mma_bf16::pack_a(pa, s[2 * kq], s[2 * kq + 1]);
+      mma_bf16::pack_a(da, dp[2 * kq], dp[2 * kq + 1]);
+      mma_bf16::pack_a_rest(dr, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+      for (int c = 0; c < DT / 2; ++c) {
+        uint32_t b[4];
+        mma_bf16::ldmatrix_x4_trans(b, doc + 16 * kq * LD + to + 16 * c);
+        mma_bf16::mma(gv[2 * c], pa, b[0], b[1]);
+        mma_bf16::mma(gv[2 * c + 1], pa, b[2], b[3]);
+        mma_bf16::ldmatrix_x4_trans(b, qc + 16 * kq * LD + to + 16 * c);
+        mma_bf16::mma(gk[2 * c], da, b[0], b[1]);
+        mma_bf16::mma(gk[2 * c + 1], da, b[2], b[3]);
+        mma_bf16::mma(gk[2 * c], dr, b[0], b[1]);
+        mma_bf16::mma(gk[2 * c + 1], dr, b[2], b[3]);
+      }
+    }
+  }
+
+  __nv_bfloat16* dkb = dk + bh * skv * d;
+  __nv_bfloat16* dvb = dv + bh * skv * d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = kw + g + 8 * h;
+    if (r >= skv) continue;
+#pragma unroll
+    for (int c = 0; c < DT; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * c + 2 * t + e;
+        if (col < d) {
+          dkb[(int64_t)r * d + col] =
+              __float2bfloat16(gk[c][2 * h + e] * scale);
+          dvb[(int64_t)r * d + col] = __float2bfloat16(gv[c][2 * h + e]);
+        }
+      }
+  }
+}
+
+// dQ of the Q_ROWS query rows from q0 of batch-head blockIdx.y: warp w
+// owns rows q0 + 16w .. + 15 and walks Q_STEP keys a step; with HOLD it
+// keeps its rows' Q and dO fragments in registers; CAP: with the softcap;
+// MINB blocks must fit an SM (the register budget)
+template <int DP, bool HOLD, bool CAP, int MINB>
+__global__ void __launch_bounds__(Q_THREADS, MINB)
+mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              __nv_bfloat16* __restrict__ dq, int sq, int skv, int d,
+              float scale, int causal, int window, float softcap, int vec) {
+  constexpr int LD = mma_ld<DP>();
+  constexpr int NT = Q_STEP / 8;      // 8-key tiles of a step
+  constexpr int DT = DP / 8;          // 8-column tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dos = qs + Q_ROWS * LD;
+  __nv_bfloat16* ks = dos + Q_ROWS * LD;             // 2 x Q_STEP x LD
+  __nv_bfloat16* vs = ks + 2 * Q_STEP * LD;          // 2 x Q_STEP x LD
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int64_t bh = blockIdx.y;
+  // the last rows first: under a causal mask they walk the most keys
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * Q_ROWS;
+  const int qw = q0 + 16 * warp;                     // the warp's rows
+  const float scale2 = scale * LOG2E;
+  const __nv_bfloat16* kb = k + bh * skv * d;
+  const __nv_bfloat16* vb = v + bh * skv * d;
+
+  // the keys the block's rows see (as dq_kernel)
+  const int q_last = min(q0 + Q_ROWS, sq) - 1;
+  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_end = causal ? min(skv, q_last + 1) : skv;
+  k_begin = (k_begin / Q_STEP) * Q_STEP;
+
+  auto load_keys = [&](int kt, int buf) {
+    mma_stage<Q_STEP, DP, Q_THREADS>(ks + buf * Q_STEP * LD, kb, kt, skv,
+                                     d, vec, tid);
+    mma_stage<Q_STEP, DP, Q_THREADS>(vs + buf * Q_STEP * LD, vb, kt, skv,
+                                     d, vec, tid);
+  };
+  mma_stage<Q_ROWS, DP, Q_THREADS>(qs, q + bh * sq * d, q0, sq, d, vec,
+                                   tid);
+  mma_stage<Q_ROWS, DP, Q_THREADS>(dos, dout + bh * sq * d, q0, sq, d, vec,
+                                   tid);
+  if (k_begin < k_end) load_keys(k_begin, 0);
+  dmma::commit();
+
+  // lse and Δ of the lane's two rows, qw + g and qw + g + 8
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = qw + g + 8 * h;
+    lse_r[h] = r < sq ? lse[bh * sq + r] * LOG2E : 0.0f;
+    del_r[h] = r < sq ? delta[bh * sq + r] : 0.0f;
+  }
+
+  float gq[DT][4];
+#pragma unroll
+  for (int c = 0; c < DT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gq[c][e] = 0.0f;
+
+  // the warp's Q and dO fragments, once the first copies have landed
+  dmma::wait<0>();
+  __syncthreads();
+  const __nv_bfloat16* qw_s = qs + 16 * warp * LD;
+  const __nv_bfloat16* dow_s = dos + 16 * warp * LD;
+  uint32_t qf[HOLD ? DP / 16 : 1][4], dof[HOLD ? DP / 16 : 1][4];
+  if constexpr (HOLD) {
+    mma_load_a<DP>(qf, qw_s, lane);
+    mma_load_a<DP>(dof, dow_s, lane);
+  }
+  const int to = mma_bf16::a_row(lane) * LD + mma_bf16::a_col(lane);
+  int buf = 0;
+#pragma unroll 1
+  for (int kt = k_begin; kt < k_end; kt += Q_STEP, buf ^= 1) {
+    dmma::wait<0>();            // this thread's copies of the step's keys
+    __syncthreads();            // everyone's; the last step is done
+    if (kt + Q_STEP < k_end) load_keys(kt + Q_STEP, buf ^ 1);
+    dmma::commit();             // the next keys' copies overlap this step
+    const __nv_bfloat16* kc = ks + buf * Q_STEP * LD;
+    const __nv_bfloat16* vc = vs + buf * Q_STEP * LD;
+
+    float s[NT][4], dp[NT][4];
+    mma_pair_products<DP, NT, HOLD>(qf, dof, qw_s, dow_s, kc, vc, lane, s,
+                                    dp);
+
+    const bool edge = qw + 16 > sq || kt + Q_STEP > skv
+        || (causal && kt + Q_STEP - 1 > qw)
+        || (window > 0 && kt <= qw + 15 - window);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qp = qw + g + 8 * (e >> 1);
+        const int kp = kt + 8 * j + 2 * t + (e & 1);
+        const bool ok = !edge
+            || (kp < skv && qp < sq && valid(qp, kp, causal, window));
+        grad_pair2<CAP>(s[j][e], dp[j][e], ok, lse_r[e >> 1], del_r[e >> 1],
+                        scale, scale2, softcap, &s[j][e], &dp[j][e]);
+      }
+
+    // dQ += dS K, 16 keys at a time
+#pragma unroll
+    for (int kq = 0; kq < Q_STEP / 16; ++kq) {
+      uint32_t da[4];
+      mma_bf16::pack_a(da, dp[2 * kq], dp[2 * kq + 1]);
+#pragma unroll
+      for (int c = 0; c < DT / 2; ++c) {
+        uint32_t b[4];
+        mma_bf16::ldmatrix_x4_trans(b, kc + 16 * kq * LD + to + 16 * c);
+        mma_bf16::mma(gq[2 * c], da, b[0], b[1]);
+        mma_bf16::mma(gq[2 * c + 1], da, b[2], b[3]);
+      }
+    }
+  }
+
+  __nv_bfloat16* dqb = dq + bh * sq * d;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = qw + g + 8 * h;
+    if (r >= sq) continue;
+#pragma unroll
+    for (int c = 0; c < DT; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * c + 2 * t + e;
+        if (col < d)
+          dqb[(int64_t)r * d + col] =
+              __float2bfloat16(gq[c][2 * h + e] * scale);
+      }
+  }
+}
+
 template <typename Acc, int TA, int TB>
 size_t dkdv_smem(int d) {
   return (size_t)(2 * 16 * TA * (d + 1) + 2 * 16 * TB * (d + 1)
@@ -444,6 +956,72 @@ int launch_nc(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int DP, int BR>
+size_t mma_dkdv_smem() {
+  return (size_t)(2 * KV_KEYS + 4 * BR) * mma_ld<DP>()
+      * sizeof(__nv_bfloat16) + 4 * BR * sizeof(float);
+}
+
+template <int DP>
+size_t mma_dq_smem() {
+  return (size_t)(2 * Q_ROWS + 4 * Q_STEP) * mma_ld<DP>()
+      * sizeof(__nv_bfloat16);
+}
+
+// the tensor-core kernels of one padded head dim DP: dK/dV walking BR
+// query rows a step, dQ walking Q_STEP keys (the note at the top says why)
+template <int DP>
+int launch_mma(const void* q, const void* k, const void* v,
+               const void* dout, const void* lse, const void* delta,
+               void* dq, void* dk, void* dv, int bh, int sq, int skv, int d,
+               int causal, int window, double softcap, cudaStream_t stream) {
+  constexpr int BR = DP <= 80 ? 64 : 32;
+  constexpr bool HOLD_KV = DP <= 80;      // with the softcap: DP <= 64
+  constexpr bool HOLD_Q = DP <= 32;
+  constexpr int MINB_Q = DP <= 80 ? 3 : 2;
+  using B16 = __nv_bfloat16;
+  const float scale = (float)(1.0 / sqrt((double)d));
+  // 16-byte copies need whole 16-byte chunks of every row
+  const int vec = d % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v
+                                 | (uintptr_t)dout) % 16 == 0;
+  const bool cap = softcap > 0.0;
+  auto kv_kern = cap
+      ? mma_dkdv_kernel<DP, BR, HOLD_KV && DP <= 64, true>
+      : mma_dkdv_kernel<DP, BR, HOLD_KV, false>;
+  const size_t kv_smem = mma_dkdv_smem<DP, BR>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
+  if (err != cudaSuccess) return (int)err;
+  kv_kern<<<dim3((unsigned)((skv + KV_KEYS - 1) / KV_KEYS),
+                 (unsigned)bh),
+            KV_THREADS, kv_smem, stream>>>(
+      static_cast<const B16*>(q), static_cast<const B16*>(k),
+      static_cast<const B16*>(v), static_cast<const B16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<B16*>(dk), static_cast<B16*>(dv), sq, skv, d, scale,
+      causal, window, (float)softcap, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auto q_kern = cap ? mma_dq_kernel<DP, HOLD_Q, true, MINB_Q>
+                    : mma_dq_kernel<DP, HOLD_Q, false, MINB_Q>;
+  const size_t q_smem = mma_dq_smem<DP>();
+  err = cudaFuncSetAttribute(
+      q_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
+  if (err != cudaSuccess) return (int)err;
+  q_kern<<<dim3((unsigned)((sq + Q_ROWS - 1) / Q_ROWS), (unsigned)bh),
+           Q_THREADS, q_smem, stream>>>(
+      static_cast<const B16*>(q), static_cast<const B16*>(k),
+      static_cast<const B16*>(v), static_cast<const B16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<B16*>(dq), sq, skv, d, scale, causal, window,
+      (float)softcap, vec);
+  return (int)cudaGetLastError();
+}
+
+using Launch = int (*)(const void*, const void*, const void*, const void*,
+                       const void*, const void*, void*, void*, void*, int,
+                       int, int, int, int, int, double, cudaStream_t);
+
 template <typename T, typename Acc>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* delta, void* dq, void* dk,
@@ -461,15 +1039,27 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<Acc*>(delta), rows, (int)d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  using Launch = int (*)(const void*, const void*, const void*, const void*,
-                         const void*, const void*, void*, void*, void*, int,
-                         int, int, int, int, int, double, cudaStream_t);
-  // the register tile's width: the least instantiated ceil(D / 16)
-  Launch fn = launch_nc<T, Acc, 18>;
-  if (d <= 192) fn = launch_nc<T, Acc, 12>;
-  if (d <= 128) fn = launch_nc<T, Acc, 8>;
-  if (d <= 64) fn = launch_nc<T, Acc, 4>;
-  if (d <= 32) fn = launch_nc<T, Acc, 2>;
+  Launch fn = nullptr;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // bf16: the tensor-core kernels up to MMA_MAX_D, D padded to a
+    // multiple of 16 of at least 32; past it (gemma2_2b's 288) the FMA
+    // kernels
+    constexpr Launch by_dp[] = {
+        launch_mma<32>, launch_mma<32>, launch_mma<48>, launch_mma<64>,
+        launch_mma<80>, launch_mma<96>, launch_mma<112>, launch_mma<128>};
+    static_assert(sizeof(by_dp) / sizeof(by_dp[0]) == MMA_MAX_D / 16,
+                  "one entry per multiple of 16");
+    fn = d <= MMA_MAX_D ? by_dp[(d + 15) / 16 - 1]
+                        : d <= 192 ? launch_nc<T, Acc, 12>
+                                   : launch_nc<T, Acc, 18>;
+  } else {
+    // the register tile's width: the least instantiated ceil(D / 16)
+    fn = launch_nc<T, Acc, 18>;
+    if (d <= 192) fn = launch_nc<T, Acc, 12>;
+    if (d <= 128) fn = launch_nc<T, Acc, 8>;
+    if (d <= 64) fn = launch_nc<T, Acc, 4>;
+    if (d <= 32) fn = launch_nc<T, Acc, 2>;
+  }
   return fn(q, k, v, dout, lse, delta, dq, dk, dv, (int)bh, (int)sq,
             (int)skv, (int)d, causal, window, softcap, stream);
 }

@@ -1,13 +1,15 @@
 """The kernel build's identity: a library is named by a hash of its
 source, of every header the source can include (the shared
-``kernels/csrc/`` and its own ``csrc/``) and of the flags, so that an
-edited header never loads a stale library. These run on a copy of the
-sources and need no ``nvcc``: the compiler is replaced by a stub that
-records its command line.
+``kernels/csrc/``: the float64 and the bf16 tensor-core helpers, and its
+own ``csrc/``) and of the flags, so that an edited header never loads a
+stale library. The flash attention's backward has a source of its own.
+These run on a copy of the sources and need no ``nvcc``: the compiler
+is replaced by a stub that records its command line.
 """
 
 import shutil
 import subprocess
+from types import SimpleNamespace
 
 import pytest
 
@@ -15,7 +17,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.matmul import matmul
 
-KERNELS = {"matmul": matmul, "flash_attention": flash_attention}
+KERNELS = {"matmul": matmul, "flash_attention": flash_attention,
+           "flash_attention_bwd": SimpleNamespace(
+               SOURCE=flash_attention.BWD_SOURCE)}
 
 
 @pytest.fixture
@@ -38,6 +42,25 @@ def test_every_dmma_source_includes_the_shared_header():
     assert (build.SHARED_INCLUDE / "dmma.cuh").is_file()
     for mod in KERNELS.values():
         assert '#include "dmma.cuh"' in mod.SOURCE.read_text()
+
+
+def test_backward_source_includes_the_bf16_tensor_core_header():
+    assert (build.SHARED_INCLUDE / "mma_bf16.cuh").is_file()
+    assert '#include "mma_bf16.cuh"' in \
+        flash_attention.BWD_SOURCE.read_text()
+
+
+def test_bf16_header_edit_changes_the_backward_target(tree):
+    """The backward's library is named by the bf16 header too: an edit of
+    it renames the library; undoing it restores the name."""
+    src = tree["flash_attention_bwd"]
+    before = build._target(src)
+    header = build.SHARED_INCLUDE / "mma_bf16.cuh"
+    text = header.read_text()
+    header.write_text(text.replace("mma.sync", "mma.sync ", 1))
+    assert build._target(src) != before
+    header.write_text(text)
+    assert build._target(src) == before
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))

@@ -208,14 +208,23 @@ def cuda_device():
 
 
 # the card's cases: (B·H, Sq, Skv, D), causal, window, softcap; ragged
-# tiles, every D class, Sq != Skv both ways
+# tiles, every D class, Sq != Skv both ways. The last five aim at the bf16
+# tensor-core kernels' tiles (128 keys a dK/dV block, 64 rows a step or a
+# dQ block): more than one full tile and a ragged edge on both Sq and
+# Skv, a window and a softcap at D = 128, D = 72 (padded to 80) and D =
+# 20 (rows not in 16-byte chunks)
 CUDA_CASES = [((3, 100, 100, 64), True, 0, 0.0),
               ((2, 77, 130, 40), False, 0, 30.0),
               ((2, 150, 90, 80), True, 0, 0.0),
               ((2, 200, 200, 24), True, 40, 50.0),
               ((1, 120, 120, 128), False, 32, 0.0),
               ((1, 70, 70, 192), True, 0, 20.0),
-              ((1, 66, 66, 288), True, 16, 50.0)]
+              ((1, 66, 66, 288), True, 16, 50.0),
+              ((2, 200, 137, 80), True, 0, 0.0),
+              ((2, 129, 300, 64), False, 0, 0.0),
+              ((1, 257, 257, 128), True, 64, 30.0),
+              ((2, 190, 210, 72), True, 0, 0.0),
+              ((1, 100, 90, 20), False, 0, 0.0)]
 CUDA_TOL = {"float64": 1e-8, "float32": 2e-4, "bfloat16": 2e-2}
 
 
