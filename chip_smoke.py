@@ -12,9 +12,10 @@ exit:
    (one ``nvcc`` per source, started together; the flash attention's
    backward has a source of its own), into ``build/kernels/``;
    fails if ptxas reports spill bytes for a float64 (DMMA) matmul kernel,
-   for any instantiation of the flash attention forward or the selective
-   scan or for the backward's bf16 tensor-core kernels, or more than
-   SPILL_MAX's for the backward's FMA kernels.
+   for any instantiation of the flash attention forward, the selective
+   scan or its backward (a source of its own too), or for the flash
+   backward's bf16 tensor-core kernels, or more than SPILL_MAX's for the
+   flash backward's FMA kernels.
 3. Each kernel against its plain torch version on the card, in every
    dtype it takes, at its main path's chunk shape, at a language model's
    widths where the repo has one that runs it, and at a ragged shape;
@@ -54,15 +55,29 @@ exit:
    stablelm_3b layer (2 sequences x 32 heads, S = 4096, D = 80,
    causal), seamless's encoder and cross attention (2 x 16 heads, Sq =
    Skv = 4096, D = 64, not causal), gemma2_2b's local layer (8 heads, S
-   = 8192, D = 288, window 4096, softcap 50) in bf16 and a ragged case.
-   Each case must fail that comparison with dK zeroed, with P uniform
-   over each row's mask and, with a softcap, with dS missing its
-   (1 - tanh^2). The library time is ``torch.autograd.grad`` through
-   ``scaled_dot_product_attention`` with the same mask or, where a case
-   has a softcap, through compiled ``flex_attention``. A ``torch.profiler``
-   trace of one call of each case names the kernels that ran: a bf16 case
-   fails unless it ran the tensor-core kernels and no FMA dK/dV or dQ
-   kernel (D <= BWD_MMA_MAX_D), or the FMA kernels past that D.
+   = 8192, D = 288, window 4096, softcap 50) in bf16, a ragged case, and
+   in float32 and bf16 a decode-like case with a query offset per slot
+   and a case with rows that have no valid key. Each case must fail that
+   comparison with dK zeroed, with P uniform over each row's mask, with
+   a softcap with dS missing its (1 - tanh^2), and with rows without a
+   key with dV missing their dO / Skv. The library time is
+   ``torch.autograd.grad`` through ``scaled_dot_product_attention`` with
+   the same mask (with offsets or rows without a key: the mask added as
+   0 and -1e30) or, where a case has a softcap, through compiled
+   ``flex_attention``. A ``torch.profiler`` trace of each case (the call
+   repeated over 50 ms; up to four traces, where one lost kernels) names
+   the kernels that ran: a bf16 case fails unless it ran the tensor-core
+   kernels and no FMA dK/dV or dQ kernel (D <= BWD_MMA_MAX_D), or the FMA
+   kernels past that D.
+   The selective scan's backward (SCAN_BWD_CASES: the Jamba layer as
+   phase 11 trains it, at phase 10's served prompt lengths, ragged cases
+   in float32 and float64, float64 at N = 32 and one seeded by the final
+   state's gradient), from the forward kernel's segment states, against
+   the plain backward in float64 on the same inputs, element by element
+   and in norm; it must fail that comparison with dB zeroed and with the
+   adjoint's carry between chunks dropped, and give the same bits on a
+   second call; timed beside its bound (x, dt, dy, dx, ddt once in
+   memory against one exp per (b, t, i, n)) and the plain backward.
    Each kernel redesigned for Hopper (the float64 matmul and flash
    attention on the tensor cores, the selective scan as a chunked scan
    parallel in L, the bf16 backward on the tensor cores) is printed
@@ -160,24 +175,28 @@ exit:
    must stay within SETTLED_MAX_GIB), bf16, weights from the seed,
    batches from the reference's pipeline (``SyntheticTokens``, seed
    1234): stablelm_3b and seamless_m4t_medium at full width and depth,
-   each through ``repro_torch.train``'s step (microbatches of the
-   config, remat full, AdamW lr 3e-4, f32 moments, written in place)
-   for TRAIN_STEPS steps. Step 1's gradient (``accumulate_grads``) is
-   replayed with every attention's backward through the plain
-   ``flash_attention_bhsd_bwd_ref`` (the forward kernel kept) and must
-   agree within TRAIN_GATE (per leaf: cosine, relative norm error);
-   two controls must fail that gate (the attention output detached: no
-   attention gradient; the backward kernel with dK zeroed). It prints
-   step seconds, tokens/s, forward/backward/optimizer ms (CUDA events),
-   peak memory and the flash launches, and fails unless the trained
-   parameters' loss on step 1's batch is below step 1's (each step
-   draws a new batch, whose loss differs from the last by more than 4
-   steps at lr 3e-4 move seamless's; both are printed), a save
-   (``AsyncCheckpointer``) after step 2 restored
-   into fresh tensors gives steps 3-4 the same loss bits, every
-   attention call launched the backward kernels once and the forward
-   twice (remat), and no call took a plain version. A Jamba smoke preset
-   asked for a gradient on the card must be refused by the scan op.
+   and Jamba-1.5-Large at full width cut to one period with 2 shared
+   experts (its cuts in TRAIN_RUNS), each through ``repro_torch.train``'s
+   step (the run's microbatches, remat full, AdamW lr 3e-4, the config's
+   moments, written in place) for TRAIN_STEPS steps. Step 1's gradient
+   (``accumulate_grads``) is replayed with every attention's backward
+   through the plain ``flash_attention_bhsd_bwd_ref`` and every scan's
+   through the plain ``mamba_scan_bwd_ref`` (the forward kernels kept)
+   and must agree within TRAIN_GATE (per leaf: cosine, relative norm
+   error); the run's controls must fail that gate (stablelm and
+   seamless: the attention output detached, the backward kernel with dK
+   zeroed; Jamba: the scan backward with dB zeroed, and without the
+   adjoint's carry between chunks). It prints step seconds, tokens/s,
+   forward/backward/optimizer ms (CUDA events), peak memory and the
+   launches, and fails unless the trained parameters' loss on step 1's
+   batch is below step 1's (each step draws a new batch, whose loss
+   differs from the last by more than 4 steps at lr 3e-4 move
+   seamless's; both are printed), a save (``AsyncCheckpointer``) after
+   step 2 restored into fresh tensors gives steps 3-4 the same loss bits,
+   every attention call and every Mamba layer launched the backward
+   kernels once and the forward twice (remat), and no call took a plain
+   version. Then ``launch/train.py --arch jamba_1_5_large_398b --smoke``
+   trains on the card, through the scan's backward kernel.
 12. Summary: one JSON line with every kernel's numbers, the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -397,30 +416,71 @@ FLEX_BWD_TRIES = {"gemma2_local": (FLEX_SMALL_TILES, FLEX_BWD_SMALL_TILES),
 SDPA_GQA = ("jamba_prefill", "jamba_decode")
 # phase 3 cases of the flash attention's backward, on the kernel's (BH,
 # S, D) layout: (label, (BH, Sq, Skv, D), causal, window, softcap,
-# dtype). The chunk is the attention path's (float64, and float32);
-# stablelm_3b's layer as phase 11 trains it (a microbatch of 1 x 32
-# heads; here 2 sequences), seamless's encoder and cross attention (16
-# heads, Sq = Skv = 4096, not causal; 2 sequences), gemma2_2b's local
-# layer (at S = 4096 a window of 4096 would mask nothing) and a ragged
-# case (Sq > Skv, causal, softcapped)
+# dtype, query offsets: None, or one per batch-head). The chunk is the
+# attention path's (float64, and float32); stablelm_3b's layer as phase
+# 11 trains it (a microbatch of 1 x 32 heads; here 2 sequences),
+# seamless's encoder and cross attention (16 heads, Sq = Skv = 4096, not
+# causal; 2 sequences), gemma2_2b's local layer (at S = 4096 a window of
+# 4096 would mask nothing) and a ragged case (Sq > Skv, causal,
+# softcapped). Then, in float32 (the FMA kernels) and bf16 at D <= 128
+# (the tensor-core kernels): a decode-like ragged case with a query
+# offset per slot (8 batch-heads of 37 new rows over a 1000-key cache,
+# offsets up to 963) and a case with rows that have no valid key (a
+# window of 256 past 600 keys: rows 855..999 see none)
+BWD_OFFSETS = [0, 120, 377, 500, 611, 800, 902, 963]
 FLASH_BWD_CASES = [
     ("chunk", (1, ATTN_N // CHUNKS, ATTN_T, ATTN_D), False, 0, 0.0,
-     "float64"),
+     "float64", None),
     ("chunk", (1, ATTN_N // CHUNKS, ATTN_T, ATTN_D), False, 0, 0.0,
-     "float32"),
-    ("stablelm", (64, 4096, 4096, 80), True, 0, 0.0, "bfloat16"),
+     "float32", None),
+    ("stablelm", (64, 4096, 4096, 80), True, 0, 0.0, "bfloat16", None),
     ("seamless_enc_cross", (32, 4096, 4096, 64), False, 0, 0.0,
-     "bfloat16"),
-    ("gemma2_local", (8, 8192, 8192, 288), True, 4096, 50.0, "bfloat16"),
-    ("ragged", (2, 1000, 777, 72), True, 0, 30.0, "float32")]
-# the training runs (phase 11): bf16, full width and depth, weights from
-# the seed on the card, batches of the reference's pipeline at
-# TRAIN_SEQ (train_4k's length; seamless's source frames too), global
-# batch TRAIN_BATCH (train_4k's 256 cut to fit one card), each config's
-# own microbatch count and remat, AdamW at TRAIN_LR with float32 moments
-TRAIN_RUNS = {"train_stablelm": "stablelm_3b",
-              "train_seamless": "seamless_m4t_medium"}
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 4096, 2, 4, 3e-4
+     "bfloat16", None),
+    ("gemma2_local", (8, 8192, 8192, 288), True, 4096, 50.0, "bfloat16",
+     None),
+    ("ragged", (2, 1000, 777, 72), True, 0, 30.0, "float32", None),
+    ("offset", (8, 37, 1000, 72), True, 0, 0.0, "float32", BWD_OFFSETS),
+    ("offset", (8, 37, 1000, 64), True, 0, 0.0, "bfloat16", BWD_OFFSETS),
+    ("empty_rows", (4, 1000, 600, 64), True, 256, 0.0, "float32", None),
+    ("empty_rows", (4, 1000, 600, 64), True, 256, 0.0, "bfloat16", None)]
+# the training runs (phase 11): bf16, full width, weights from the seed
+# on the card, batches of the reference's pipeline at TRAIN_SEQ
+# (train_4k's length; seamless's source frames too), each run's global
+# batch (train_4k's 256 cut to fit one card), each config's own remat
+# and moments (float32, or int8 where the config says opt_8bit), AdamW
+# at TRAIN_LR. stablelm_3b and seamless_m4t_medium at full depth with
+# their config's microbatch count. Jamba-1.5-Large cut to fit one card,
+# no width cut: one period (8 of 72 layers: 7 Mamba, 1 attention, 4 MoE
+# and 4 dense FFNs), 2 routed experts (of 16; top-2 kept), not padded to
+# the production mesh's 16 (padding adds experts no token reaches), one
+# set shared by the period's 4 MoE layers (each its own router; tied, so
+# their gradient sums over the layers), global batch 1 in 1 microbatch
+# (of 16): 7.673 B parameters, 15.3 GB of bf16 weights, as much of bf16
+# gradient and of int8 moments, ~36 GB of one sequence's activations
+# under remat. Its moments are the config's int8 ones at AdamW's eps of
+# 1e-8, the reference's codec (one absmax scale a tensor): a second
+# moment below 1/254 of its tensor's largest is stored as 0, and from
+# step 2 on an element whose first moment survived and whose gradient
+# falls to 0 steps by about m / 1e-8 (the reference's fault, ROADMAP
+# Queue 3 entry 10; tests/test_torch_train.py shows the reference's
+# optimizer doing so at this learning rate). Step 1's update reads no
+# stored moment, so Jamba's loss check is on step 1's batch after step 1
+# (``loss_steps``; at 4 steps on an H100 that loss rose 11.604 ->
+# 11.799, the gradient norm 9.0 -> 40.3: PERF.md, section 6); the loss
+# after all the steps is printed beside it. ``controls``: the faults
+# each run's gradient gate must catch (attention's, or the scan
+# backward's)
+TRAIN_RUNS = {
+    "train_stablelm": {"arch": "stablelm_3b", "batch": 2,
+                       "controls": ("detached", "dk_zero")},
+    "train_seamless": {"arch": "seamless_m4t_medium", "batch": 2,
+                       "controls": ("detached", "dk_zero")},
+    "train_jamba": {"arch": "jamba_1_5_large_398b", "batch": 1,
+                    "layers": 8, "n_experts": 2, "microbatch": 1,
+                    "share_experts": True, "expert_multiple": 1,
+                    "loss_steps": 1,
+                    "controls": ("scan_db_zero", "scan_carry_zero")}}
+TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4096, 4, 3e-4
 TRAIN_DATA_SEED = 1234
 # step 1's gradient against its replay on the plain backward: every leaf
 # within these (cosine at least, relative norm error at most), and the
@@ -450,11 +510,31 @@ SCAN_CASES = [
     ("split_state", (2, 1000, 77, 32), "float64", True),
     ("jamba_served", (1, min(JAMBA_LENS), 16384, 16), "float32", True),
     ("jamba_served", (1, max(JAMBA_LENS), 16384, 16), "float32", True)]
+# phase 3 cases of the selective scan's backward: (label, (B, L, I, N),
+# dtype, whether the final state's gradient dh_L seeds the adjoint). The
+# Jamba-1.5-Large layer as phase 11 trains it (L = 4096), at phase 10's
+# shortest and longest served prompts, ragged cases in float32 and
+# float64, float64 at N = 32 (eight passes of 4 states) and dh_L
+SCAN_BWD_CASES = [
+    ("jamba_train", (1, TRAIN_SEQ, 16384, 16), "float32", False),
+    ("jamba_served", (1, min(JAMBA_LENS), 16384, 16), "float32", False),
+    ("jamba_served", (1, max(JAMBA_LENS), 16384, 16), "float32", False),
+    ("ragged", (2, 1000, 77, 4), "float32", False),
+    ("ragged", (2, 1000, 77, 4), "float64", False),
+    ("split_state", (2, 1000, 77, 32), "float64", False),
+    ("ragged_state", (2, 1000, 77, 4), "float64", True)]
+# the scan backward's exps on the SFU (float32) or operations on the FP64
+# units (float64) per (b, t, i, n) in its bound: h's step to t and the
+# adjoint's step to t - 1 use the same dA_t = exp(dt_t A), so the
+# function needs one exp; beside it ~12 operations (the state, the
+# adjoint and the five products that feed the gradients)
+SCAN_BWD_OPS = {"float64": 20 + 12, "float32": 12, "bfloat16": 12}
 
 # the most spill bytes (stores, loads) ptxas may report for a function,
 # by patterns of the mangled names checked (each must match a function):
 # none for the float64 (DMMA) kernels of matmul (namespace f64), every
-# instantiation of flash attention and of the scan, and the flash
+# instantiation of flash attention, of the scan and of its backward, and
+# the flash
 # attention backward's bf16 tensor-core kernels (mma_dkdv_kernel,
 # mma_dq_kernel); for the backward's FMA kernels (float64, float32, bf16
 # past BWD_MMA_MAX_D), the most they spilled when they were written (bf16
@@ -462,6 +542,7 @@ SCAN_CASES = [
 SPILL_MAX = {"matmul": [(r"3f64\d+\w*_kernel", (0, 0))],
              "flash_attention": [(r"flash_kernel", (0, 0))],
              "mamba_scan": [(r"scan_kernel", (0, 0))],
+             "mamba_scan_bwd": [(r"scan_bwd_kernel|sum_kernel", (0, 0))],
              "flash_attention_bwd": [(r"mma_d\w+_kernel", (0, 0)),
                                      (r"\d(?:dkdv|dq|delta)_kernel",
                                       (8, 32))]}
@@ -616,13 +697,15 @@ def _compare(torch, name, label, got, ref, dname):
 
 def _row(torch, name, label, shape, dname, err, kernel_fn, plain_fn,
          library_fn, ops, nbytes, reps=20, peak=None, exps=0.0,
-         yardstick=None, **extra):
+         yardstick=None, plain_reps=None, **extra):
     """One case's numbers. ``yardstick`` is (what, fn): a PyTorch call
     close to the case that does not compute the same function, timed as
-    ``yardstick_ms`` beside ``library_ms`` (which stays None)."""
+    ``yardstick_ms`` beside ``library_ms`` (which stays None).
+    ``plain_reps``: the plain version's launches timed (default a
+    quarter of ``reps``, at least 2)."""
     host = []
     ms = _time_ms(torch, kernel_fn, reps, host)
-    plain_ms = _time_ms(torch, plain_fn, max(2, reps // 4))
+    plain_ms = _time_ms(torch, plain_fn, plain_reps or max(2, reps // 4))
     lib_ms = _time_ms(torch, library_fn, reps) if library_fn else None
     if yardstick is not None:
         extra["yardstick"] = yardstick[0]
@@ -978,12 +1061,27 @@ def _flex_bwd_library(torch, q, k, v, do, causal, window, cap, options):
                                        retain_graph=True)
 
 
+def _sdpa_mask_bwd_library(torch, sdpa, q, k, v, do, mask):
+    """fn: the backward of ``scaled_dot_product_attention`` with the
+    kernel's mask (at the case's query offsets) as an additive mask of
+    0 and -1e30, one head per batch row, through ``torch.autograd.grad``
+    on a graph built before the timing: as in the kernel, a row with no
+    valid key is uniform over the keys. Returns (dq, dk, dv)."""
+    qg, kg, vg = (t.detach()[None].requires_grad_(True) for t in (q, k, v))
+    add = torch.zeros(mask.shape, dtype=q.dtype, device=q.device) \
+        .masked_fill(~mask, -1e30)
+    out = sdpa(qg, kg, vg, attn_mask=add if add.dim() == 3 else add[None])
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), do[None],
+                                       retain_graph=True)
+
+
 def _bwd_faulty(torch, fa_ref, q, k, v, o, do, lse, *, causal, window,
-                softcap, fault):
+                softcap, fault, q_offset=None):
     """The plain backward's steps (``flash_attention_bhsd_bwd_ref``) with
     one fault, a negative control: ``"p_uniform"``, each row's P uniform
     over its mask; ``"no_cap_factor"``, dS without the softcap's
-    (1 - tanh^2). Returns (dq, dk, dv) in q's dtype."""
+    (1 - tanh^2); ``"no_empty_rows"``, dV without the dO / Skv of the
+    rows that have no valid key. Returns (dq, dk, dv) in q's dtype."""
     acc = torch.promote_types(q.dtype, torch.float32)
     scale = q.shape[-1] ** -0.5
     qa, ka, va, oa, da = (t.to(acc) for t in (q, k, v, o, do))
@@ -991,7 +1089,8 @@ def _bwd_faulty(torch, fa_ref, q, k, v, o, do, lse, *, causal, window,
     if softcap:
         t = torch.tanh(x / softcap)
         x = t * softcap
-    mask = fa_ref._mask(q.shape[1], k.shape[1], causal, window, q.device)
+    mask = fa_ref._mask(q.shape[1], k.shape[1], causal, window, q.device,
+                        q_offset)
     if fault == "p_uniform":
         p = (mask / mask.sum(dim=-1, keepdim=True).clamp(min=1)).to(acc)
     else:
@@ -999,6 +1098,10 @@ def _bwd_faulty(torch, fa_ref, q, k, v, o, do, lse, *, causal, window,
                         torch.zeros((), dtype=acc, device=q.device))
     delta = (da * oa).sum(dim=-1)
     dv = p.transpose(-1, -2) @ da
+    if fault != "no_empty_rows":
+        empty = ~mask.any(dim=-1, keepdim=True)
+        dv = dv + (empty.to(acc) * da).sum(dim=-2, keepdim=True) \
+            / k.shape[1]
     ds = p * (da @ va.transpose(-1, -2) - delta[..., None])
     if softcap and fault != "no_cap_factor":
         ds = ds * (1 - t * t)
@@ -1038,17 +1141,26 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
     kernel, then the backward kernels) against a wholly plain gradient
     (the plain backward from the plain forward's output and logsumexp),
     in norm: in bf16 the two forwards' outputs round apart by an ulp,
-    which dS = P (dO V^T - rowsum(dO o)) magnifies in single elements."""
+    which dS = P (dO V^T - rowsum(dO o)) magnifies in single elements.
+    Cases with query offsets or rows without a valid key take as their
+    library call ``scaled_dot_product_attention`` with the kernel's mask
+    added as 0 and -1e30, which gives a row without a key the kernel's
+    uniform weights."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(SEED + 5)
     out = []
-    for label, (bh, sq, skv, d), causal, window, cap, dname in \
+    for label, (bh, sq, skv, d), causal, window, cap, dname, offsets in \
             FLASH_BWD_CASES:
         t_case = time.perf_counter()
         dt = _dtypes(torch)[dname]
         q, k, v = _bwd_inputs(torch, rng, bh, sq, skv, d, dt)
         do = torch.from_numpy(rng.normal(size=(bh, sq, d))).to("cuda", dt)
-        opts = dict(causal=causal, window=window, softcap=cap)
+        off = None if offsets is None else torch.tensor(
+            offsets, dtype=torch.int32, device="cuda")
+        opts = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+        mask = fa_ref._mask(sq, skv, causal, window, "cuda", off)
+        empty = int((~mask.any(dim=-1)).sum()) * (1 if off is not None
+                                                  else bh)
         o, lse = fa_kernel.flash_attention_bhsd(q, k, v, return_lse=True,
                                                 **opts)
         o_ref, lse_ref = fa_ref.flash_attention_bhsd_ref(
@@ -1095,6 +1207,11 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
             faulty["no_cap_factor"] = lambda: _bwd_faulty(
                 torch, fa_ref, q, k, v, o, do, lse, **opts,
                 fault="no_cap_factor")
+        if empty:
+            # the empty rows' uniform P left out of dV
+            faulty["no_empty_rows"] = lambda: _bwd_faulty(
+                torch, fa_ref, q, k, v, o, do, lse, **opts,
+                fault="no_empty_rows")
         controls = {}
         for what, fn in faulty.items():
             controls[what], passes = _bwd_within(torch, fn(), want, dname)
@@ -1108,11 +1225,14 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
         library_fn = None
         extra = {"errs": errs, "scales": scales, "lse_max_abs_err": lse_err,
                  "o_max_abs_err": o_err, "whole_path_norm_err": whole,
-                 "controls": controls, "kernels_run": ran}
-        flex = bool(window or cap)
+                 "controls": controls, "kernels_run": ran,
+                 "q_offsets": offsets, "rows_without_a_key": empty}
+        masked = off is not None or empty > 0
+        flex = bool(window or cap) and not masked
         extra["library"] = "torch.autograd.grad through " + (
             "flex_attention (compiled)" if flex
-            else "scaled_dot_product_attention")
+            else "scaled_dot_product_attention" + (
+                " with the mask added (0, -1e30)" if masked else ""))
         extra["library_errors"] = []
         for options in FLEX_BWD_TRIES.get(label, ()) if flex else (None,):
             # one PyTorch call for the same gradient; it is no part of the
@@ -1121,8 +1241,9 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
             try:
                 library_fn = _flex_bwd_library(
                     torch, q, k, v, do, causal, window, cap, options) \
-                    if flex else _sdpa_bwd_library(
-                        torch, sdpa, q, k, v, do, causal)
+                    if flex else _sdpa_mask_bwd_library(
+                        torch, sdpa, q, k, v, do, mask) if masked \
+                    else _sdpa_bwd_library(torch, sdpa, q, k, v, do, causal)
                 lib = library_fn()
                 lib_err = max(float((a[0].double() - b.double()).abs().max())
                               for a, b in zip(lib, want))
@@ -1146,7 +1267,8 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
                       f"{why}", flush=True)
         # five products of 2 D operations a valid pair (S, dO V^T, dV,
         # dK, dQ); q, k, v, o, dO and lse read once, dq, dk, dv written
-        pairs = bh * attention_work(sq, skv, causal, window)[0]
+        pairs = int(mask.sum()) if off is not None \
+            else bh * attention_work(sq, skv, causal, window)[0]
         nbytes = bh * ((4 * sq + 4 * skv) * d * q.element_size()
                        + sq * lse.element_size())
         out.append(_row(
@@ -1158,32 +1280,48 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
         print(f"flash_attention_bwd {label} {dname}: case took "
               f"{out[-1]['case_s']:.1f} s", flush=True)
         del q, k, v, do, o, lse, o_ref, lse_ref, got, want, library_fn, \
-            faulty
+            faulty, mask
         torch.cuda.empty_cache()
     return out
 
 
 def _bwd_route(torch, label, dname, d, kernel_fn) -> dict:
-    """{kernel: launches} of one backward call, by name from
+    """{kernel: launches} of backward calls, by name from
     ``torch.profiler``. A bf16 case must have run the tensor-core kernels
     (mma_dkdv_kernel, mma_dq_kernel) and no FMA dK/dV or dQ kernel up to
-    BWD_MMA_MAX_D, and the FMA kernels past it; fails otherwise."""
+    BWD_MMA_MAX_D, and the FMA kernels past it; fails otherwise. A trace
+    of one short call came back without some of its kernels, or none (a
+    0.1 ms case: none in 4 traces), so each trace waits 50 ms once the
+    profiler has started and then repeats the call for at least 50 ms;
+    while an expected kernel is missing the trace is taken again, up to
+    4 times, their kernels counted together."""
     cuda = torch.profiler.ProfilerActivity.CUDA
-    with torch.profiler.profile(activities=[cuda]) as prof:
-        kernel_fn()
-        torch.cuda.synchronize()
+    mma = {"mma_dkdv_kernel", "mma_dq_kernel"}
+    fma = {"dkdv_kernel", "dq_kernel"}
+    want, not_want = (mma, fma) if d <= BWD_MMA_MAX_D else (fma, mma)
+    if dname != "bfloat16":
+        want = set()
     ran = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            found = re.search(r"(\w+_kernel)\b", e.name)
-            name = found.group(1) if found else e.name
-            ran[name] = ran.get(name, 0) + 1
-    print(f"flash_attention_bwd {label} {dname}: kernels run {ran}",
-          flush=True)
+    calls = 0
+    for attempt in range(4):
+        with torch.profiler.profile(activities=[cuda]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 0.05 or not calls:
+                kernel_fn()
+                torch.cuda.synchronize()
+                calls += 1
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                found = re.search(r"(\w+_kernel)\b", e.name)
+                name = found.group(1) if found else e.name
+                ran[name] = ran.get(name, 0) + 1
+        if want <= set(ran):
+            break
+    print(f"flash_attention_bwd {label} {dname}: kernels run {ran} in "
+          f"{calls} traced calls ({attempt + 1} traces)", flush=True)
     if dname == "bfloat16":
-        mma = {"mma_dkdv_kernel", "mma_dq_kernel"}
-        fma = {"dkdv_kernel", "dq_kernel"}
-        want, not_want = (mma, fma) if d <= BWD_MMA_MAX_D else (fma, mma)
         if not want <= set(ran) or not_want & set(ran):
             raise AssertionError(f"flash_attention_bwd {label} {dname} (D = "
                                  f"{d}): ran {sorted(ran)}, not {sorted(want)}"
@@ -1264,6 +1402,130 @@ def check_scan(torch, sc_kernel, plain):
             exps=0.0 if dname == "float64" else steps, final_state=state,
             **extra))
         del args, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def _scan_bwd_within(torch, got, want, dname):
+    """({gradient: [max |got - want|, ||got - want|| / ||want||]},
+    whether each of the six gradients is finite, within TOL of ``want``
+    element by element (TOL times its largest value: dB, dC, da and
+    dd_skip sum over thousands of channels or steps) and within
+    BWD_NORM_TOL in norm)."""
+    errs, ok = {}, True
+    for n, g, w in zip(SCAN_GRADS, got, want):
+        torch.cuda.synchronize()
+        diff = (g.double() - w.double()).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        scale = float(w.double().abs().max()) if w.numel() else 0.0
+        rel = _norm_err(g, w)
+        errs[n] = [err, rel]
+        ok = ok and bool(torch.isfinite(g.double()).all()) \
+            and err <= TOL[dname] * (1.0 + scale) \
+            and rel <= BWD_NORM_TOL[dname]
+    return errs, ok
+
+
+SCAN_GRADS = ("dx", "ddt", "dB", "dC", "da", "dd_skip")
+
+
+def check_scan_bwd(torch, sc_kernel, sc_ref):
+    """Phase 3: the selective scan's backward on SCAN_BWD_CASES. The
+    forward kernel keeps its segments' entry states (its y the same bits
+    as without them); the backward kernel from them, against the plain
+    backward ``mamba_scan_bwd_ref`` in float64 on the same inputs (the
+    float32 plain backward's own error is printed beside it), element by
+    element and in norm; two negative controls must fail that
+    comparison: dB zeroed, and the kernel's decomposition without the
+    adjoint's carry between chunks (``mamba_scan_bwd_chunked_ref(...,
+    carry=False)``); and a second call gives the same bits. The bound:
+    x, dt, dy read and dx, ddt written once (B, C, a, d_skip and their
+    gradients beside them) against one exp per (b, t, i, n) on the SFU
+    (float32) or SCAN_BWD_OPS operations on the FP64 units (float64). No
+    PyTorch call computes this gradient (autograd through the plain
+    scan is the plain version's time)."""
+    rng = np.random.default_rng(SEED + 9)
+    out = []
+    for label, (b, length, inner, n), dname, state in SCAN_BWD_CASES:
+        t_case = time.perf_counter()
+        dt_ = _dtypes(torch)[dname]
+        acc = torch.promote_types(dt_, torch.float32)
+        host = [rng.normal(size=(b, length, inner)),
+                0.1 * np.abs(rng.normal(size=(b, length, inner))),
+                rng.normal(size=(b, length, n)),
+                rng.normal(size=(b, length, n)),
+                np.log(np.abs(rng.normal(size=(inner, n))) + 0.5),
+                rng.normal(size=(inner,)),
+                rng.normal(size=(b, length, inner))]
+        args = [torch.from_numpy(a).to("cuda", dt_).contiguous()
+                for a in host]
+        dh = torch.from_numpy(rng.normal(size=(b, inner, n))).to(
+            "cuda", acc) if state else None
+        del host
+        y, _, states = sc_kernel.mamba_scan(*args[:6], save_states=True)
+        if not torch.equal(y, sc_kernel.mamba_scan(*args[:6])):
+            raise AssertionError(f"mamba_scan_bwd {label}: y differs with "
+                                 f"and without the states")
+        before = sc_kernel.bwd_launches
+        got = sc_kernel.mamba_scan_bwd(*args, states, dh_last=dh)
+        if sc_kernel.bwd_launches != before + 1:
+            raise AssertionError("the scan backward did not count its "
+                                 "launch")
+        kernel_fn = lambda: sc_kernel.mamba_scan_bwd(  # noqa: E731
+            *args, states, dh_last=dh)
+        plain_fn = lambda: sc_ref.mamba_scan_bwd_ref(  # noqa: E731
+            *args, dh_last=dh)
+        want = sc_ref.mamba_scan_bwd_ref(
+            *(t.double() for t in args),
+            dh_last=None if dh is None else dh.double())
+        errs, ok = _scan_bwd_within(torch, got, want, dname)
+        plain_errs, _ = _scan_bwd_within(torch, plain_fn(), want, dname)
+        print(f"mamba_scan_bwd {label} {dname}: [max err, norm err] "
+              f"against the float64 plain backward {json.dumps(errs)} "
+              f"(tol {TOL[dname]:g} x (1 + largest value), norm "
+              f"{BWD_NORM_TOL[dname]:g}); the {dname} plain backward's "
+              f"{json.dumps(plain_errs)}", flush=True)
+        if not ok:
+            raise AssertionError(f"mamba_scan_bwd {label} {dname}: {errs} "
+                                 f"over the tolerance")
+        again = kernel_fn()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"mamba_scan_bwd {label} {dname}: a "
+                                 f"second call gave other bits")
+        del again
+        faulty = {"db_zero": lambda: (*got[:2], torch.zeros_like(got[2]),
+                                      *got[3:]),
+                  "carry_zero": lambda: sc_ref.mamba_scan_bwd_chunked_ref(
+                      *args, dh_last=dh, carry=False)}
+        controls = {}
+        for what, fn in faulty.items():
+            controls[what], passes = _scan_bwd_within(torch, fn(), want,
+                                                      dname)
+            if passes:
+                raise AssertionError(f"mamba_scan_bwd {label} {dname}: the "
+                                     f"{what} control passes the "
+                                     f"comparison {controls[what]}")
+        print(f"mamba_scan_bwd {label} {dname}: controls' [max err, norm "
+              f"err] {json.dumps(controls)} (each fails the comparison); "
+              f"the same bits on a second call", flush=True)
+        del want
+        steps = float(b * length * inner * n)
+        nbytes = (5 * b * length * inner + 4 * b * length * n
+                  + 2 * inner * n + 2 * inner) * args[0].element_size() \
+            + (dh.numel() * dh.element_size() if state else 0)
+        f64 = dname == "float64"
+        out.append(_row(
+            torch, "mamba_scan_bwd", label, [b, length, inner, n], dname,
+            max(e for e, _ in errs.values()), kernel_fn, plain_fn, None,
+            steps * SCAN_BWD_OPS[dname], nbytes, reps=10,
+            peak=PEAK_FP64_FMA if f64 else None,
+            exps=0.0 if f64 else steps, plain_reps=1,
+            final_state_grad=state, errs=errs, plain_errs=plain_errs,
+            controls=controls))
+        out[-1]["case_s"] = time.perf_counter() - t_case
+        print(f"mamba_scan_bwd {label} {dname}: case took "
+              f"{out[-1]['case_s']:.1f} s", flush=True)
+        del args, got, states, y, faulty
         torch.cuda.empty_cache()
     return out
 
@@ -2384,14 +2646,17 @@ def served_family(torch, card, name, kernels, device="cuda"):
 
 
 def _grad_gate(torch, got, want, names):
-    """Each leaf of ``got`` against ``want`` (float32 lists in leaf
-    order): the worst cosine and relative norm error with their leaves,
-    the whole gradient's relative norm error, and whether all are within
+    """Each leaf of ``got`` against ``want`` (lists in leaf order; either
+    may lie on the host, each leaf is compared on the card): the worst
+    cosine and relative norm error with their leaves, the whole
+    gradient's relative norm error, and whether all are within
     TRAIN_GATE."""
     worst = {"cosine": (2.0, None), "norm_rel": (-1.0, None)}
     sq_got = sq_want = 0.0
     for g, w, name in zip(got, want, names):
-        g64, w64 = g.double(), w.double()
+        dev = w.device if w.is_cuda else g.device
+        g64 = g.to(dev, non_blocking=True).double()
+        w64 = w.to(dev, non_blocking=True).double()
         ng, nw = float(g64.norm()), float(w64.norm())
         sq_got, sq_want = sq_got + ng * ng, sq_want + nw * nw
         if ng == 0.0 and nw == 0.0:
@@ -2412,6 +2677,17 @@ def _grad_gate(torch, got, want, names):
             "worst_norm_rel_leaf": worst["norm_rel"][1],
             "grad_norm": sq_got ** 0.5, "grad_norm_rel": norm_rel,
             "passes": passes}
+
+
+def _to_host(torch, grads) -> list:
+    """Copies of ``grads`` in pinned host memory (a pageable copy of a
+    15 GB gradient crawls both ways)."""
+    out = []
+    for g in grads:
+        h = torch.empty(g.shape, dtype=g.dtype, pin_memory=True)
+        h.copy_(g)
+        out.append(h)
+    return out
 
 
 def _settle(torch, what) -> float:
@@ -2449,29 +2725,63 @@ def _phase_ms(marks) -> dict:
     return out
 
 
+def _train_config(torch, spec):
+    """(config, {cut: why}) of a TRAIN_RUNS run: the arch's config at
+    full width, with the run's depth, expert count and microbatch
+    count."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    full = get_config(spec["arch"])
+    cuts, reduced = {}, {}
+    if spec.get("layers"):
+        cuts["layers"] = spec["layers"]
+        reduced["layers"] = (f"{full.layers} -> {spec['layers']}: one "
+                             f"period of {full.period}")
+    if spec.get("n_experts"):
+        cuts["n_experts"] = spec["n_experts"]
+        reduced["experts"] = (
+            f"{full.n_experts} -> {spec['n_experts']} routed experts "
+            f"(top-{full.experts_topk} kept)"
+            + (", not padded to the production mesh's 16"
+               if spec.get("expert_multiple") == 1 else "")
+            + (", one set shared by the period's MoE layers (each its own "
+               "router)" if spec.get("share_experts") else ""))
+    if spec.get("microbatch"):
+        cuts["microbatch"] = spec["microbatch"]
+        reduced["microbatches"] = (f"{full.microbatch} -> "
+                                   f"{spec['microbatch']}")
+    reduced["global_batch"] = f"train_4k's 256 -> {spec['batch']}"
+    return dataclasses.replace(full, **cuts), reduced
+
+
 def trained(torch, card, name, kernels, device="cuda"):
     """Phase 11, one run of TRAIN_RUNS: the model at full width trained
     on the card through ``repro_torch.train``; step 1's gradient gated
-    against its replay on the plain backward (and two controls that
-    must fail the gate), the loss falling, a resume from the step-2
-    checkpoint giving the same loss bits, and every attention call on
-    the kernels. ``kernels``: the flash kernel, its ops and its plain
-    module."""
+    against its replay with every attention's and every scan's backward
+    on its plain version (and the run's controls, which must fail the
+    gate), the loss falling, a resume from the step-2 checkpoint giving
+    the same loss bits, and every attention and scan call on the
+    kernels. ``kernels``: the flash kernel, its ops and its plain
+    module, the scan kernel, its ops and its plain module."""
     import shutil
 
     from repro_torch.checkpoint import ckpt as C
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.models import transformer as T
     from repro_torch.train import (AdamWConfig, accumulate_grads,
                                    init_opt_state, make_train_step)
     from repro_torch.train.tree import leaves_with_paths, tree_map
 
-    fa, fa_ops, fa_ref = kernels
-    cfg = get_config(TRAIN_RUNS[name])
+    fa, fa_ops, fa_ref, sc, sc_ops, sc_ref = kernels
+    spec = TRAIN_RUNS[name]
+    cfg, reduced = _train_config(torch, spec)
+    batch_size = spec["batch"]
     n_micro = max(1, cfg.microbatch)
-    attn_layers = cfg.n_periods * sum(cfg.layer_kind(i) == "attn"
-                                      for i in range(cfg.period))
+    kinds = [cfg.layer_kind(i) for i in range(cfg.period)]
+    attn_layers = cfg.n_periods * kinds.count("attn")
+    mamba_layers = cfg.n_periods * kinds.count("mamba")
     # attention calls of one microbatch: each decoder layer's (twice in
     # an enc-dec model: self and cross) and each encoder layer's
     calls = attn_layers * (2 if cfg.is_encdec else 1) \
@@ -2479,13 +2789,16 @@ def trained(torch, card, name, kernels, device="cuda"):
     remat = 2 if cfg.remat in ("full", "dots") else 1
     t0 = time.perf_counter()
     params, _ = T.init_params(
-        cfg, torch.Generator(device=device).manual_seed(SEED))
+        cfg, torch.Generator(device=device).manual_seed(SEED),
+        share_experts=spec.get("share_experts", False),
+        **({"expert_multiple": spec["expert_multiple"]}
+           if "expert_multiple" in spec else {}))
     torch.cuda.synchronize(device)
     t_init = time.perf_counter() - t0
     names = ["/".join(p) for p, _ in leaves_with_paths(params)]
     n_params = sum(t.numel() for _, t in leaves_with_paths(params))
     data = SyntheticTokens(DataConfig(
-        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=batch_size,
         seed=TRAIN_DATA_SEED,
         embeds_dim=cfg.d_model if cfg.embeds_input else 0,
         src_len=TRAIN_SEQ if cfg.is_encdec else 0, d_model=cfg.d_model))
@@ -2496,31 +2809,45 @@ def trained(torch, card, name, kernels, device="cuda"):
 
     def zero():
         fa.launches = fa.bwd_launches = fa_ops.plain_calls = 0
+        sc.launches = sc.bwd_launches = 0
+        sc_ops.plain_calls = sc_ops.bwd_plain_calls = 0
 
     def counts():
         return {"forward_launches": fa.launches,
                 "backward_launches": fa.bwd_launches,
-                "plain_calls": fa_ops.plain_calls}
+                "plain_calls": fa_ops.plain_calls,
+                "scan_forward_launches": sc.launches,
+                "scan_backward_launches": sc.bwd_launches,
+                "scan_plain_calls": sc_ops.plain_calls
+                + sc_ops.bwd_plain_calls}
 
     def check_counts(what, got, steps):
         want = {"forward_launches": remat * calls * n_micro * steps,
                 "backward_launches": calls * n_micro * steps,
-                "plain_calls": 0}
+                "plain_calls": 0,
+                "scan_forward_launches": remat * mamba_layers * n_micro
+                * steps,
+                "scan_backward_launches": mamba_layers * n_micro * steps,
+                "scan_plain_calls": 0}
         if got != want:
-            raise AssertionError(f"{name} {what}: flash counts {got}, want "
-                                 f"{want} ({calls} attention calls a "
-                                 f"microbatch, {n_micro} microbatches)")
+            raise AssertionError(f"{name} {what}: counts {got}, want "
+                                 f"{want} ({calls} attention calls and "
+                                 f"{mamba_layers} scans a microbatch, "
+                                 f"{n_micro} microbatches)")
 
     enc = f" + {cfg.enc_layers} encoder" if cfg.is_encdec else ""
     print(f"{name} ({cfg.name}): {n_params / 1e9:.3f} B parameters, "
-          f"{cfg.layers} layers{enc}, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads (D = {cfg.head_dim}), vocab {cfg.vocab}; "
-          f"seq {TRAIN_SEQ}, global batch {TRAIN_BATCH} in {n_micro} "
-          f"microbatches, remat {cfg.remat}; init {t_init:.2f} s",
-          flush=True)
+          f"{cfg.layers} layers{enc} ({mamba_layers} Mamba), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads (D = {cfg.head_dim}), vocab "
+          f"{cfg.vocab}; seq {TRAIN_SEQ}, global batch {batch_size} in "
+          f"{n_micro} microbatches, remat {cfg.remat}, int8 moments "
+          f"{cfg.opt_8bit}; reduced {json.dumps(reduced)}; init "
+          f"{t_init:.2f} s", flush=True)
 
-    # 1. step 1's gradient on the kernels, its replay on the plain
-    # backward, and the two controls against the replay
+    # 1. step 1's gradient on the kernels (kept on the host: a model at
+    # full width leaves the card no room for two gradients and a
+    # replay), its replay on the plain backwards, and the controls
+    # against the replay
     b0 = batch(0)
     zero()
     t0 = time.perf_counter()
@@ -2528,13 +2855,28 @@ def trained(torch, card, name, kernels, device="cuda"):
     torch.cuda.synchronize(device)
     grad_s = time.perf_counter() - t0
     check_counts("step-1 gradient", counts(), 1)
+    g_k = _to_host(torch, g_k)
     bwd_kernel, fwd_op = fa_ops.flash_attention_bhsd_bwd, \
         fa_ops.flash_attention_bhsd
-    replayed = [0]
+    scan_bwd = sc_ops.mamba_scan_bwd
+    replayed = {"attention": 0, "scan": 0}
 
-    def plain_bwd(*args, **opts):
-        replayed[0] += 1
-        return fa_ref.flash_attention_bhsd_bwd_ref(*args, **opts)
+    def plain_bwd(q, *args, **opts):
+        # the plain backward, a few batch-heads at a time (at once, 64
+        # heads x 4096^2 float32 scores would hold ~20 GB)
+        replayed["attention"] += 1
+        off = opts.pop("q_offset", None)
+        parts = [fa_ref.flash_attention_bhsd_bwd_ref(
+            q[r:r + 8], *(t[r:r + 8] for t in args), **opts,
+            q_offset=0 if off is None else off[r:r + 8])
+            for r in range(0, q.shape[0], 8)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    def plain_scan_bwd(x, dt, bm, cm, a, d_skip, dy, states=None,
+                       dh_last=None):
+        replayed["scan"] += 1
+        return sc_ref.mamba_scan_bwd_ref(x, dt, bm, cm, a, d_skip, dy,
+                                         dh_last)
 
     def dk_zero(*args, **opts):
         dq, dk, dv = bwd_kernel(*args, **opts)
@@ -2544,31 +2886,54 @@ def trained(torch, card, name, kernels, device="cuda"):
         with torch.no_grad():
             return fwd_op(q, k, v, **opts)
 
-    def patched(attr, fn):
-        setattr(fa_ops, attr, fn)
+    def scan_db_zero(*args, **opts):
+        dx, ddt, dbm, dcm, da, dd = scan_bwd(*args, **opts)
+        return dx, ddt, torch.zeros_like(dbm), dcm, da, dd
+
+    def scan_carry_zero(x, dt, bm, cm, a, d_skip, dy, states=None,
+                        dh_last=None):
+        return sc_ref.mamba_scan_bwd_chunked_ref(
+            x, dt, bm, cm, a, d_skip, dy, dh_last, carry=False)
+
+    originals = {(fa_ops, "flash_attention_bhsd_bwd"): bwd_kernel,
+                 (fa_ops, "flash_attention_bhsd"): fwd_op,
+                 (sc_ops, "mamba_scan_bwd"): scan_bwd}
+
+    def patched(swaps):
+        for (mod, attr), fn in swaps.items():
+            setattr(mod, attr, fn)
         try:
             return accumulate_grads(cfg, params, b0)
         finally:
-            setattr(fa_ops, attr, bwd_kernel
-                    if attr == "flash_attention_bhsd_bwd" else fwd_op)
+            for mod, attr in swaps:
+                setattr(mod, attr, originals[(mod, attr)])
 
-    loss_p, g_p = patched("flash_attention_bhsd_bwd", plain_bwd)
-    if replayed[0] != calls * n_micro:
-        raise AssertionError(f"{name}: the replay took the plain backward "
-                             f"{replayed[0]} times, want {calls * n_micro}")
+    loss_p, g_p = patched({(fa_ops, "flash_attention_bhsd_bwd"): plain_bwd,
+                           (sc_ops, "mamba_scan_bwd"): plain_scan_bwd})
+    want_replays = {"attention": calls * n_micro,
+                    "scan": mamba_layers * n_micro}
+    if replayed != want_replays:
+        raise AssertionError(f"{name}: the replay took the plain "
+                             f"backwards {replayed} times, want "
+                             f"{want_replays}")
     gate = _grad_gate(torch, g_k, g_p, names)
     gate["loss_rel"] = abs(float(loss_k) - float(loss_p)) / abs(
         float(loss_p))
     del g_k
     print(f"{name} step-1 gradient, backward kernels against the plain "
-          f"backward: {json.dumps(gate)}", flush=True)
+          f"backwards: {json.dumps(gate)}", flush=True)
     if not gate["passes"] or gate["loss_rel"] > TRAIN_GATE["norm_rel"]:
         raise AssertionError(f"{name}: the kernels' gradient fails the "
                              f"gate {TRAIN_GATE}: {gate}")
+    g_p = _to_host(torch, g_p)
+    swaps = {"detached": {(fa_ops, "flash_attention_bhsd"): detached},
+             "dk_zero": {(fa_ops, "flash_attention_bhsd_bwd"): dk_zero},
+             "scan_db_zero": {(sc_ops, "mamba_scan_bwd"): scan_db_zero},
+             "scan_carry_zero": {(sc_ops, "mamba_scan_bwd"):
+                                 scan_carry_zero}}
     controls = {}
-    for ctl, attr, fn in (("detached", "flash_attention_bhsd", detached),
-                          ("dk_zero", "flash_attention_bhsd_bwd", dk_zero)):
-        _, g_c = patched(attr, fn)
+    for ctl in spec["controls"]:
+        _, g_c = patched(swaps[ctl])
         controls[ctl] = _grad_gate(torch, g_c, g_p, names)
         del g_c
         print(f"{name} control {ctl}: {json.dumps(controls[ctl])}",
@@ -2577,10 +2942,23 @@ def trained(torch, card, name, kernels, device="cuda"):
             raise AssertionError(f"{name}: the {ctl} control passes the "
                                  f"gate {TRAIN_GATE}")
     del g_p
+    gc.collect()
     torch.cuda.empty_cache()
 
     # 2. TRAIN_STEPS steps, a checkpoint after step 2
-    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, quantize_moments=cfg.opt_8bit)
+    loss_steps = spec.get("loss_steps", TRAIN_STEPS)
+    kept_out = dict.fromkeys(counts(), 0)
+
+    def loss_b0():
+        # the loss on step 1's batch (no gradient); its launches are
+        # kept out of the training counts
+        before = counts()
+        with torch.no_grad():
+            value = float(T.loss_fn(params, b0, cfg))
+        for k, v in counts().items():
+            kept_out[k] += v - before[k]
+        return value
     opt = init_opt_state(params, opt_cfg)
     marks = []
 
@@ -2608,28 +2986,33 @@ def trained(torch, card, name, kernels, device="cuda"):
         phases.append(_phase_ms(marks))
         print(f"{name} step {i + 1}: loss {losses[-1]!r}, grad norm "
               f"{float(m['grad_norm']):.4f}, {step_s[-1]:.3f} s, "
-              f"{TRAIN_BATCH * TRAIN_SEQ / step_s[-1]:.1f} tokens/s, "
+              f"{batch_size * TRAIN_SEQ / step_s[-1]:.1f} tokens/s, "
               f"{json.dumps(phases[-1])} ms", flush=True)
         if i + 1 == 2:
             t0 = time.perf_counter()
             ck.save_async(2, {"params": params, "opt": opt},
                           extra={"data_step": 2})
             save_s = time.perf_counter() - t0
-    train_counts = counts()
+        if i + 1 == loss_steps < TRAIN_STEPS:
+            after = loss_b0()
+    train_counts = {k: v - kept_out[k] for k, v in counts().items()}
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     t0 = time.perf_counter()
     ck.wait()
     write_wait_s = time.perf_counter() - t0
     check_counts("training", train_counts, TRAIN_STEPS)
-    # the loss on step 1's batch, after the steps (no gradient)
-    with torch.no_grad():
-        after = float(T.loss_fn(params, b0, cfg))
+    # the loss on step 1's batch after loss_steps steps, and after all
+    after_all = loss_b0()
+    if loss_steps == TRAIN_STEPS:
+        after = after_all
     print(f"{name}: loss on step 1's batch {losses[0]!r} before the "
-          f"steps, {after!r} after {TRAIN_STEPS}; step {TRAIN_STEPS}'s "
-          f"own batch {losses[-1]!r}", flush=True)
+          f"steps, {after!r} after {loss_steps} (checked), {after_all!r} "
+          f"after {TRAIN_STEPS}; step {TRAIN_STEPS}'s own batch "
+          f"{losses[-1]!r}", flush=True)
     if not after < losses[0]:
         raise AssertionError(f"{name}: the loss on step 1's batch did not "
-                             f"fall: {losses[0]!r} -> {after!r}")
+                             f"fall in {loss_steps} steps: {losses[0]!r} "
+                             f"-> {after!r}")
 
     # 3. resume from step 2 into fresh tensors: steps 3.. again
     like = tree_map(lambda t: torch.empty((), dtype=t.dtype,
@@ -2657,13 +3040,16 @@ def trained(torch, card, name, kernels, device="cuda"):
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     out = {
         "arch": cfg.name, "params": n_params, "layers": cfg.layers,
+        "mamba_layers": mamba_layers, "n_experts": cfg.n_experts,
         "enc_layers": cfg.enc_layers, "seq": TRAIN_SEQ,
-        "global_batch": TRAIN_BATCH, "microbatches": n_micro,
-        "remat": cfg.remat, "card": card, "init_s": t_init,
-        "step1_grad_s": grad_s, "losses": losses,
+        "global_batch": batch_size, "microbatches": n_micro,
+        "remat": cfg.remat, "int8_moments": cfg.opt_8bit,
+        "adamw_eps": opt_cfg.eps, "card": card,
+        "init_s": t_init, "step1_grad_s": grad_s, "losses": losses,
         "step1_loss_as_gate": losses[0] == float(loss_k),
-        "loss_step1_batch_after": after,
-        "step_s": step_s, "tokens_per_s": [TRAIN_BATCH * TRAIN_SEQ / t
+        "loss_step1_batch_after": after, "loss_checked_after_steps":
+        loss_steps, "loss_step1_batch_after_all": after_all,
+        "step_s": step_s, "tokens_per_s": [batch_size * TRAIN_SEQ / t
                                            for t in step_s],
         "phase_ms": phases,
         "mean_phase_ms_steps_2_on": {
@@ -2672,32 +3058,34 @@ def trained(torch, card, name, kernels, device="cuda"):
         "counts": train_counts, "gate": gate, "controls": controls,
         "checkpoint": {"save_call_s": save_s, "write_wait_s": write_wait_s,
                        "restore_s": restore_s, "resumed_losses": resumed},
-        "reduced": {"global_batch": f"train_4k's 256 -> {TRAIN_BATCH}",
-                    "steps": TRAIN_STEPS}}
+        "reduced": {**reduced, "steps": TRAIN_STEPS}}
     print(f"{name}: {json.dumps(out)}", flush=True)
     return out
 
 
-def hybrid_refused(torch, device="cuda") -> str:
-    """Phase 11: a Jamba smoke preset asked for a gradient on the card
-    must be refused by the scan op (its kernel has no backward)."""
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.models import transformer as T
-    from repro_torch.train import accumulate_grads
+def launcher_smoke(torch, sc, device="cuda") -> dict:
+    """Phase 11: ``launch/train.py --arch jamba_1_5_large_398b --smoke``
+    on the card, as the reference's launcher runs it: its losses must be
+    finite, the scan's backward must have launched the kernel and no
+    scan call may have taken the plain version."""
+    from repro_torch.kernels.mamba_scan import ops as sc_ops
+    from repro_torch.launch import train as launch_train
 
-    cfg = get_smoke_config("jamba_1_5_large_398b")
-    params, _ = T.init_params(
-        cfg, torch.Generator(device=device).manual_seed(SEED))
-    tokens = torch.zeros((1, 16), dtype=torch.int32, device=device)
-    try:
-        accumulate_grads(cfg, params, {"tokens": tokens, "labels": tokens})
-    except NotImplementedError as exc:
-        if "mamba scan" not in str(exc):
-            raise
-        print(f"jamba smoke gradient on the card refused: {exc}",
-              flush=True)
-        return str(exc)
-    raise AssertionError("a Jamba gradient on the card was not refused")
+    sc.bwd_launches = sc_ops.plain_calls = sc_ops.bwd_plain_calls = 0
+    t0 = time.perf_counter()
+    out = launch_train.main(["--arch", "jamba_1_5_large_398b", "--smoke",
+                             "--steps", "4", "--batch", "2", "--seq", "64",
+                             "--log-every", "2", "--device", device])
+    res = {"losses": [float(v) for v in out["losses"]],
+           "scan_backward_launches": sc.bwd_launches,
+           "scan_plain_calls": sc_ops.plain_calls + sc_ops.bwd_plain_calls,
+           "s": time.perf_counter() - t0}
+    print(f"launch/train.py --arch jamba_1_5_large_398b --smoke on the "
+          f"card: {json.dumps(res)}", flush=True)
+    if not res["scan_backward_launches"] or res["scan_plain_calls"] \
+            or not np.isfinite(res["losses"]).all():
+        raise AssertionError(f"the Jamba launcher smoke run: {res}")
+    return res
 
 
 def _summary(name, source, replaces, cases, path):
@@ -2762,7 +3150,8 @@ def main() -> int:
     kernels = {"matmul": mm, "flash_attention": fa, "mamba_scan": sc}
     # (name, source)
     sources = [(name, k.SOURCE) for name, k in kernels.items()] \
-        + [("flash_attention_bwd", fa.BWD_SOURCE)]
+        + [("flash_attention_bwd", fa.BWD_SOURCE),
+           ("mamba_scan_bwd", sc.BWD_SOURCE)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(kbuild.build, [src for _, src in sources]))
@@ -2791,7 +3180,8 @@ def main() -> int:
              "flash_attention": check_flash(torch, fa, fa_ops, fa_ref),
              "flash_attention_bwd": check_flash_bwd(torch, fa, fa_ref),
              "mamba_scan": check_scan(torch, sc,
-                                            mamba_scan_promoted_ref)}
+                                      mamba_scan_promoted_ref),
+             "mamba_scan_bwd": check_scan_bwd(torch, sc, sc_ref)}
     for name, (label, before, run) in EARLIER_MS.items():
         row = next(c for c in cases[name] if c["case"] == label)
         print(f"{name} {label} {row['dtype']} {row['shape']}: "
@@ -2867,9 +3257,10 @@ def main() -> int:
             raise AssertionError(f"{name}: {left:.3f} GiB still allocated "
                                  f"before the run (at most "
                                  f"{SETTLED_MAX_GIB} GiB)")
-        train[name] = trained(torch, card, name, (fa, fa_ops, fa_ref))
+        train[name] = trained(torch, card, name,
+                              (fa, fa_ops, fa_ref, sc, sc_ops, sc_ref))
         train[name]["allocated_before_gib"] = left
-    refusal = hybrid_refused(torch)
+    launcher = launcher_smoke(torch, sc)
     print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
@@ -2929,10 +3320,41 @@ def main() -> int:
         "launches": f["scan_launches"], "plain_calls":
         f["scan_plain_calls"], "prefills": f["prefills"]}
         for name, f in families.items() if f["scan_launches"]}
+    # phase 11's hybrid run: each Mamba layer's scan forward twice
+    # (remat) and backward once a step
+    scan_train = {name: {
+        "launches": t["counts"]["scan_forward_launches"],
+        "backward_launches": t["counts"]["scan_backward_launches"],
+        "plain_calls": t["counts"]["scan_plain_calls"],
+        "steps": TRAIN_STEPS} for name, t in train.items()
+        if t["counts"]["scan_backward_launches"]}
+    summary[2]["train_paths"] = scan_train
+    sbwd = cases["mamba_scan_bwd"]
+    main_case = sbwd[0]
+    summary[2]["backward"] = {
+        "name": "mamba_scan_bwd", "route": "cuda",
+        "source": f"{base}/mamba_scan/csrc/mamba_scan_bwd.cu",
+        "replaces": "src/repro/kernels/mamba_scan/mamba_scan.py:55 (the "
+                    "gradient of the function it computes; the TPU package "
+                    "took it from JAX autodiff of its jnp scan, "
+                    "src/repro/models/ssm.py:51)",
+        "launches": sum(t["backward_launches"] for t in scan_train.values()),
+        "kernels_per_launch": 5,
+        "max_abs_err": main_case["max_abs_err"], "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+        "shape": main_case["shape"], "dtype": main_case["dtype"],
+        "dtypes": {c["dtype"]: max(d["max_abs_err"] for d in sbwd
+                                   if d["dtype"] == c["dtype"])
+                   for c in sbwd},
+        "cases": sbwd, "train_paths": scan_train,
+        "launcher_smoke": launcher}
     print(json.dumps({"stap_path": stap, "whole_kernel_path": whole,
                       "served_stap": served, "raylite": raylite,
                       "served_lm": lm, "served_families": families,
-                      "trained": train, "hybrid_refused": refusal}),
+                      "trained": train, "jamba_launcher_smoke": launcher}),
           flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

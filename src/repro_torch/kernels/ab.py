@@ -20,11 +20,12 @@ through ``api.scan_rows``'s mapping), a Jamba-1.5-Large Mamba layer (L =
 16384) and a ragged case (B = 2, L = 1000, I = 77, N = 4, float64). A
 scan library whose entries take scratch (the chunked scan) gets a
 scratch allocated per call, as its wrapper does, and one whose entries
-take the final state's pointer (``mamba_scan_abi() >= 2``) gets null
-there. It prints one line per case and round (mean of CUDA-event times over 20
-launches), the largest difference between the two checkouts' outputs,
-for the scan each checkout's largest difference from the recurrence in
-float64 on the same inputs, and the card's name and power limit.
+take the final state's pointer (``mamba_scan_abi() >= 2``) and the
+segments' states' (``>= 3``) gets null there. It prints one line per
+case and round (mean of CUDA-event times over 20 launches), the
+largest difference between the two checkouts' outputs, for the scan
+each checkout's largest difference from the recurrence in float64 on
+the same inputs, and the card's name and power limit.
 Nothing here runs at import time.
 """
 
@@ -68,8 +69,9 @@ def _libraries(root: Path):
     # the serial kernel's signature (no scratch, no plan) is here only to
     # time the chunked scan against the tree before it, commit d9c8578
     chunked = hasattr(sc, "mamba_scan_scratch_bytes")
-    # entries of ABI 2 take h_last (passed null) after y
-    pointers = 7 + chunked + _with_state(sc)
+    # entries of ABI 2 take h_last (passed null) after y, of ABI 3 h_seg
+    # (null) after it
+    pointers = 7 + chunked + _state_pointers(sc)
     for name in _SCAN_ENTRY.values():
         getattr(sc, name).argtypes = [ptr] * pointers + [i64] * 4 + [ptr]
     if chunked:
@@ -83,9 +85,11 @@ def _with_lse(fa) -> bool:
     return hasattr(fa, "flash_attention_abi") and fa.flash_attention_abi() >= 2
 
 
-def _with_state(sc) -> bool:
-    """Whether ``sc``'s entries take the final state's pointer."""
-    return hasattr(sc, "mamba_scan_abi") and sc.mamba_scan_abi() >= 2
+def _state_pointers(sc) -> int:
+    """How many state pointers ``sc``'s entries take after y: h_last
+    (ABI 2) and h_seg (ABI 3)."""
+    abi = sc.mamba_scan_abi() if hasattr(sc, "mamba_scan_abi") else 1
+    return min(abi, 3) - 1
 
 
 def _scan_call(torch, sc, args, y):
@@ -97,7 +101,7 @@ def _scan_call(torch, sc, args, y):
     # the closures hold the tensors, not only their addresses, so that
     # the operands outlive the cases built after them
     ops = (*args, y)
-    state = (None,) if _with_state(sc) else ()
+    state = (None,) * _state_pointers(sc)
     if not hasattr(sc, "mamba_scan_scratch_bytes"):
         return lambda: _check(fn(*(t.data_ptr() for t in ops), batch,
                                  length, inner, n,

@@ -59,7 +59,9 @@ def _library(root: Path) -> ctypes.CDLL:
         raise RuntimeError(f"build in {root} failed:\n{out.stderr}")
     lib = ctypes.CDLL(json.loads(out.stdout.splitlines()[-1])[0])
     fn = lib.flash_attention_bwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 4 + [
+    # entries of ABI 2 take q_offset (passed null) after lse
+    fn.argtypes = [ctypes.c_void_p] * (10 + _with_offset(lib)) + [
+        ctypes.c_int64] * 4 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -104,6 +106,13 @@ def _inputs(torch, rng, bh, sq, skv, d):
                  for t in (q, k, v, do))
 
 
+def _with_offset(lib) -> bool:
+    """Whether ``lib``'s entries take q_offset (and a Δ scratch of BH x
+    (Sq + D))."""
+    return hasattr(lib, "flash_attention_bwd_abi") \
+        and lib.flash_attention_bwd_abi() >= 2
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -130,13 +139,14 @@ def main(argv) -> int:
         q, k, v, do = _inputs(torch, rng, bh, sq, skv, d)
         o, lse = fa.flash_attention_bhsd(q, k, v, causal=causal,
                                          return_lse=True)
-        delta = torch.empty_like(lse)
+        delta = torch.empty((bh, sq + d), dtype=lse.dtype, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
 
         def call(lib, out):
             err = lib.flash_attention_bwd_bf16(
-                *(t.data_ptr() for t in (q, k, v, o, do, lse, delta,
-                                         *out)),
+                *(t.data_ptr() for t in (q, k, v, o, do, lse)),
+                *((None,) if _with_offset(lib) else ()),
+                *(t.data_ptr() for t in (delta, *out)),
                 bh, sq, skv, d, int(causal), 0, 0.0, stream)
             if err:
                 raise RuntimeError(f"launch failed ({err})")

@@ -108,13 +108,31 @@
 // 2. At D = 288 the tensor-core design's dK and dV rows (16 keys x 288
 // columns x 2 in float32) would take 288 registers a thread.
 //
-// Types: double in, double accumulation; float in, float; bf16 in, float.
-// Rows with no valid key (a window that lies past the last key) are not
-// differentiated: the wrapper refuses them.
+// Query positions: row i of batch-head r sits at position q_offset[r] + i
+// (the forward's q_offset; null: i). Every kernel reads its batch-head's
+// offset and moves its tile bounds and element masks with it.
 //
-// C interface (loaded with ctypes): pointers (q, k, v, o, dO, lse, delta
-// scratch of BH x Sq accumulation values, dq, dk, dv), the sizes, the
-// options and the CUDA stream; each entry returns a cudaError_t.
+// Rows with no valid key (a window past the last key, or a causal row
+// before the first): the forward gives such a row the mean of V over all
+// Skv keys (P uniform, as the reference's softmax over scores masked at
+// -1e30), and the reference's gradient through it (jnp.where passes none
+// to masked scores) is dQ = 0, nothing to dK, and dO_i / Skv to dV of
+// every key. Here P is 0 on every masked pair, so such a row adds nothing
+// to dQ, dK or dV in the kernels above; where the caller can have one (a
+// q_offset, or window > 0 with Sq >= Skv + window) the preamble also sums
+// dO over each batch-head's empty rows in row order (esum, BH x D in the
+// accumulation type: extra blocks of delta_kernel, no atomics), and the
+// dK/dV kernels add esum / Skv to dV of every key. Without one nothing
+// changes.
+//
+// Types: double in, double accumulation; float in, float; bf16 in, float.
+//
+// C interface (loaded with ctypes): pointers (q, k, v, o, dO, lse,
+// q_offset (int32 (BH,), null: none), the delta scratch of BH x (Sq + D)
+// accumulation values, dq, dk, dv), the sizes, the options and the CUDA
+// stream; each entry returns a cudaError_t. flash_attention_bwd_abi names
+// the entries' signature (2: with q_offset and empty rows), for tools
+// that call other checkouts.
 
 #include <cmath>
 #include <cstdint>
@@ -157,6 +175,14 @@ __device__ __forceinline__ bool valid(int qp, int kp, int causal,
   if (causal) ok = kp <= qp;
   if (window > 0) ok = ok && kp > qp - window;
   return ok;
+}
+
+// whether the row at position qp has no valid key among skv
+__device__ __forceinline__ bool no_key(int qp, int skv, int causal,
+                                       int window) {
+  const int lo = window > 0 ? max(0, qp - window + 1) : 0;
+  const int hi = causal ? min(skv - 1, qp) : skv - 1;
+  return lo > hi;
 }
 
 // loads rows [r0, r0 + rows) of a (n, d) matrix into a rows x (d + 1)
@@ -264,11 +290,30 @@ __device__ __forceinline__ void grad_pair2(float s, float dp, bool ok,
   *ds_out = ds;
 }
 
-// the preamble: delta[r] = sum_c dO[r][c] O[r][c], a warp per row
+// the preamble: delta[r] = sum_c dO[r][c] O[r][c], a warp per row, in
+// the first row_blocks blocks; with esum, one block per batch-head after
+// them: esum[bh][c] = the sum of dO[bh][i][c] over the rows i with no
+// valid key, in row order
 template <typename T, typename Acc>
 __global__ void __launch_bounds__(THREADS)
 delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-             Acc* __restrict__ delta, int64_t rows, int d) {
+             Acc* __restrict__ delta, Acc* __restrict__ esum,
+             const int* __restrict__ q_offset, int64_t rows,
+             int64_t row_blocks, int sq, int skv, int d, int causal,
+             int window) {
+  if (blockIdx.x >= row_blocks) {
+    const int64_t bh = blockIdx.x - row_blocks;
+    const int off = q_offset ? q_offset[bh] : 0;
+    const T* db = dout + bh * sq * d;
+    for (int c = threadIdx.x; c < d; c += THREADS) {
+      Acc sum = Acc(0);
+      for (int i = 0; i < sq; ++i)
+        if (no_key(off + i, skv, causal, window))
+          sum += to_acc<Acc>(db[(int64_t)i * d + c]);
+      esum[bh * d + c] = sum;
+    }
+    return;
+  }
   const int64_t row =
       (int64_t)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -290,6 +335,7 @@ __global__ void __launch_bounds__(THREADS)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const Acc* __restrict__ lse, const Acc* __restrict__ delta,
+            const Acc* __restrict__ esum, const int* __restrict__ q_offset,
             T* __restrict__ dk, T* __restrict__ dv, int sq, int skv, int d,
             Acc scale, int causal, int window, Acc softcap) {
   constexpr int BA = 16 * TA;      // keys of the block
@@ -310,6 +356,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid / 16;
   const int64_t bh = blockIdx.y;
   const int k0 = blockIdx.x * BA;
+  const int off = q_offset ? q_offset[bh] : 0;   // row 0's position
   const T* qb = q + bh * sq * d;
   const T* dob = dout + bh * sq * d;
   const Acc* lb = lse + bh * sq;
@@ -327,8 +374,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the query rows that see a key of the block: from the first key on
   // (causal), up to the last key's window
   const int k_last = min(k0 + BA, skv) - 1;
-  int q_begin = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(sq, k_last + window) : sq;
+  int q_begin = causal ? max(0, k0 - off) : 0;
+  const int q_end = window > 0 ? min(sq, k_last + window - off) : sq;
   q_begin = (q_begin / BB) * BB;
 
   for (int qt = q_begin; qt < q_end; qt += BB) {
@@ -350,7 +397,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kp = k0 + ty + 16 * a;
         const int r = tx + 16 * b;
         const int qp = qt + r;
-        const bool ok = kp < skv && qp < sq && valid(qp, kp, causal, window);
+        const bool ok = kp < skv && qp < sq
+            && valid(off + qp, kp, causal, window);
         grad_pair<Acc>(s[a][b], dp[a][b], ok, lse_s[r], del_s[r], scale,
                        softcap, &ps[(ty + 16 * a) * (BB + 1) + r],
                        &dss[(ty + 16 * a) * (BB + 1) + r]);
@@ -391,8 +439,10 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
       if (col < d) {
+        // the empty rows' uniform P: dO summed over them, over Skv
+        const Acc e = esum ? esum[bh * d + col] / Acc(skv) : Acc(0);
         dkb[(int64_t)r * d + col] = from_acc<T, Acc>(gk[a][c] * scale);
-        dvb[(int64_t)r * d + col] = from_acc<T, Acc>(gv[a][c]);
+        dvb[(int64_t)r * d + col] = from_acc<T, Acc>(gv[a][c] + e);
       }
     }
   }
@@ -404,8 +454,8 @@ __global__ void __launch_bounds__(THREADS)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const Acc* __restrict__ lse, const Acc* __restrict__ delta,
-          T* __restrict__ dq, int sq, int skv, int d, Acc scale, int causal,
-          int window, Acc softcap) {
+          const int* __restrict__ q_offset, T* __restrict__ dq, int sq,
+          int skv, int d, Acc scale, int causal, int window, Acc softcap) {
   constexpr int BA = 16 * TA;      // query rows of the block
   constexpr int BB = 16 * TB;      // keys a step
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -423,6 +473,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid / 16;
   const int64_t bh = blockIdx.y;
   const int q0 = blockIdx.x * BA;
+  const int off = q_offset ? q_offset[bh] : 0;   // row 0's position
   const T* kb = k + bh * skv * d;
   const T* vb = v + bh * skv * d;
 
@@ -439,11 +490,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) gq[a][c] = Acc(0);
 
-  // the keys the block's rows see (every row has one: the wrapper
-  // refuses rows with none)
+  // the keys the block's rows see (none for a row with no valid key)
   const int q_last = min(q0 + BA, sq) - 1;
-  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(skv, q_last + 1) : skv;
+  int k_begin = window > 0 ? max(0, off + q0 - window + 1) : 0;
+  const int k_end = causal ? min(skv, off + q_last + 1) : skv;
   k_begin = (k_begin / BB) * BB;
 
   for (int kt = k_begin; kt < k_end; kt += BB) {
@@ -461,7 +511,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = ty + 16 * a;
         const int qp = q0 + r;
         const int kp = kt + tx + 16 * b;
-        const bool ok = kp < skv && qp < sq && valid(qp, kp, causal, window);
+        const bool ok = kp < skv && qp < sq
+            && valid(off + qp, kp, causal, window);
         Acc p;
         grad_pair<Acc>(s[a][b], dp[a][b], ok, lse_s[r], del_s[r], scale,
                        softcap, &p, &dss[r * (BB + 1) + tx + 16 * b]);
@@ -622,6 +673,8 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta,
+                const float* __restrict__ esum,
+                const int* __restrict__ q_offset,
                 __nv_bfloat16* __restrict__ dk,
                 __nv_bfloat16* __restrict__ dv, int sq, int skv, int d,
                 float scale, int causal, int window, float softcap,
@@ -645,6 +698,7 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
   const int64_t bh = blockIdx.y;
   const int k0 = blockIdx.x * KV_KEYS;
   const int kw = k0 + 16 * warp;                     // the warp's keys
+  const int off = q_offset ? q_offset[bh] : 0;       // row 0's position
   const float scale2 = scale * LOG2E;
   const __nv_bfloat16* qb = q + bh * sq * d;
   const __nv_bfloat16* dob = dout + bh * sq * d;
@@ -653,8 +707,8 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
 
   // the query rows that see a key of the block (as dkdv_kernel)
   const int k_last = min(k0 + KV_KEYS, skv) - 1;
-  int q_begin = causal ? k0 : 0;
-  const int q_end = window > 0 ? min(sq, k_last + window) : sq;
+  int q_begin = causal ? max(0, k0 - off) : 0;
+  const int q_end = window > 0 ? min(sq, k_last + window - off) : sq;
   q_begin = (q_begin / BR) * BR;
 
   auto load_rows = [&](int qt, int buf) {
@@ -709,9 +763,10 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
 
     // Pᵀ and dSᵀ in place; the element mask only where the warp's keys
     // and the step's rows are not all valid pairs
+    const int pt = off + qt;                  // the step's first position
     const bool edge = kw + 16 > skv || qt + BR > sq
-        || (causal && qt < kw + 15)
-        || (window > 0 && qt + BR - 1 - window >= kw);
+        || (causal && pt < kw + 15)
+        || (window > 0 && pt + BR - 1 - window >= kw);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -719,7 +774,7 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
         const int r = 8 * j + 2 * t + (e & 1);
         const int kp = kw + g + 8 * (e >> 1);
         const bool ok = !edge
-            || (kp < skv && qt + r < sq && valid(qt + r, kp, causal, window));
+            || (kp < skv && qt + r < sq && valid(pt + r, kp, causal, window));
         grad_pair2<CAP>(s[j][e], dp[j][e], ok, lc[r], dc[r], scale, scale2,
                         softcap, &s[j][e], &dp[j][e]);
       }
@@ -759,9 +814,12 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * c + 2 * t + e;
         if (col < d) {
+          // the empty rows' uniform P: dO summed over them, over Skv
+          const float ex = esum ? esum[bh * d + col] / (float)skv : 0.0f;
           dkb[(int64_t)r * d + col] =
               __float2bfloat16(gk[c][2 * h + e] * scale);
-          dvb[(int64_t)r * d + col] = __float2bfloat16(gv[c][2 * h + e]);
+          dvb[(int64_t)r * d + col] =
+              __float2bfloat16(gv[c][2 * h + e] + ex);
         }
       }
   }
@@ -778,6 +836,7 @@ mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ v,
               const __nv_bfloat16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
+              const int* __restrict__ q_offset,
               __nv_bfloat16* __restrict__ dq, int sq, int skv, int d,
               float scale, int causal, int window, float softcap, int vec) {
   constexpr int LD = mma_ld<DP>();
@@ -798,14 +857,16 @@ mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
   // the last rows first: under a causal mask they walk the most keys
   const int q0 = (gridDim.x - 1 - blockIdx.x) * Q_ROWS;
   const int qw = q0 + 16 * warp;                     // the warp's rows
+  const int off = q_offset ? q_offset[bh] : 0;       // row 0's position
+  const int pw = off + qw;                           // their position
   const float scale2 = scale * LOG2E;
   const __nv_bfloat16* kb = k + bh * skv * d;
   const __nv_bfloat16* vb = v + bh * skv * d;
 
   // the keys the block's rows see (as dq_kernel)
   const int q_last = min(q0 + Q_ROWS, sq) - 1;
-  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_end = causal ? min(skv, q_last + 1) : skv;
+  int k_begin = window > 0 ? max(0, off + q0 - window + 1) : 0;
+  const int k_end = causal ? min(skv, off + q_last + 1) : skv;
   k_begin = (k_begin / Q_STEP) * Q_STEP;
 
   auto load_keys = [&](int kt, int buf) {
@@ -862,8 +923,8 @@ mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
                                     dp);
 
     const bool edge = qw + 16 > sq || kt + Q_STEP > skv
-        || (causal && kt + Q_STEP - 1 > qw)
-        || (window > 0 && kt <= qw + 15 - window);
+        || (causal && kt + Q_STEP - 1 > pw)
+        || (window > 0 && kt <= pw + 15 - window);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -871,7 +932,7 @@ mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
         const int qp = qw + g + 8 * (e >> 1);
         const int kp = kt + 8 * j + 2 * t + (e & 1);
         const bool ok = !edge
-            || (kp < skv && qp < sq && valid(qp, kp, causal, window));
+            || (kp < skv && qp < sq && valid(off + qp, kp, causal, window));
         grad_pair2<CAP>(s[j][e], dp[j][e], ok, lse_r[e >> 1], del_r[e >> 1],
                         scale, scale2, softcap, &s[j][e], &dp[j][e]);
       }
@@ -922,9 +983,10 @@ size_t dq_smem(int d) {
 
 template <typename T, typename Acc, int NC>
 int launch_nc(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, void* dk,
-              void* dv, int bh, int sq, int skv, int d, int causal,
-              int window, double softcap, cudaStream_t stream) {
+              const void* lse, const void* delta, const void* esum,
+              const int* q_offset, void* dq, void* dk, void* dv, int bh,
+              int sq, int skv, int d, int causal, int window, double softcap,
+              cudaStream_t stream) {
   constexpr int TA = 2;
   constexpr int TB = sizeof(Acc) == 8 ? 1 : 2;   // f64 tiles fit at D = 288
   const Acc scale = Acc(1.0 / sqrt((double)d));
@@ -938,8 +1000,8 @@ int launch_nc(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const Acc*>(lse), static_cast<const Acc*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, d, scale, causal,
-      window, Acc(softcap));
+      static_cast<const Acc*>(esum), q_offset, static_cast<T*>(dk),
+      static_cast<T*>(dv), sq, skv, d, scale, causal, window, Acc(softcap));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   auto q_kern = dq_kernel<T, Acc, NC, TA, TB>;
@@ -952,7 +1014,8 @@ int launch_nc(const void* q, const void* k, const void* v, const void* dout,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const Acc*>(lse), static_cast<const Acc*>(delta),
-      static_cast<T*>(dq), sq, skv, d, scale, causal, window, Acc(softcap));
+      q_offset, static_cast<T*>(dq), sq, skv, d, scale, causal, window,
+      Acc(softcap));
   return (int)cudaGetLastError();
 }
 
@@ -973,8 +1036,9 @@ size_t mma_dq_smem() {
 template <int DP>
 int launch_mma(const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
-               void* dq, void* dk, void* dv, int bh, int sq, int skv, int d,
-               int causal, int window, double softcap, cudaStream_t stream) {
+               const void* esum, const int* q_offset, void* dq, void* dk,
+               void* dv, int bh, int sq, int skv, int d, int causal,
+               int window, double softcap, cudaStream_t stream) {
   constexpr int BR = DP <= 80 ? 64 : 32;
   constexpr bool HOLD_KV = DP <= 80;      // with the softcap: DP <= 64
   constexpr bool HOLD_Q = DP <= 32;
@@ -998,8 +1062,9 @@ int launch_mma(const void* q, const void* k, const void* v,
       static_cast<const B16*>(q), static_cast<const B16*>(k),
       static_cast<const B16*>(v), static_cast<const B16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<B16*>(dk), static_cast<B16*>(dv), sq, skv, d, scale,
-      causal, window, (float)softcap, vec);
+      static_cast<const float*>(esum), q_offset, static_cast<B16*>(dk),
+      static_cast<B16*>(dv), sq, skv, d, scale, causal, window,
+      (float)softcap, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   auto q_kern = cap ? mma_dq_kernel<DP, HOLD_Q, true, MINB_Q>
@@ -1013,30 +1078,39 @@ int launch_mma(const void* q, const void* k, const void* v,
       static_cast<const B16*>(q), static_cast<const B16*>(k),
       static_cast<const B16*>(v), static_cast<const B16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<B16*>(dq), sq, skv, d, scale, causal, window,
+      q_offset, static_cast<B16*>(dq), sq, skv, d, scale, causal, window,
       (float)softcap, vec);
   return (int)cudaGetLastError();
 }
 
 using Launch = int (*)(const void*, const void*, const void*, const void*,
-                       const void*, const void*, void*, void*, void*, int,
-                       int, int, int, int, int, double, cudaStream_t);
+                       const void*, const void*, const void*, const int*,
+                       void*, void*, void*, int, int, int, int, int, int,
+                       double, cudaStream_t);
 
 template <typename T, typename Acc>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, void* delta, void* dq, void* dk,
-           void* dv, int64_t bh, int64_t sq, int64_t skv, int64_t d,
-           int causal, int window, double softcap, void* stream_ptr) {
+           const void* dout, const void* lse, const void* q_offset_ptr,
+           void* delta, void* dq, void* dk, void* dv, int64_t bh, int64_t sq,
+           int64_t skv, int64_t d, int causal, int window, double softcap,
+           void* stream_ptr) {
   if (d < 1 || d > MAX_D || bh > 65535 || sq > ((int64_t)1 << 30)
       || skv > ((int64_t)1 << 30))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int* q_offset = static_cast<const int*>(q_offset_ptr);
   const int64_t rows = bh * sq;
-  const unsigned rows_blocks =
-      (unsigned)((rows + THREADS / 32 - 1) / (THREADS / 32));
-  delta_kernel<T, Acc><<<rows_blocks, THREADS, 0, stream>>>(
+  const int64_t rows_blocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
+  // rows with no valid key: possible with an offset, or with a window
+  // that lies past the last key (Sq >= Skv + window); their dO sums go
+  // after delta
+  Acc* esum = q_offset != nullptr || (window > 0 && sq >= skv + window)
+      ? static_cast<Acc*>(delta) + rows : nullptr;
+  delta_kernel<T, Acc><<<(unsigned)(rows_blocks + (esum ? bh : 0)),
+                         THREADS, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout),
-      static_cast<Acc*>(delta), rows, (int)d);
+      static_cast<Acc*>(delta), esum, q_offset, rows, rows_blocks,
+      (int)sq, (int)skv, (int)d, causal, window);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   Launch fn = nullptr;
@@ -1060,8 +1134,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     if (d <= 64) fn = launch_nc<T, Acc, 4>;
     if (d <= 32) fn = launch_nc<T, Acc, 2>;
   }
-  return fn(q, k, v, dout, lse, delta, dq, dk, dv, (int)bh, (int)sq,
-            (int)skv, (int)d, causal, window, softcap, stream);
+  return fn(q, k, v, dout, lse, delta, esum, q_offset, dq, dk, dv, (int)bh,
+            (int)sq, (int)skv, (int)d, causal, window, softcap, stream);
 }
 
 }  // namespace
@@ -1070,17 +1144,20 @@ extern "C" {
 
 #define FLASH_BWD_ENTRY(NAME, T, ACC)                                        \
   int NAME(const void* q, const void* k, const void* v, const void* o,      \
-           const void* dout, const void* lse, void* delta, void* dq,        \
-           void* dk, void* dv, int64_t bh, int64_t sq, int64_t skv,         \
-           int64_t d, int causal, int window, double softcap,               \
-           void* stream) {                                                   \
-    return launch<T, ACC>(q, k, v, o, dout, lse, delta, dq, dk, dv, bh, sq, \
-                          skv, d, causal, window, softcap, stream);         \
+           const void* dout, const void* lse, const void* q_offset,         \
+           void* delta, void* dq, void* dk, void* dv, int64_t bh,           \
+           int64_t sq, int64_t skv, int64_t d, int causal, int window,      \
+           double softcap, void* stream) {                                  \
+    return launch<T, ACC>(q, k, v, o, dout, lse, q_offset, delta, dq, dk,   \
+                          dv, bh, sq, skv, d, causal, window, softcap,      \
+                          stream);                                           \
   }
 
 FLASH_BWD_ENTRY(flash_attention_bwd_f64, double, double)
 FLASH_BWD_ENTRY(flash_attention_bwd_f32, float, float)
 FLASH_BWD_ENTRY(flash_attention_bwd_bf16, __nv_bfloat16, float)
+
+int flash_attention_bwd_abi() { return 2; }
 
 const char* flash_attention_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -72,14 +72,14 @@ def _library() -> ctypes.CDLL:
 
 
 def _bwd_library() -> ctypes.CDLL:
-    """The backward's library: q, k, v, o, dO, lse, the Δ scratch, dq,
-    dk, dv, the sizes, the options and the stream."""
+    """The backward's library: q, k, v, o, dO, lse, q_offset, the Δ
+    scratch, dq, dk, dv, the sizes, the options and the stream."""
     global _bwd_lib
     if _bwd_lib is None:
         lib = _build.load(BWD_SOURCE)
         for name in _BWD_ENTRY.values():
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 4 + [
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 4 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_double,
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -119,6 +119,18 @@ def _check(q, k, v, what: str) -> None:
                          f"Skv={k.shape[1]}")
 
 
+def _check_offset(q, q_offset, what: str) -> None:
+    """Raise for a q_offset the kernels do not take."""
+    if q_offset is not None and (
+            q_offset.dtype != torch.int32 or q_offset.device != q.device
+            or tuple(q_offset.shape) != (q.shape[0],)
+            or not q_offset.is_contiguous()):
+        raise ValueError(f"{what} needs q_offset as a contiguous int32 "
+                         f"({q.shape[0]},) tensor on {q.device}, got "
+                         f"{q_offset.dtype} {tuple(q_offset.shape)} on "
+                         f"{q_offset.device}")
+
+
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0,
@@ -132,14 +144,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``return_lse``, (out, lse): lse ``(BH, Sq)`` in the accumulation
     type, the log of each row's softmax denominator."""
     global launches
-    if q_offset is not None and (
-            q_offset.dtype != torch.int32 or q_offset.device != q.device
-            or tuple(q_offset.shape) != (q.shape[0],)
-            or not q_offset.is_contiguous()):
-        raise ValueError(f"flash attention kernel needs q_offset as a "
-                         f"contiguous int32 ({q.shape[0]},) tensor on "
-                         f"{q.device}, got {q_offset.dtype} "
-                         f"{tuple(q_offset.shape)} on {q_offset.device}")
+    _check_offset(q, q_offset, "flash attention kernel")
     _check(q, k, v, "flash attention kernel")
     bh, sq, d = q.shape
     skv = k.shape[1]
@@ -169,13 +174,17 @@ def flash_attention_bhsd_bwd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool = True, window: int = 0,
-                             softcap: float = 0.0):
-    """(dq, dk, dv) of :func:`flash_attention_bhsd` (no query offset) on
-    the card, in the operands' dtype: from its output ``o`` and logsumexp
-    ``lse`` and the output's gradient ``do`` (each contiguous, ``o`` and
-    ``do`` as q, ``lse`` (BH, Sq) in the accumulation type)."""
+                             softcap: float = 0.0,
+                             q_offset: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of :func:`flash_attention_bhsd` on the card, in the
+    operands' dtype: from its output ``o`` and logsumexp ``lse`` and the
+    output's gradient ``do`` (each contiguous, ``o`` and ``do`` as q,
+    ``lse`` (BH, Sq) in the accumulation type), with the forward's
+    ``q_offset``. A row with no valid key gets dq = 0 and adds dO / Skv
+    to dv of every key (the forward's uniform P)."""
     global bwd_launches
     what = "flash attention backward kernel"
+    _check_offset(q, q_offset, what)
     _check(q, k, v, what)
     acc = torch.promote_types(q.dtype, torch.float32)
     bh, sq, d = q.shape
@@ -196,10 +205,13 @@ def flash_attention_bhsd_bwd(q: torch.Tensor, k: torch.Tensor,
     lib = _bwd_library()
     fn = getattr(lib, _BWD_ENTRY[q.dtype])
     with torch.cuda.device(q.device):
-        delta = torch.empty((bh, sq), dtype=acc, device=q.device)
+        # Δ of each row, then each batch-head's dO summed over its rows
+        # with no valid key
+        delta = torch.empty((bh, sq + d), dtype=acc, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq,
-                                          dk, dv)),
+        err = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse)),
+                 None if q_offset is None else q_offset.data_ptr(),
+                 *(t.data_ptr() for t in (delta, dq, dk, dv)),
                  bh, sq, skv, d, int(bool(causal)), int(window or 0),
                  float(softcap or 0.0), stream)
     if err != 0:

@@ -19,10 +19,11 @@ logsumexp of each row, its backward calls
 :func:`flash_attention_bhsd_bwd` (the backward kernels for CUDA tensors,
 :func:`.ref.flash_attention_bhsd_bwd_ref` for CPU tensors, counted in
 :data:`plain_calls` too). :func:`flash_attention`'s regroup is plain
-autograd, so dK and dV are summed over the repeated groups. A gradient
-with a query offset, or through a row with no valid key, raises
-``NotImplementedError``: training passes neither. Without grad the op
-is the forward alone, as served.
+autograd, so dK and dV are summed over the repeated groups. The
+gradient takes the forward's query offset, and a row with no valid key
+(its forward output the mean of V) gets dQ = 0 and adds dO / Skv to dV
+of every key, as the reference's gradient does. Without grad the op is
+the forward alone, as served.
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ def _forward(q, k, v, *, causal, window, softcap, q_offset=None,
 
 
 def flash_attention_bhsd_bwd(q, k, v, o, do, lse, *, causal: bool = True,
-                             window: int = 0, softcap: float = 0.0):
+                             window: int = 0, softcap: float = 0.0,
+                             q_offset: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of :func:`flash_attention_bhsd` from its output, its
     logsumexp and the output's gradient: the backward kernels for CUDA
     tensors, the plain backward for CPU tensors."""
@@ -61,30 +63,33 @@ def flash_attention_bhsd_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     if q.is_cuda:
         return _kernel.flash_attention_bhsd_bwd(
             q, k, v, o, do, lse, causal=causal, window=window,
-            softcap=softcap)
+            softcap=softcap, q_offset=q_offset)
     plain_calls += 1
     return flash_attention_bhsd_bwd_ref(q, k, v, o, do, lse, causal=causal,
-                                        window=window, softcap=softcap)
+                                        window=window, softcap=softcap,
+                                        q_offset=q_offset)
 
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention on ``(BH, S, D)`` with its gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
         out, lse = _forward(q, k, v, causal=causal, window=window,
-                            softcap=softcap, return_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+                            softcap=softcap, q_offset=q_offset,
+                            return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, q_offset)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, q_offset = ctx.saved_tensors
         # looked up at call time, so a caller may swap the backward
         dq, dk, dv = flash_attention_bhsd_bwd(q, k, v, out, do.contiguous(),
-                                              lse, **ctx.opts)
-        return dq, dk, dv, None, None, None
+                                              lse, q_offset=q_offset,
+                                              **ctx.opts)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,17 +102,8 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         return _forward(q, k, v, causal=causal, window=window,
                         softcap=softcap, q_offset=q_offset)
-    if q_offset is not None:
-        raise NotImplementedError(
-            "flash attention: no gradient with a query offset (training "
-            "passes none)")
-    sq, skv = q.shape[1], k.shape[1]
-    if window and window > 0 and sq >= skv + window:
-        raise NotImplementedError(
-            f"flash attention: no gradient through rows with no valid key "
-            f"(Sq {sq} >= Skv {skv} + window {window})")
     return FlashAttention.apply(q, k, v, bool(causal), int(window or 0),
-                                float(softcap or 0.0))
+                                float(softcap or 0.0), q_offset)
 
 
 def regroup(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

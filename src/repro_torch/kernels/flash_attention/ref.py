@@ -16,7 +16,10 @@ the path CPU tensors take).
   the forward's ``lse``: ``P = exp(S - lse)`` on the valid pairs,
   ``Δ = rowsum(dO ⊙ O)``, ``dV = Pᵀ dO``, ``dS = P ⊙ (dO Vᵀ - Δ)``
   (times ``1 - tanh²`` under a softcap), ``dK = dSᵀ Q · scale``,
-  ``dQ = dS K · scale``, in ``promote(dtype, float32)``.
+  ``dQ = dS K · scale``, in ``promote(dtype, float32)``; a row with
+  no valid key (whose forward P is uniform over all Skv keys) adds its
+  dO / Skv to dV of every key and nothing to dQ or dK, as the
+  reference's gradient through scores masked at -1e30.
 
 Both take the reference's ``q_offset`` (``plain_attention(...,
 q_offset=...)``): query row ``i`` sits at position ``q_offset + i``, an
@@ -120,11 +123,11 @@ def flash_attention_bhsd_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, o: torch.Tensor,
                                  do: torch.Tensor, lse: torch.Tensor, *,
                                  causal: bool = True, window: int = 0,
-                                 softcap: float = 0.0):
-    """(dq, dk, dv) of :func:`flash_attention_bhsd_ref` (no query offset)
-    from its output ``o``, its logsumexp ``lse`` (BH, Sq) and the
-    output's gradient ``do``, in q's dtype. Every row needs a valid key
-    (a row with none is not differentiated)."""
+                                 softcap: float = 0.0,
+                                 q_offset: Offset = 0):
+    """(dq, dk, dv) of :func:`flash_attention_bhsd_ref` from its output
+    ``o``, its logsumexp ``lse`` (BH, Sq) and the output's gradient
+    ``do``, in q's dtype; ``q_offset``: an int or (BH,)."""
     acc = torch.promote_types(q.dtype, torch.float32)
     scale = 1.0 / math.sqrt(q.shape[-1])
     qa, ka, va, oa, da = (t.to(acc) for t in (q, k, v, o, do))
@@ -132,11 +135,17 @@ def flash_attention_bhsd_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     if softcap and softcap > 0:
         t = torch.tanh(x / softcap)
         x = t * softcap
-    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device,
+                 q_offset)
     p = torch.where(mask, torch.exp(x - lse.to(acc)[..., None]),
                     torch.zeros((), dtype=acc, device=q.device))
     delta = (da * oa).sum(dim=-1)                             # bh q
     dv = p.transpose(-1, -2) @ da
+    # rows with no valid key: P uniform over the keys in the forward
+    empty = ~mask.any(dim=-1, keepdim=True)                   # (…, q, 1)
+    if bool(empty.any()):
+        dv = dv + (empty.to(acc) * da).sum(dim=-2, keepdim=True) \
+            / k.shape[1]
     ds = p * (da @ va.transpose(-1, -2) - delta[..., None])
     if softcap and softcap > 0:
         ds = ds * (1 - t * t)

@@ -1,0 +1,170 @@
+"""Time the selective scan's backward of this checkout against other
+checkouts' on one GPU, interleaved (the others, this, this, the others in
+reverse).
+
+    PYTHONPATH=src python3 -m repro_torch.kernels.mamba_scan.bwd_ab \\
+        [OTHER_CHECKOUT ...]
+
+Each checkout builds its own ``mamba_scan_bwd.cu`` with its own
+``kernels/build.py`` (in a subprocess, so its headers are its own) into
+its own ``build/kernels/``; this process loads every library and calls
+its ``mamba_scan_bwd_f32`` entry on the same inputs, with the entry
+states of this checkout's forward kernel (a variant must keep their
+layout). Cases: a Jamba-1.5-Large Mamba layer as phase 11 of
+``chip_smoke.py`` trains it (B = 1, L = 4096, I = 16384, N = 16) and a
+ragged one (B = 2, L = 1000, I = 77, N = 4), float32, inputs drawn as
+phase 3 draws them. It prints each checkout's ptxas registers and spill
+bytes of ``scan_bwd_kernel``, one JSON line per case and round (mean
+CUDA-event time over 10 launches after a warm-up), each checkout's
+largest difference from this checkout's gradients, this checkout's
+norm error against the float64 plain backward (``ref.
+mamba_scan_bwd_ref``), the bound (one exp per (b, t, i, n) on the SFU
+against x, dt, dy, dx and ddt once in memory) and the card's name and
+power limit. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+_BUILD = ("import json, sys; from pathlib import Path; "
+          "from repro_torch.kernels import build; "
+          "print(json.dumps([str(build.build(Path(s))[0]) "
+          "for s in sys.argv[1:]]))")
+_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu"
+# (label, (B, L, I, N))
+CASES = [("jamba_train", (1, 4096, 16384, 16)),
+         ("ragged", (2, 1000, 77, 4))]
+SFU_EXP_S = 16 * 132 * 1.98e9
+PEAK_BYTES_S = 3.35e12
+REPS = 10
+
+
+def _library(root: Path):
+    """(library, ptxas lines of its float32 scan_bwd_kernel) of the
+    checkout at ``root``."""
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    out = subprocess.run([sys.executable, "-c", _BUILD, str(root / _SOURCE)],
+                         cwd=root, env=env, capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"build in {root} failed:\n{out.stderr}")
+    path = Path(json.loads(out.stdout.splitlines()[-1])[0])
+    lib = ctypes.CDLL(str(path))
+    lib.mamba_scan_bwd_f32.argtypes = [ctypes.c_void_p] * 16 + [
+        ctypes.c_int64] * 4 + [ctypes.c_void_p]
+    lib.mamba_scan_bwd_f32.restype = ctypes.c_int
+    lib.mamba_scan_bwd_work_bytes.argtypes = [ctypes.c_int64] * 5
+    lib.mamba_scan_bwd_work_bytes.restype = ctypes.c_int64
+    log = path.with_suffix(".log")
+    lines, fn = [], None
+    for line in (log.read_text() if log.exists() else "").splitlines():
+        if "Function properties for" in line:
+            fn = line.split("for", 1)[1].strip()
+        elif fn and "scan_bwd_kernelIff" in fn and (
+                "spill" in line or "registers" in line):
+            n = re.search(r"Li(\d+)E", fn).group(1)
+            lines.append(f"N<={n}: {line.split(':', 1)[-1].strip()}")
+    return lib, lines
+
+
+def _time_ms(torch, fn, reps: int = REPS) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main(argv) -> int:
+    import numpy as np
+    import torch
+
+    from . import mamba_scan as sc
+    from .ref import mamba_scan_bwd_ref
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    here = Path(__file__).resolve().parents[4]
+    roots = [Path(a).resolve() for a in argv] + [here]
+    with ThreadPoolExecutor(len(roots)) as pool:    # one nvcc each, at once
+        libs = dict(zip(map(str, roots), pool.map(_library, roots)))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}", flush=True)
+    for r, (_, lines) in libs.items():
+        print(json.dumps({"checkout": r, "ptxas": lines}), flush=True)
+    rng = np.random.default_rng(9)
+    for label, (b, length, inner, n) in CASES:
+        host = [rng.normal(size=(b, length, inner)),
+                0.1 * np.abs(rng.normal(size=(b, length, inner))),
+                rng.normal(size=(b, length, n)),
+                rng.normal(size=(b, length, n)),
+                np.log(np.abs(rng.normal(size=(inner, n))) + 0.5),
+                rng.normal(size=(inner,)),
+                rng.normal(size=(b, length, inner))]
+        args = [torch.from_numpy(a).to("cuda", torch.float32).contiguous()
+                for a in host]
+        del host
+        _, _, states = sc.mamba_scan(*args[:6], save_states=True)
+        stream = torch.cuda.current_stream().cuda_stream
+        work = {r: torch.empty(lib.mamba_scan_bwd_work_bytes(
+            b, length, inner, n, 4), dtype=torch.uint8, device="cuda")
+            for r, (lib, _) in libs.items()}
+        grads = {r: tuple(torch.empty_like(t) for t in args[:6])
+                 for r in libs}
+
+        def call(r):
+            err = libs[r][0].mamba_scan_bwd_f32(
+                *(t.data_ptr() for t in (*args, states)), None,
+                *(g.data_ptr() for g in grads[r]), work[r].data_ptr(), b,
+                length, inner, n, stream)
+            if err:
+                raise RuntimeError(f"launch failed ({err})")
+
+        for r in libs:
+            call(r)
+        torch.cuda.synchronize()
+        mine = grads[str(here)]
+        diffs = {r: max(float((x.double() - y.double()).abs().max())
+                        for x, y in zip(g, mine))
+                 for r, g in grads.items()}
+        want = mamba_scan_bwd_ref(*(t.double() for t in args))
+        plain = [float((g.double() - w).norm() / w.norm())
+                 for g, w in zip(mine, want)]
+        del want
+        steps = b * length * inner * n
+        bound_ms = max(steps / SFU_EXP_S,
+                       5 * b * length * inner * 4 / PEAK_BYTES_S) * 1e3
+        order = list(libs) + list(reversed(libs))
+        for rnd, r in enumerate(order):
+            ms = _time_ms(torch, lambda: call(r))
+            print(json.dumps({"case": label, "shape": [b, length, inner, n],
+                              "round": rnd, "checkout": r, "ms": ms}),
+                  flush=True)
+        print(json.dumps({"case": label, "bound_ms": bound_ms,
+                          "max_diff_from_this": diffs,
+                          "this_norm_err_vs_float64_plain": plain,
+                          "card": card}), flush=True)
+        del args, states, work, grads, mine
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

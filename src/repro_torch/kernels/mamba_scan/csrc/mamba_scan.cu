@@ -53,6 +53,11 @@
 //   after its walk: the steps past L leave the state as it is, so that
 //   warp ends at h_L whether or not its own steps reach L. Nothing else
 //   changes, and a null h_last writes nothing.
+// * For the gradient (csrc/mamba_scan_bwd.cu), where the caller passes
+//   h_seg ((B, segments, N, I) in the accumulator type, a segment being
+//   one warp's SUB steps), each warp writes its entry state there before
+//   walk 2: the backward walks each segment again from it and so meets
+//   the forward's h bit for bit. A null h_seg writes nothing.
 // The wrapper allocates the scratch per call; the launcher zeroes its
 // flags and counter with an asynchronous memset on the stream before the
 // grid. Nothing allocates or synchronises the device here, and each call
@@ -78,128 +83,17 @@
 // double; float in, float; bf16 in, float. y has the input type.
 //
 // C interface (loaded with ctypes): pointers (h_last after y, null when
-// the final state is not wanted), the sizes and the CUDA stream; each
-// entry returns a cudaError_t (0 on success). mamba_scan_scratch_bytes
-// gives the size of the scratch the wrapper allocates: the flags and
-// counter, then the chunks' records. mamba_scan_abi names the entries'
-// signature (2: with h_last), for tools that call other checkouts.
+// the final state is not wanted; h_seg after it, null when no gradient
+// will be asked for), the sizes and the CUDA stream; each entry returns a
+// cudaError_t (0 on success). mamba_scan_scratch_bytes gives the size of
+// the scratch the wrapper allocates: the flags and counter, then the
+// chunks' records. mamba_scan_segments gives h_seg's segments.
+// mamba_scan_abi names the entries' signature (2: with h_last; 3: with
+// h_seg), for tools that call other checkouts.
 
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include "dmma.cuh"
+#include "mamba_scan.cuh"
 
 namespace {
-
-constexpr int LANES = 32;           // channels per block, one per lane
-constexpr int WARPS = 4;            // warps a block
-// steps a warp walks: a block's chunk is LC steps. Of 2..8 warps and SUB
-// in 4..32, 4 x 16 ran fastest or within a few percent of it at every
-// phase-3 shape of chip_smoke.py whose grid gives each SM a block; at the
-// ragged shape (B = 2, I = 77: 96 blocks) SUB = 8, which fills the SMs,
-// was slower (PERF.md, section 6)
-constexpr int SUB = 16;
-constexpr int LC = WARPS * SUB;
-constexpr int MAX_N = 32;
-// chunks per look-back group: a longer group folds more aggregates in
-// every look-back, a shorter one lengthens the chain of P; 4 ran the
-// Jamba layers faster than 8, 16 or 32
-constexpr int GROUP = 4;
-constexpr int64_t MAX_SMEM = 227 * 1024;
-
-template <typename Acc, typename T>
-__device__ __forceinline__ Acc to_acc(T v) { return static_cast<Acc>(v); }
-template <>
-__device__ __forceinline__ float to_acc<float, __nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T, typename Acc>
-__device__ __forceinline__ T from_acc(Acc v) { return static_cast<T>(v); }
-template <>
-__device__ __forceinline__ __nv_bfloat16
-from_acc<__nv_bfloat16, float>(float v) {
-  return __float2bfloat16(v);
-}
-
-// exp of v * decay, given the decay as scaled by scale_decay: float
-// takes 2^(v * decay * log2(e)) on the SFU (one MUFU.EX2, relative error
-// about 2^-22; results below 2^-126 flush to 0), double exp
-__device__ __forceinline__ float scale_decay(float d) {
-  return d * 1.4426950408889634f;
-}
-__device__ __forceinline__ double scale_decay(double d) { return d; }
-__device__ __forceinline__ float xp(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(v));
-  return r;
-}
-__device__ __forceinline__ double xp(double v) { return exp(v); }
-
-// NS values of a row of B or C: 16-byte loads where the row allows
-template <typename Acc, int NS>
-__device__ __forceinline__ void load_row(Acc (&dst)[NS], const Acc* src) {
-  constexpr int V = 16 / sizeof(Acc);
-  if constexpr (NS % V == 0) {
-#pragma unroll
-    for (int s = 0; s < NS; s += V) {
-      if constexpr (V == 4) {
-        const float4 v = *reinterpret_cast<const float4*>(src + s);
-        dst[s] = v.x; dst[s + 1] = v.y; dst[s + 2] = v.z; dst[s + 3] = v.w;
-      } else {
-        const double2 v = *reinterpret_cast<const double2*>(src + s);
-        dst[s] = v.x; dst[s + 1] = v.y;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int s = 0; s < NS; ++s) dst[s] = src[s];
-  }
-}
-
-// float64 at NS = 32: 32 states and 32 software exps in flight take
-// every register, and ptxas spills. There the decays live in a slot of
-// shared memory and each walk runs twice, over 16 states at a time.
-template <typename Acc, int NS>
-__host__ __device__ constexpr bool split_states() {
-  return sizeof(Acc) == 8 && NS == 32;
-}
-
-// The NS decays of a lane's channel: in registers, or in shared memory
-template <typename Acc, int NS, bool SMEM = split_states<Acc, NS>()>
-struct Decays {
-  Acc r[NS];
-  __device__ __forceinline__ void bind(Acc*) {}
-  __device__ __forceinline__ void set(int s, Acc v) { r[s] = v; }
-  __device__ __forceinline__ Acc operator[](int s) const { return r[s]; }
-};
-
-template <typename Acc, int NS>
-struct Decays<Acc, NS, true> {
-  Acc* p;                                        // the lane's column
-  __device__ __forceinline__ void bind(Acc* lane_col) { p = lane_col; }
-  __device__ __forceinline__ void set(int s, Acc v) { p[s * LANES] = v; }
-  __device__ __forceinline__ Acc operator[](int s) const {
-    return p[s * LANES];
-  }
-};
-
-__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;\n"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-__host__ __device__ inline int64_t state_size(int64_t n) {
-  return n == 1 ? 1 : n <= 4 ? 4 : n <= 16 ? 16 : 32;
-}
 
 // chunks of LC steps, 32-channel tiles, and the records: per (b, chunk)
 // NS + 1 rows of tiles * 32 accumulator values (S and the aggregate's
@@ -236,34 +130,6 @@ __host__ __device__ inline int64_t smem_bytes(int64_t n) {
          split * LC * LANES * (int64_t)sizeof(Acc) +
          2 * LC * LANES * (int64_t)sizeof(T) +
          2 * LC * ns * (int64_t)sizeof(Acc);
-}
-
-// Stage rows [t0, t0 + LC) x channels [i0, i0 + 32) of a (len, inner)
-// slice into an (LC, 32) tile; values past len or inner are zero.
-template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src, int64_t t0,
-                                           int64_t len, int64_t i0,
-                                           int64_t inner, bool vec,
-                                           int tid) {
-  constexpr int threads = LANES * WARPS;
-  if (vec) {
-    constexpr int W = 16 / sizeof(T);            // values per copy
-    constexpr int PER_ROW = LANES / W;
-    for (int e = tid; e < LC * PER_ROW; e += threads) {
-      const int r = e / PER_ROW;
-      const int c = W * (e - r * PER_ROW);
-      const bool ok = t0 + r < len && i0 + c < inner;
-      const T* from = ok ? src + (t0 + r) * inner + i0 + c : src;
-      dmma::copy16(dst + r * LANES + c, from, ok);
-    }
-  } else {
-    for (int e = tid; e < LC * LANES; e += threads) {
-      const int r = e / LANES;
-      const int c = e - r * LANES;
-      const bool ok = t0 + r < len && i0 + c < inner;
-      dst[e] = ok ? src[(t0 + r) * inner + i0 + c] : from_acc<T>(0.0f);
-    }
-  }
 }
 
 // one step of the recurrence for the NG states g0 .. g0 + NG - 1 of NS;
@@ -304,7 +170,7 @@ scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
             const T* __restrict__ bm, const T* __restrict__ cm,
             const T* __restrict__ a, const T* __restrict__ d_skip,
             T* __restrict__ y, Acc* __restrict__ h_last,
-            Acc* __restrict__ scratch,
+            Acc* __restrict__ h_seg, Acc* __restrict__ scratch,
             unsigned* __restrict__ flags, int64_t len, int inner, int n,
             int64_t chunks, int tiles, int64_t batch, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -485,6 +351,13 @@ scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       h[s] = xp(mine[lane] * dec[g0 + s]) *
                  carry[(1 + g0 + s) * LANES + lane] +
              mine[(1 + g0 + s) * LANES + lane];
+    // the segment's entry state, for the backward
+    if (h_seg != nullptr && live) {
+      Acc* hs = h_seg + ((b * chunks + c) * WARPS + warp) * n * inner + i;
+#pragma unroll
+      for (int s = 0; s < NG; ++s)
+        if (g0 + s < n) hs[(int64_t)(g0 + s) * inner] = h[s];
+    }
 #pragma unroll(NG < 32 ? 2 : 1)
     for (int r = r0; r < end; ++r) {
       const Acc xt = to_acc<Acc>(xs[r * LANES + lane]);
@@ -510,8 +383,8 @@ scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 template <typename T, typename Acc, int NS>
 int launch_kernel(const void* x, const void* dt, const void* bm,
                   const void* cm, const void* a, const void* d_skip, void* y,
-                  void* h_last, void* scratch, int64_t batch, int64_t len,
-                  int64_t inner, int64_t n, void* stream) {
+                  void* h_last, void* h_seg, void* scratch, int64_t batch,
+                  int64_t len, int64_t inner, int64_t n, void* stream) {
   const Shape sh = shape_of(batch, len, inner, n, sizeof(Acc));
   const int64_t smem = smem_bytes<T, Acc>(n);
   auto kernel = scan_kernel<T, Acc, NS>;
@@ -533,6 +406,7 @@ int launch_kernel(const void* x, const void* dt, const void* bm,
       static_cast<const T*>(bm), static_cast<const T*>(cm),
       static_cast<const T*>(a), static_cast<const T*>(d_skip),
       static_cast<T*>(y), static_cast<Acc*>(h_last),
+      static_cast<Acc*>(h_seg),
       reinterpret_cast<Acc*>(static_cast<char*>(scratch) + sh.records_at),
       static_cast<unsigned*>(scratch), len, (int)inner, (int)n, sh.chunks,
       (int)sh.tiles, batch, vec);
@@ -542,8 +416,8 @@ int launch_kernel(const void* x, const void* dt, const void* bm,
 template <typename T, typename Acc>
 int launch(const void* x, const void* dt, const void* bm, const void* cm,
            const void* a, const void* d_skip, void* y, void* h_last,
-           void* scratch, int64_t batch, int64_t len, int64_t inner,
-           int64_t n, void* stream) {
+           void* h_seg, void* scratch, int64_t batch, int64_t len,
+           int64_t inner, int64_t n, void* stream) {
   if (n < 1 || n > MAX_N || batch < 1 || len < 1 || inner < 1 ||
       inner > (int64_t)1 << 30 || smem_bytes<T, Acc>(n) > MAX_SMEM)
     return (int)cudaErrorInvalidValue;
@@ -554,7 +428,7 @@ int launch(const void* x, const void* dt, const void* bm, const void* cm,
   // the state registers: the least instantiated size holding N
   using Launch = int (*)(const void*, const void*, const void*, const void*,
                          const void*, const void*, void*, void*, void*,
-                         int64_t, int64_t, int64_t, int64_t, void*);
+                         void*, int64_t, int64_t, int64_t, int64_t, void*);
   Launch fn;
   switch (state_size(n)) {
     case 1: fn = launch_kernel<T, Acc, 1>; break;
@@ -562,8 +436,8 @@ int launch(const void* x, const void* dt, const void* bm, const void* cm,
     case 16: fn = launch_kernel<T, Acc, 16>; break;
     default: fn = launch_kernel<T, Acc, 32>; break;
   }
-  return fn(x, dt, bm, cm, a, d_skip, y, h_last, scratch, batch, len, inner,
-            n, stream);
+  return fn(x, dt, bm, cm, a, d_skip, y, h_last, h_seg, scratch, batch, len,
+            inner, n, stream);
 }
 
 }  // namespace
@@ -572,26 +446,30 @@ extern "C" {
 
 int mamba_scan_f64(const void* x, const void* dt, const void* bm,
                    const void* cm, const void* a, const void* d_skip,
-                   void* y, void* h_last, void* scratch, int64_t batch,
-                   int64_t len, int64_t inner, int64_t n, void* stream) {
-  return launch<double, double>(x, dt, bm, cm, a, d_skip, y, h_last, scratch,
-                                batch, len, inner, n, stream);
+                   void* y, void* h_last, void* h_seg, void* scratch,
+                   int64_t batch, int64_t len, int64_t inner, int64_t n,
+                   void* stream) {
+  return launch<double, double>(x, dt, bm, cm, a, d_skip, y, h_last, h_seg,
+                                scratch, batch, len, inner, n, stream);
 }
 
 int mamba_scan_f32(const void* x, const void* dt, const void* bm,
                    const void* cm, const void* a, const void* d_skip,
-                   void* y, void* h_last, void* scratch, int64_t batch,
-                   int64_t len, int64_t inner, int64_t n, void* stream) {
-  return launch<float, float>(x, dt, bm, cm, a, d_skip, y, h_last, scratch,
-                              batch, len, inner, n, stream);
+                   void* y, void* h_last, void* h_seg, void* scratch,
+                   int64_t batch, int64_t len, int64_t inner, int64_t n,
+                   void* stream) {
+  return launch<float, float>(x, dt, bm, cm, a, d_skip, y, h_last, h_seg,
+                              scratch, batch, len, inner, n, stream);
 }
 
 int mamba_scan_bf16(const void* x, const void* dt, const void* bm,
                     const void* cm, const void* a, const void* d_skip,
-                    void* y, void* h_last, void* scratch, int64_t batch,
-                    int64_t len, int64_t inner, int64_t n, void* stream) {
+                    void* y, void* h_last, void* h_seg, void* scratch,
+                    int64_t batch, int64_t len, int64_t inner, int64_t n,
+                    void* stream) {
   return launch<__nv_bfloat16, float>(x, dt, bm, cm, a, d_skip, y, h_last,
-                                      scratch, batch, len, inner, n, stream);
+                                      h_seg, scratch, batch, len, inner, n,
+                                      stream);
 }
 
 // bytes of scratch for one call; acc_bytes is the size of
@@ -601,7 +479,13 @@ int64_t mamba_scan_scratch_bytes(int64_t batch, int64_t len, int64_t inner,
   return shape_of(batch, len, inner, n, acc_bytes).scratch_bytes;
 }
 
-int mamba_scan_abi() { return 2; }
+// segments (one warp's SUB steps each) of h_seg for a scan of len steps:
+// whole chunks of WARPS
+int64_t mamba_scan_segments(int64_t len) {
+  return (len + LC - 1) / LC * WARPS;
+}
+
+int mamba_scan_abi() { return 3; }
 
 const char* mamba_scan_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -57,11 +57,12 @@ _MIXERS = {"mamba": ssm_mod.apply_mamba, "mlstm": ssm_mod.apply_mlstm,
 # ---------------------------------------------------------------------------
 
 def _init_layer(kg: KeyGen, cfg: ArchConfig, idx_in_period: int,
-                experts: bool = True, with_cross: bool = False
-                ) -> Tuple[Dict, Dict]:
+                experts: bool = True, with_cross: bool = False,
+                expert_multiple: int = TP_DEFAULT) -> Tuple[Dict, Dict]:
     """One layer's params and specs; ``experts=False`` leaves a MoE
     layer's routed experts out (see :func:`init_params`);
-    ``with_cross`` adds cross attention (an enc-dec decoder layer)."""
+    ``with_cross`` adds cross attention (an enc-dec decoder layer);
+    routed experts padded to a multiple of ``expert_multiple``."""
     kind = cfg.layer_kind(idx_in_period)
     p: Dict = {}
     s: Dict = {}
@@ -71,7 +72,8 @@ def _init_layer(kg: KeyGen, cfg: ArchConfig, idx_in_period: int,
     if with_cross:
         p["cross"], s["cross"] = init_attn(kg, cfg)
     if cfg.layer_is_moe(idx_in_period):
-        p["moe"], s["moe"] = moe_mod.init_moe(kg, cfg, TP_DEFAULT, experts)
+        p["moe"], s["moe"] = moe_mod.init_moe(kg, cfg, expert_multiple,
+                                              experts)
     elif cfg.d_ff > 0:
         p["mlp"], s["mlp"] = init_mlp(kg, cfg)
     return p, s
@@ -89,16 +91,23 @@ def _stack_specs(s: Dict) -> Dict:
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
-                share_experts: bool = False) -> Tuple[Dict, Dict]:
+                share_experts: bool = False,
+                expert_multiple: int = TP_DEFAULT) -> Tuple[Dict, Dict]:
     """Returns (params, specs) on ``gen``'s device. specs mirrors params
     with logical-axis tuples on every leaf. With ``share_experts`` the
     MoE layers of a period hold its first MoE layer's routed experts
     (``wi``, ``wg``, ``wo``: the same tensors; each layer's router, norm
     and shared experts are its own): a cut that fits a model's full
-    width on one card, each layer still computing at that width. An
-    enc-dec model adds cross attention to each decoder layer, an
-    ``encoder`` stack of ``cfg.enc_layers`` attention + MLP layers and
-    ``enc_final_ln``, as the reference's."""
+    width on one card, each layer still computing at that width (and,
+    tied, a training step sums their gradient over the layers:
+    ``train/tree.py``). The routed experts are padded to a multiple of
+    ``expert_multiple``: the production mesh's model axis (TP_DEFAULT),
+    as the reference pads them, or 1 on one card, which has no such
+    axis (padded experts are never routed to, but they hold weights and
+    make each expert's capacity smaller). An enc-dec model adds cross
+    attention to each decoder layer, an ``encoder`` stack of
+    ``cfg.enc_layers`` attention + MLP layers and ``enc_final_ln``, as
+    the reference's."""
     kg = KeyGen(gen)
     vpad = cfg.padded_vocab(TP_DEFAULT)
     params: Dict = {
@@ -121,7 +130,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     shared = None
     for i in range(cfg.period):
         own = shared is None or not cfg.layer_is_moe(i)
-        layers = [_init_layer(kg, cfg, i, own, cfg.is_encdec)
+        layers = [_init_layer(kg, cfg, i, own, cfg.is_encdec,
+                              expert_multiple)
                   for _ in range(cfg.n_periods)]
         block = _stack([p for p, _ in layers])
         if cfg.layer_is_moe(i) and share_experts:

@@ -53,9 +53,10 @@ def decompress_tree_int8(ctree):
 
 
 def _skeleton(ctree):
-    """The tree of ``ctree`` with each CompressedGrad as one leaf."""
+    """The tree of ``ctree`` with each CompressedGrad as one leaf (its
+    payload, so that a tied gradient stays one leaf)."""
     if isinstance(ctree, CompressedGrad):
-        return 0
+        return ctree.payload
     if isinstance(ctree, dict):
         return {k: _skeleton(v) for k, v in ctree.items()}
     if isinstance(ctree, (list, tuple)):
@@ -98,7 +99,8 @@ def topk_sparsify(g: torch.Tensor, res: torch.Tensor,
 def topk_roundtrip(grads, state: TopKState,
                    frac: float = 0.05) -> Tuple[Any, TopKState]:
     outs = [topk_sparsify(g, r, frac)
-            for g, r in zip(leaves(grads), leaves(state.residual))]
+            for g, r in zip(leaves(grads), leaves(state.residual),
+                            strict=True)]
     sent = unflatten(grads, iter([o[0] for o in outs]))
     res = unflatten(grads, iter([o[1] for o in outs]))
     return sent, TopKState(res)

@@ -126,7 +126,8 @@ def adamw_update(params, grads, state: OptState, cfg: AdamWConfig):
             old.scale.copy_(new.scale)
 
     for p, g, m, v in zip(leaves(params), leaves(grads),
-                          _moment_leaves(state.m), _moment_leaves(state.v)):
+                          _moment_leaves(state.m), _moment_leaves(state.v),
+                          strict=True):
         upd(p, g, m, v)
     state.step.copy_(step)
     return params, state

@@ -61,7 +61,10 @@ def value_and_grad(loss_fn, params, batch, mark: Mark = None
                    ) -> Tuple[torch.Tensor, List]:
     """(loss, the gradient of every leaf of ``params`` in leaf order, in
     the leaf's dtype): the reference's ``jax.value_and_grad`` on torch,
-    through leaves that alias the parameters' storage."""
+    through leaves that alias the parameters' storage. Each gradient is
+    a tensor of its own: autograd hands one tensor to every input of a
+    sum, and a tree holding one tensor at two places ties them
+    (``tree.py``), so a repeat is copied."""
     mark = mark or _no_mark
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
     with torch.enable_grad():
@@ -70,17 +73,30 @@ def value_and_grad(loss_fn, params, batch, mark: Mark = None
         mark("backward")
         grads = torch.autograd.grad(loss, flat, allow_unused=True)
     mark("end")
-    return loss.detach(), [torch.zeros_like(p) if g is None else g
-                           for p, g in zip(flat, grads)]
+    out, seen = [], set()
+    for p, g in zip(flat, grads):
+        if g is None:
+            g = torch.zeros_like(p)
+        elif id(g) in seen:
+            g = g.clone()
+        seen.add(id(g))
+        out.append(g)
+    return loss.detach(), out
 
 
 def accumulate_grads(cfg: ArchConfig, params, batch, mark: Mark = None
                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """(mean loss, mean gradient of every leaf in float32, in leaf order)
-    over the ``cfg.microbatch`` microbatches of ``batch``: the gradient a
-    train step applies."""
+    """(mean loss, mean gradient of every leaf, in leaf order) over the
+    ``cfg.microbatch`` microbatches of ``batch``: the gradient a train
+    step applies, summed in float32. With one microbatch each leaf's
+    gradient stays in the leaf's dtype: its float32 value is the same,
+    and every reader (the optimizer, the norm) takes it in float32; a
+    model at full width on one card has no room for a float32 copy."""
     loss_fn = make_loss_fn(cfg)
     n = max(1, cfg.microbatch)
+    if n == 1:
+        loss, grads = value_and_grad(loss_fn, params, batch, mark)
+        return loss.to(torch.float32), grads
     gsum = lsum = None
     for mb in _split_microbatches(batch, n):
         loss, grads = value_and_grad(loss_fn, params, mb, mark)
@@ -113,7 +129,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
         metrics = {
             "loss": loss,
             "grad_norm": torch.sqrt(sum(
-                torch.sum(torch.square(g)) for g in leaves(grads))),
+                torch.sum(torch.square(g.to(torch.float32)))
+                for g in leaves(grads))),
             "step": new_opt.step.clone(),
         }
         return new_params, new_opt, metrics

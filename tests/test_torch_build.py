@@ -121,3 +121,29 @@ def test_build_puts_both_header_directories_on_the_include_path(
     assert cmd[-1] == str(src)
     # built once: a second call only finds the library
     assert build.build(src)[2] == 0.0 and len(calls) == 1
+
+
+def test_scan_header_edit_changes_both_scan_targets(tmp_path, monkeypatch):
+    """The selective scan's forward and backward share the helpers of
+    their own ``csrc/mamba_scan.cuh``: an edit of it renames both
+    libraries; undoing it restores the names."""
+    from repro_torch.kernels.mamba_scan import mamba_scan
+
+    shared = tmp_path / "kernels" / "csrc"
+    shutil.copytree(build.SHARED_INCLUDE, shared)
+    monkeypatch.setattr(build, "SHARED_INCLUDE", shared)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    csrc = tmp_path / "kernels" / "mamba_scan" / "csrc"
+    shutil.copytree(mamba_scan.SOURCE.parent, csrc)
+    sources = [csrc / mamba_scan.SOURCE.name,
+               csrc / mamba_scan.BWD_SOURCE.name]
+    for src in sources:
+        assert '#include "mamba_scan.cuh"' in src.read_text()
+    before = [build._target(src) for src in sources]
+    assert before[0] != before[1]
+    header = csrc / "mamba_scan.cuh"
+    text = header.read_text()
+    header.write_text(text + "\n// edited\n")
+    assert all(build._target(s) != b for s, b in zip(sources, before))
+    header.write_text(text)
+    assert [build._target(src) for src in sources] == before

@@ -15,13 +15,18 @@ largest difference relative to the largest reference value: float64
 1e-10, float32 1e-5. The plain backward is also held to autograd of the
 plain forward ``flash_attention_bhsd_ref`` at float64 (1e-12).
 
-The op never returns a tensor without ``grad_fn`` when it is asked for a
-gradient: it refuses (``NotImplementedError``) a gradient with a query
-offset or through a row with no valid key; the selective scan's op
-refuses a gradient on the card, shown here with tensors that claim to
-be on it. The reference side runs once per module in a subprocess
-(``tests/torch_reference.py``). The backward kernels run only on a
-card: their tests carry the ``cuda`` marker and skip here.
+The gradient with a query offset (one for all rows, or one per batch
+row) and through rows with no valid key (a window past the last key,
+Sq >= Skv + window; the forward gives such a row the mean of V, and its
+gradient adds dO / Skv to dV of every key and nothing to dQ or dK) is
+held to ``jax.grad`` of the reference's ``plain_attention`` and
+``chunked_attention`` with the same ``q_offset`` (float32, 1e-5), and
+the plain backward to autograd of the plain forward at float64 (1e-12).
+The selective scan's op, asked for a gradient with tensors that claim
+to be on the card, reaches the backward kernel's entry and never the
+plain backward. The reference side runs once per module in a
+subprocess (``tests/torch_reference.py``). The backward kernels run
+only on a card: their tests carry the ``cuda`` marker and skip here.
 """
 
 import numpy as np
@@ -49,6 +54,17 @@ CASES = [
     ("causal-sq-over-skv", (1, 30, 20, 2, 1, 8), True, 0, 10.0),
 ]
 CASE_IDS = [c[0] for c in CASES]
+# (id, (B, Sq, Skv, H, KVH, D), causal, window, softcap, q_offset: an
+# int for every row or one per batch row); the last three have rows with
+# no valid key
+OFFSET_CASES = [
+    ("offset-scalar", (2, 8, 40, 4, 2, 16), True, 0, 0.0, 24),
+    ("offset-per-batch", (3, 5, 32, 4, 4, 8), True, 12, 20.0, [3, 17, 27]),
+    ("empty-rows", (1, 30, 12, 2, 1, 8), True, 8, 0.0, 0),
+    ("empty-rows-noncausal", (2, 24, 10, 2, 2, 8), False, 6, 10.0, 0),
+    ("offset-empty-rows", (2, 6, 16, 2, 1, 8), True, 4, 0.0, [14, 19]),
+]
+OFFSET_IDS = [c[0] for c in OFFSET_CASES]
 
 _REFERENCE = """
 import jax.numpy as jnp
@@ -80,6 +96,27 @@ def _inputs(case):
             rng.normal(size=(b, skv, kvh, d)), rng.normal(size=(b, sq, h, d)))
 
 
+_OFFSET_REFERENCE = """
+import jax.numpy as jnp
+from repro.models.common import chunked_attention, plain_attention
+for key in sorted({k.rsplit("/", 1)[0] for k in inputs}):
+    q, k, v, g = (jnp.asarray(inputs[key + "/" + n]) for n in "qkvg")
+    causal, window, cap = inputs[key + "/opts"]
+    causal, window, cap = bool(causal), int(window), float(cap)
+    off = jnp.asarray(inputs[key + "/offset"])
+    fns = {"plain": lambda q, k, v: plain_attention(
+               q, k, v, causal=causal, window=window, cap=cap, q_offset=off),
+           "chunked": lambda q, k, v: chunked_attention(
+               q, k, v, causal=causal, window=window, cap=cap, chunk=16,
+               q_offset=off)}
+    for name, fn in fns.items():
+        grads = jax.jit(jax.grad(lambda q, k, v: jnp.sum(fn(q, k, v) * g),
+                                 argnums=(0, 1, 2)))(q, k, v)
+        for n, gr in zip("qkv", grads):
+            outputs[f"{key}/{name}/d{n}"] = np.asarray(gr, np.float64)
+"""
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """Every case's reference gradients, from one subprocess."""
@@ -95,15 +132,37 @@ def reference(tmp_path_factory):
                          tmp_path_factory.mktemp("flash_bwd_reference"))
 
 
+@pytest.fixture(scope="module")
+def offset_reference(tmp_path_factory):
+    """Every offset case's reference gradients (float32), from one
+    subprocess."""
+    inputs = {}
+    for case in OFFSET_CASES:
+        _, _, causal, window, softcap, off = case
+        for n, a in zip("qkvg", _inputs(case)):
+            inputs[f"{case[0]}/{n}"] = a.astype(np.float32)
+        inputs[f"{case[0]}/opts"] = np.array([causal, window, softcap])
+        inputs[f"{case[0]}/offset"] = np.asarray(off, np.int32)
+    return run_reference(_OFFSET_REFERENCE, inputs,
+                         tmp_path_factory.mktemp("flash_offset_reference"))
+
+
+def _offset(case, device="cpu"):
+    off = case[5] if len(case) > 5 else 0
+    return torch.tensor(off, dtype=torch.int32, device=device) \
+        if isinstance(off, list) else off
+
+
 def _grads(case, dtype, device="cpu"):
     """(dq, dk, dv) of the op through the GQA dispatch, and its output."""
-    _, _, causal, window, softcap = case
+    causal, window, softcap = case[2:5]
     q, k, v, g = (torch.from_numpy(a).to(device, TORCH_DT[dtype])
                   for a in _inputs(case))
     for t in (q, k, v):
         t.requires_grad_(True)
     out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=softcap)
+                              softcap=softcap,
+                              q_offset=_offset(case, device))
     assert out.grad_fn is not None
     return torch.autograd.grad(out, (q, k, v), g), out
 
@@ -167,36 +226,98 @@ def test_no_grad_call_is_the_forward_alone():
     assert plain.grad_fn is None
 
 
-def test_gradient_with_a_query_offset_is_refused():
-    t = torch.ones(1, 4, 2, 8, dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="query offset"):
-        ops.flash_attention(t, t, t, q_offset=3)
+def _hold_offset_case(offset_reference, case):
+    grads, out = _grads(case, "float32")
+    assert bool(torch.isfinite(out).all())
+    for name in ("plain", "chunked"):
+        for n, got in zip("qkv", grads):
+            want = offset_reference[f"{case[0]}/{name}/d{n}"]
+            err = _rel(got.detach().numpy(), want)
+            assert err <= TOL["float32"], (case[0], name, n, err)
 
 
-def test_gradient_through_rows_without_a_key_is_refused():
-    q = torch.ones(1, 12, 1, 8, dtype=torch.float64, requires_grad=True)
-    kv = torch.ones(1, 4, 1, 8, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="no valid key"):
-        ops.flash_attention(q, kv, kv, causal=False, window=4)
+def test_gradient_with_a_query_offset_is_refused(offset_reference):
+    """(The name is kept from when this gradient was refused.) The
+    gradient with a query offset, one for every row and one per batch
+    row, against jax.grad of the reference's attention at that offset."""
+    for case in OFFSET_CASES[:2]:
+        _hold_offset_case(offset_reference, case)
+
+
+def test_gradient_through_rows_without_a_key_is_refused(offset_reference):
+    """(The name is kept from when this gradient was refused.) Rows with
+    no valid key (window > 0, Sq >= Skv + window; and past an offset):
+    against jax.grad of the reference's attention, where such a row's
+    softmax is uniform over every key, so dV gains dO / Skv and dQ is 0."""
+    for case in OFFSET_CASES[2:]:
+        _hold_offset_case(offset_reference, case)
+        grads, _ = _grads(case, "float32")
+        b, sq, skv, h = case[1][:4]
+        off = torch.as_tensor(case[5]).reshape(-1, 1) + torch.arange(sq)
+        empty = (off - case[3] + 1 >= skv).expand(b, sq)     # no key left
+        assert bool(empty.any())
+        assert float(grads[0][empty].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=OFFSET_IDS)
+def test_plain_backward_with_offsets_matches_autograd_of_plain_forward(
+        case):
+    _, (b, sq, skv, h, kvh, d), causal, window, softcap, off = case
+    rng = np.random.default_rng(len(case[0]) + 1)
+    q, k, v = (torch.from_numpy(rng.normal(size=(b * h, s, d)))
+               .requires_grad_(True) for s in (sq, skv, skv))
+    do = torch.from_numpy(rng.normal(size=(b * h, sq, d)))
+    offset = torch.tensor(off, dtype=torch.int32).reshape(-1).expand(b) \
+        .repeat_interleave(h) if isinstance(off, list) else off
+    opts = dict(causal=causal, window=window, softcap=softcap,
+                q_offset=offset)
+    out, lse = flash_attention_bhsd_ref(q, k, v, return_lse=True, **opts)
+    want = torch.autograd.grad(out, (q, k, v), do)
+    got = flash_attention_bhsd_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       out.detach(), do, lse.detach(),
+                                       **opts)
+    for g, w in zip(got, want):
+        assert _rel(g.numpy(), w.numpy()) <= 1e-12
 
 
 def test_scan_refuses_a_gradient_on_the_card(monkeypatch):
-    """On the card the scan kernel has no backward: with grad asked for,
-    the op raises before launching rather than return a detached y."""
+    """(The name is kept from when the scan refused this.) With grad
+    asked for on the card, the scan op launches the forward kernel
+    keeping its states and its backward reaches the backward kernel's
+    entry, never the plain backward; without grad, the forward alone."""
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda s: True))
-    launched = []
-    monkeypatch.setattr(scan_ops._kernel, "mamba_scan",
-                        lambda *a, **k: launched.append(1))
+    launched, backward = [], []
+
+    def forward(x, dt, bm, cm, a, d_skip, return_state=False,
+                save_states=False):
+        launched.append(save_states)
+        y = x * 2.0
+        h = torch.zeros(x.shape[0], x.shape[2], bm.shape[-1])
+        return (y, h, torch.ones(1)) if save_states else y
+
+    def bwd(x, dt, bm, cm, a, d_skip, dy, states, dh_last=None):
+        backward.append(states)
+        return tuple(torch.full_like(t, 3.0) for t in (x, dt, bm, cm, a,
+                                                       d_skip))
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain backward ran for a card tensor")
+
+    monkeypatch.setattr(scan_ops._kernel, "mamba_scan", forward)
+    monkeypatch.setattr(scan_ops._kernel, "mamba_scan_bwd", bwd)
+    monkeypatch.setattr(scan_ops, "mamba_scan_bwd_ref", plain)
     x = torch.ones(1, 4, 3, requires_grad=True)
     bm = torch.ones(1, 4, 2)
     args = (x, torch.ones(1, 4, 3), bm, bm, torch.zeros(3, 2),
             torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="backward"):
+    y = scan_ops.mamba_scan(*args)
+    assert y.grad_fn is not None and launched == [True]
+    (gx,) = torch.autograd.grad(y.sum(), x)
+    assert len(backward) == 1 and torch.equal(backward[0], torch.ones(1))
+    assert torch.equal(gx, torch.full_like(x, 3.0))
+    with torch.no_grad():          # serving: the forward kernel alone
         scan_ops.mamba_scan(*args)
-    assert not launched
-    with torch.no_grad():          # serving: the kernel, as before
-        scan_ops.mamba_scan(*args)
-    assert launched == [1]
+    assert launched == [True, False] and len(backward) == 1
 
 
 @pytest.fixture
@@ -268,3 +389,44 @@ def test_cuda_gradient_through_the_gqa_dispatch(cuda_device):
     assert out.is_cuda
     for g, w in zip(got, want):
         assert _rel(g.cpu().numpy(), w.numpy()) <= 2e-4
+
+
+# the card's cases with query offsets (one per batch-head) and with rows
+# that have no valid key: (B·H, Sq, Skv, D), causal, window, softcap,
+# offsets (None: every row at its index). A decode-like step of four
+# rows at their own positions, a prefill chunk past its slot's start,
+# and empty rows on the tensor-core tiles (D <= 128) and past them
+OFFSET_CUDA_CASES = [((4, 1, 300, 64), True, 0, 0.0, [10, 100, 200, 299]),
+                     ((2, 70, 200, 80), True, 0, 0.0, [130, 0]),
+                     ((2, 150, 60, 64), True, 32, 0.0, None),
+                     ((2, 130, 40, 128), False, 16, 30.0, [0, 5]),
+                     ((1, 90, 40, 288), True, 20, 50.0, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(CUDA_TOL))
+@pytest.mark.parametrize("case", OFFSET_CUDA_CASES,
+                         ids=[f"{c[0]}-{c[4]}" for c in OFFSET_CUDA_CASES])
+def test_cuda_backward_with_offsets_and_empty_rows(cuda_device, case,
+                                                   dtype):
+    (bh, sq, skv, d), causal, window, softcap, off = case
+    rng = np.random.default_rng(bh + sq + skv + d)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(bh, n, d)))
+                   .to(cuda_device, TORCH_DT[dtype])
+                   for n in (sq, skv, skv, sq))
+    offset = None if off is None else torch.tensor(
+        off, dtype=torch.int32, device=cuda_device)
+    opts = dict(causal=causal, window=window, softcap=softcap,
+                q_offset=offset)
+    out, lse = kernel.flash_attention_bhsd(q, k, v, return_lse=True, **opts)
+    got = kernel.flash_attention_bhsd_bwd(q, k, v, out, do, lse, **opts)
+    torch.cuda.synchronize()
+    want = flash_attention_bhsd_bwd_ref(q, k, v, out, do, lse, **opts)
+    tol = CUDA_TOL[dtype]
+    for g, w in zip(got, want):
+        diff = (g.double() - w.double()).abs()
+        allowed = tol if dtype == "float64" else tol + tol * w.double().abs()
+        assert bool(torch.isfinite(g.double()).all())
+        assert not bool((diff > allowed).any()), float(diff.max())
+    again = kernel.flash_attention_bhsd_bwd(q, k, v, out, do, lse, **opts)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))

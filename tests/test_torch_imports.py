@@ -187,3 +187,7 @@ def test_kernel_calls_no_library_kernel(name):
 def test_flash_backward_kernel_calls_no_library_kernel():
     _assert_calls_no_library_kernel("flash_attention",
                                     "flash_attention_bwd")
+
+
+def test_scan_backward_kernel_calls_no_library_kernel():
+    _assert_calls_no_library_kernel("mamba_scan", "mamba_scan_bwd")

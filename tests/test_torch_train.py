@@ -20,7 +20,12 @@ subprocess per module (``tests/torch_reference.py``).
   parameter leaf within 1e-4 of its norm after the third step.
 * The int8 and top-k round trips and the int8 moments (``_q8``, and an
   AdamW step with them) against the reference's on the same inputs:
-  the int8 payloads equal, the rest within 1e-6.
+  the int8 payloads equal, the rest within 1e-6. At eps 1e-8 the
+  reference's int8 moments step an element whose second moment was
+  stored as 0 by about m / eps (two steps at phase 11's learning rate);
+  the port takes the same steps.
+* Two parameters summed directly get a gradient each (autograd hands
+  both one tensor) and AdamW moves each by its own.
 * Enc-dec (seamless) and vlm (llava) prefill and decode logits against
   the reference's, within 1e-4 at float32.
 """
@@ -39,7 +44,7 @@ from repro_torch.train import (AdamWConfig, init_opt_state,
                                make_train_step, value_and_grad)
 from repro_torch.train import grad_compress as GC
 from repro_torch.train import optimizer as O
-from repro_torch.train.tree import leaves, leaves_with_paths
+from repro_torch.train.tree import leaves, leaves_with_paths, unflatten
 from torch_reference import PARAMS_CODE, reference_params, run_reference
 
 FAMILIES = ["stablelm_3b", "gemma2_2b", "olmoe_1b_7b",
@@ -119,6 +124,14 @@ for _ in range(2):
 flat("codec/adam/params", tree)
 flat("codec/adam/m", st.m)
 flat("codec/adam/v", st.v)
+for eps in (1e-8, 1e-4):
+    ocfg = AdamWConfig(lr=3e-4, eps=eps, quantize_moments=True)
+    tree = {"w": jnp.asarray(inputs["eps/w"])}
+    st = init_opt_state(tree, ocfg)
+    for k in range(2):
+        tree, st = O.adamw_update(
+            tree, {"w": jnp.asarray(inputs[f"eps/g{k}"])}, st, ocfg)
+    outputs[f"eps/{eps:g}"] = np.asarray(tree["w"])
 
 for arch in spec["gen"]:
     cfg = cfg_of(arch)
@@ -159,7 +172,21 @@ def _codec_inputs():
             "codec/r": (0.1 * rng.normal(size=(37, 5))).astype(np.float32),
             "codec/w": rng.normal(size=(37, 5)).astype(np.float32),
             "codec/b": rng.normal(size=(5,)).astype(np.float32),
-            "codec/gb": rng.normal(size=(5,)).astype(np.float32)}
+            "codec/gb": rng.normal(size=(5,)).astype(np.float32),
+            **_eps_inputs()}
+
+
+def _eps_inputs():
+    """A weight and two clipped gradients whose elements span 1e-7 ..
+    1e-3, the second with half of them 0 (as a row no token of the next
+    batch reaches)."""
+    rng = np.random.default_rng(21)
+    g0 = rng.choice([-1, 1], size=(64, 8)) * 10 ** rng.uniform(
+        -7, -3, size=(64, 8))
+    return {"eps/w": (0.02 * rng.normal(size=(64, 8))).astype(np.float32),
+            "eps/g0": g0.astype(np.float32),
+            "eps/g1": np.where(rng.random((64, 8)) < 0.5, 0, g0).astype(
+                np.float32)}
 
 
 def _gen_inputs(arch):
@@ -308,6 +335,67 @@ def test_int8_and_topk_codecs_and_8bit_moments_match_reference(reference):
     assert torch.equal(sent_t["g"] + state.residual["g"], g)
 
 
+def test_reference_int8_moments_step_by_m_over_eps_at_eps_1e8(reference):
+    """The reference's int8 moments (one absmax scale a tensor) store a
+    second moment below 1/254 of its tensor's largest as 0. Where such
+    an element's first moment survives and its next gradient is 0, the
+    reference's AdamW at its default eps of 1e-8 steps it by about m /
+    1e-8: hundreds of times the learning rate, at the learning rate and
+    gradient sizes that phase 11 of chip_smoke.py trains Jamba with.
+    The port takes the same steps; eps = 1e-4 keeps every step near the
+    learning rate."""
+    inp = _eps_inputs()
+    w0, g0, g1 = (inp[f"eps/{k}"] for k in ("w", "g0", "g1"))
+    zeroed = ((O._q8(torch.from_numpy(0.1 * g0))[0] != 0)
+              & (O._q8(torch.from_numpy(0.05 * g0 ** 2))[0] == 0)).numpy() \
+        & (g1 == 0)
+    assert zeroed.sum() > 10
+    lr = 3e-4
+    for eps in (1e-8, 1e-4):
+        ocfg = AdamWConfig(lr=lr, eps=eps, quantize_moments=True)
+        tree = {"w": torch.from_numpy(w0.copy())}
+        st = O.init_opt_state(tree, ocfg)
+        for g in (g0, g1):
+            tree, st = O.adamw_update(tree, {"w": torch.from_numpy(g)}, st,
+                                      ocfg)
+        want = reference[f"eps/{eps:g}"]
+        assert np.allclose(tree["w"].numpy(), want, rtol=1e-5, atol=1e-7)
+        moved = np.abs(want - w0) / lr
+        if eps == 1e-8:
+            assert moved[zeroed].min() > 100, moved[zeroed].min()
+            assert moved[~zeroed].max() < 5
+        else:
+            assert moved.max() < 5
+
+
+def test_gradients_of_two_summed_parameters_stay_apart():
+    """autograd hands one tensor to both inputs of a sum; each leaf
+    still gets a gradient of its own, so the tree of gradients ties
+    nothing that the parameters do not, and AdamW moves each leaf by its
+    own gradient."""
+    gen = torch.Generator().manual_seed(3)
+    params = {k: torch.randn(4, 3, generator=gen) for k in "ab"}
+    params["c"] = torch.randn(3, generator=gen)
+    x = torch.randn(4, 3, generator=gen)
+    loss, grads = value_and_grad(
+        lambda p, b: ((p["a"] + p["b"]) * b).sum() + (p["c"] ** 2).sum(),
+        params, x)
+    assert len({id(g) for g in grads}) == 3
+    assert all(torch.equal(g, x) for g in grads[:2])
+    assert torch.equal(grads[2], 2 * params["c"])
+    cfg = AdamWConfig(lr=LR)
+    moved = {k: t.clone() for k, t in params.items()}
+    O.adamw_update(moved, unflatten(params, iter(grads)),
+                   O.init_opt_state(moved, cfg), cfg)
+    apart = {k: t.clone() for k, t in params.items()}
+    O.adamw_update(apart, {"a": x.clone(), "b": x.clone(),
+                           "c": 2 * params["c"]},
+                   O.init_opt_state(apart, cfg), cfg)
+    for k in params:
+        assert torch.equal(moved[k], apart[k]), k
+        assert not torch.equal(moved[k], params[k]), k
+
+
 @pytest.mark.parametrize("arch", GEN_ARCHS)
 def test_encdec_and_vlm_prefill_and_decode_match_reference(reference, arch):
     cfg = _cfg(arch)
@@ -332,3 +420,104 @@ def test_encdec_and_vlm_prefill_and_decode_match_reference(reference, arch):
         # caches, one row per source position
         assert caches[0]["cross_kv"][0].shape[2] == batch["src_embeds"] \
             .shape[1]
+
+
+def _jamba_tied(pad=False):
+    """Jamba's smoke preset (f32) with 2 routed experts, one set shared
+    by each period's MoE layers (tied), unpadded unless ``pad``."""
+    cfg = _cfg("jamba_1_5_large_398b", n_experts=2)
+    params, _ = T.init_params(cfg, torch.Generator().manual_seed(3),
+                              share_experts=True,
+                              expert_multiple=T.TP_DEFAULT if pad else 1)
+    return cfg, params
+
+
+def test_a_tied_tensor_is_one_leaf_and_unflatten_ties_it_again():
+    from repro_torch.train.tree import tree_map, unflatten
+    cfg, params = _jamba_tied()
+    moes = [b["moe"] for b in params["blocks"] if "moe" in b]
+    assert len(moes) == 2 and moes[0]["wi"] is moes[1]["wi"]
+    paths = ["/".join(p) for p, _ in leaves_with_paths(params)]
+    assert len(paths) == len(set(paths))
+    tied = [p for p in paths if p.endswith(("moe/wi", "moe/wg", "moe/wo"))]
+    assert len(tied) == 3                  # the first MoE layer's paths
+    copy = unflatten(params, iter([t.clone() for t in leaves(params)]))
+    cmoes = [b["moe"] for b in copy["blocks"] if "moe" in b]
+    assert cmoes[0]["wi"] is cmoes[1]["wi"]
+    assert cmoes[0]["router"] is not cmoes[1]["router"]
+    mapped = tree_map(lambda t: t * 2, params)
+    assert [b["moe"] for b in mapped["blocks"] if "moe" in b][1]["wo"] \
+        is [b["moe"] for b in mapped["blocks"] if "moe" in b][0]["wo"]
+
+
+def test_tied_experts_take_the_sum_of_their_layers_gradients():
+    """A tied expert set's gradient is the sum of the gradients the same
+    weights get untied, one copy a layer; every other leaf's is equal."""
+    cfg, params = _jamba_tied()
+    batch = _torch_batch(_batch(cfg, BATCH, SEQ))
+    loss_fn = lambda p, b: T.loss_fn(p, b, cfg)  # noqa: E731
+    loss, grads = value_and_grad(loss_fn, params, batch)
+    untied = {**params, "blocks": [
+        {**b, "moe": {k: v.clone() for k, v in b["moe"].items()}}
+        if "moe" in b else b for b in params["blocks"]]}
+    loss_u, grads_u = value_and_grad(loss_fn, untied, batch)
+    assert float(loss) == float(loss_u)
+    got = dict(zip(("/".join(p) for p, _ in leaves_with_paths(params)),
+                   grads))
+    want = dict(zip(("/".join(p) for p, _ in leaves_with_paths(untied)),
+                    grads_u))
+    moe_idx = [str(i) for i, b in enumerate(params["blocks"]) if "moe" in b]
+    for path, g in got.items():
+        parts = path.split("/")
+        if parts[-1] in ("wi", "wg", "wo") and parts[-2] == "moe":
+            w = sum(want[f"blocks/{i}/moe/{parts[-1]}"] for i in moe_idx)
+        else:
+            w = want[path]
+        assert torch.allclose(g, w, rtol=1e-5, atol=1e-6), path
+
+
+def test_train_step_moves_tied_experts_once_and_keeps_them_tied():
+    cfg, params = _jamba_tied()
+    opt_cfg = AdamWConfig(lr=LR, quantize_moments=True)
+    opt = init_opt_state(params, opt_cfg)
+    assert len(leaves(opt.m)) == 2 * len(leaves(params))
+    before = [t.clone() for t in leaves(params)]
+    step = make_train_step(cfg, opt_cfg)
+    params, opt, m = step(params, opt, _torch_batch(_batch(cfg, BATCH,
+                                                           SEQ)))
+    moes = [b["moe"] for b in params["blocks"] if "moe" in b]
+    assert moes[0]["wi"] is moes[1]["wi"]
+    assert all(not torch.equal(a, b) for a, b in zip(before, leaves(params))
+               if a.dim() >= 2)
+    assert bool(torch.isfinite(m["loss"]))
+
+
+def test_unpadded_experts_hold_the_config_count():
+    cfg, params = _jamba_tied()
+    moe = next(b["moe"] for b in params["blocks"] if "moe" in b)
+    assert moe["router"].shape[-1] == cfg.n_experts == 2
+    assert moe["wi"].shape[1] == 2
+    _, padded = _jamba_tied(pad=True)
+    assert next(b["moe"] for b in padded["blocks"]
+                if "moe" in b)["router"].shape[-1] == 16
+
+
+def test_one_microbatch_keeps_each_gradient_in_its_leaf_dtype():
+    """With one microbatch accumulate_grads returns value_and_grad's
+    gradient in the leaf's dtype (its float32 sum holds the same values);
+    with two it sums in float32."""
+    from repro_torch.train import accumulate_grads
+    cfg = dataclasses.replace(get_smoke_config("stablelm_3b"),
+                              microbatch=1)
+    params, _ = T.init_params(cfg, torch.Generator().manual_seed(0))
+    batch = _torch_batch(_batch(cfg, BATCH, SEQ))
+    loss, grads = accumulate_grads(cfg, params, batch)
+    want_loss, want = value_and_grad(lambda p, b: T.loss_fn(p, b, cfg),
+                                     params, batch)
+    assert loss.dtype == torch.float32
+    assert float(loss) == float(want_loss.float())
+    for g, w, p in zip(grads, want, leaves(params)):
+        assert g.dtype == p.dtype and torch.equal(g, w)
+    _, grads2 = accumulate_grads(dataclasses.replace(cfg, microbatch=2),
+                                 params, batch)
+    assert all(g.dtype == torch.float32 for g in grads2)
