@@ -12,10 +12,11 @@ exit:
    (one ``nvcc`` per source, started together; the flash attention's
    backward has a source of its own), into ``build/kernels/``;
    fails if ptxas reports spill bytes for a float64 (DMMA) matmul kernel,
-   for any instantiation of the flash attention forward, the selective
-   scan or its backward (a source of its own too), or for the flash
-   backward's bf16 tensor-core kernels, or more than SPILL_MAX's for the
-   flash backward's FMA kernels.
+   for any instantiation of the flash attention forward (its bf16
+   tensor-core kernel, split-KV decode and combine among them), the
+   selective scan or its backward (a source of its own too), or for the
+   flash backward's bf16 tensor-core kernels, or more than SPILL_MAX's
+   for the flash backward's FMA kernels.
 3. Each kernel against its plain torch version on the card, in every
    dtype it takes, at its main path's chunk shape, at a language model's
    widths where the repo has one that runs it, and at a ragged shape;
@@ -30,9 +31,18 @@ exit:
    standard deviation FLASH_Q_STD, some far past the softcap, and each
    flash case must also fail the same comparison with two negative
    controls in its place: the plain version with a uniform softmax over
-   each row's mask and, where the case has a softcap, without it. A GQA
+   each row's mask and, where the case has a softcap, without it. A bf16
+   case runs the grouped-query entry (K/V read in place, no regroup) or,
+   on the (BH, S, D) layout, the bhsd entry; a ``torch.profiler`` trace
+   of its calls must name exactly the kernels its shape asks for: the
+   split-KV decode (and its combine, where the call takes more than one
+   split) where Sq x G <= FWD_DEC_ROWS, else the tensor-core kernel;
+   never the FMA kernel, and no copy kernel. A float32 or float64 GQA
    case also times the kernel alone on the regrouped tensors and the
-   regroup alone. The gemma2 attention layer and these
+   regroup alone. The training forward's shapes (stablelm_3b, seamless's
+   encoder and Jamba's layer, S = 4096, on the layout the regroup hands
+   the kernel) take ``scaled_dot_product_attention`` as their library
+   call. The gemma2 attention layer and these
    shapes in bf16 (softcap, causal, window, GQA) take ``flex_attention``,
    compiled, as their library call (the f32 layer's is no longer built:
    its compile took much of the script's time); the layer is also timed
@@ -80,8 +90,9 @@ exit:
    memory against one exp per (b, t, i, n)) and the plain backward.
    Each kernel redesigned for Hopper (the float64 matmul and flash
    attention on the tensor cores, the selective scan as a chunked scan
-   parallel in L, the bf16 backward on the tensor cores) is printed
-   beside its time before the redesign; the
+   parallel in L, the bf16 backward on the tensor cores, the bf16
+   forward's prefill on the tensor cores and its decode split over the
+   keys) is printed beside its time before the redesign; the
    float32 scan's bound includes its SFU roof (its exps at the SFU's
    rate), printed beside it.
 4. The main paths at full size, each compiled by
@@ -351,6 +362,8 @@ SFU_EXP_S = 16 * 132 * 1.98e9
 # SFU_EXP_S
 SCAN_OPS = {"float64": 20 + 5, "float32": 5, "bfloat16": 5}
 
+# the training runs' sequence length (phase 11; phase 3's training shapes)
+TRAIN_SEQ = 4096
 # phase 3 cases of the flash-attention kernel: (label, (B, Sq, H, KVH,
 # Skv, D), causal, window, softcap, dtype, query offsets: None, or one
 # per batch row); H == 1 runs the kernel's own (BH, S, D) layout, H > 1
@@ -383,7 +396,23 @@ FLASH_CASES = [
     ("jamba_prefill", (1, max(JAMBA_LENS), 64, 8, 8192, 128), True, 0,
      0.0, "bfloat16", [0]),
     ("jamba_decode", (4, 1, 64, 8, 8192, 128), True, 0, 0.0, "bfloat16",
-     [n + FAM_NEW_TOKENS // 2 for n in JAMBA_LENS[:4]])]
+     [n + FAM_NEW_TOKENS // 2 for n in JAMBA_LENS[:4]]),
+    # the training forward as phase 11 runs it, on the (BH, S, D) layout
+    # the regroup hands the kernel: a stablelm_3b layer (a microbatch of
+    # 1 x 32 heads, S = 4096, D = 80, causal), seamless's encoder (16
+    # heads, D = 64, not causal) and Jamba's attention layer (64 heads,
+    # its GQA 8 regrouped, D = 128, causal)
+    ("stablelm_train", (32, TRAIN_SEQ, 1, 1, TRAIN_SEQ, 80), True, 0, 0.0,
+     "bfloat16", None),
+    ("seamless_train", (16, TRAIN_SEQ, 1, 1, TRAIN_SEQ, 64), False, 0, 0.0,
+     "bfloat16", None),
+    ("jamba_train", (64, TRAIN_SEQ, 1, 1, TRAIN_SEQ, 128), True, 0, 0.0,
+     "bfloat16", None)]
+# the bf16 forward's kernels (csrc/flash_attention.cu): the split-KV
+# decode where a KV head's query rows (Sq x G) are at most FWD_DEC_ROWS
+# (DEC_ROWS there), the tensor-core kernel past them; phase 3 checks by
+# name which ran, and that nothing else did (no regroup copy)
+FWD_DEC_ROWS = 16
 # phase 3's flash inputs: keys and values N(0, 1), queries N(0,
 # FLASH_Q_STD^2), so the scaled scores q.k / sqrt(D) have that standard
 # deviation and each row's softmax weighs a few keys (a wrong mask or a
@@ -480,7 +509,7 @@ TRAIN_RUNS = {
                     "share_experts": True, "expert_multiple": 1,
                     "loss_steps": 1,
                     "controls": ("scan_db_zero", "scan_carry_zero")}}
-TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4096, 4, 3e-4
+TRAIN_STEPS, TRAIN_LR = 4, 3e-4
 TRAIN_DATA_SEED = 1234
 # step 1's gradient against its replay on the plain backward: every leaf
 # within these (cosine at least, relative norm error at most), and the
@@ -533,14 +562,18 @@ SCAN_BWD_OPS = {"float64": 20 + 12, "float32": 12, "bfloat16": 12}
 # the most spill bytes (stores, loads) ptxas may report for a function,
 # by patterns of the mangled names checked (each must match a function):
 # none for the float64 (DMMA) kernels of matmul (namespace f64), every
-# instantiation of flash attention, of the scan and of its backward, and
-# the flash
+# instantiation of flash attention (the FMA and DMMA kernels, and bf16's
+# tensor-core kernel, split-KV decode and its combine), of the scan and
+# of its backward, and the flash
 # attention backward's bf16 tensor-core kernels (mma_dkdv_kernel,
 # mma_dq_kernel); for the backward's FMA kernels (float64, float32, bf16
 # past BWD_MMA_MAX_D), the most they spilled when they were written (bf16
 # dK/dV at two head-dim tiers: 8/32 and 4/4 bytes; PERF.md, section 6)
 SPILL_MAX = {"matmul": [(r"3f64\d+\w*_kernel", (0, 0))],
-             "flash_attention": [(r"flash_kernel", (0, 0))],
+             "flash_attention": [(r"flash_kernel", (0, 0)),
+                                 (r"mma_fwd_kernel", (0, 0)),
+                                 (r"decode_kernel", (0, 0)),
+                                 (r"combine_kernel", (0, 0))],
              "mamba_scan": [(r"scan_kernel", (0, 0))],
              "mamba_scan_bwd": [(r"scan_bwd_kernel|sum_kernel", (0, 0))],
              "flash_attention_bwd": [(r"mma_d\w+_kernel", (0, 0)),
@@ -551,17 +584,25 @@ SPILL_MAX = {"matmul": [(r"3f64\d+\w*_kernel", (0, 0))],
 # MMA_MAX_D, a static choice by D); phase 3 checks by name which ran
 BWD_MMA_MAX_D = 128
 # times before each kernel's Hopper redesign (PERF.md section 6), printed
-# beside this run's: (case, ms, the commit and run of chip_smoke.py they
-# come from)
-EARLIER_MS = {
-    "matmul": ("chunk", 2.271, "commit a5ae05a run 4, H100 80GB HBM3, "
-                               "700 W"),
-    "flash_attention": ("chunk", 1.347, "commit a5ae05a run 4, H100 80GB "
-                                        "HBM3, 700 W"),
-    "flash_attention_bwd": ("stablelm", 48.073, "commit 58c7205 run 5, "
-                                                "H100 80GB HBM3, 700 W"),
-    "mamba_scan": ("chunk", 1.588, "commit d9c8578 run 6, H100 80GB HBM3, "
-                                   "700 W")}
+# beside this run's: (kernel, case, dtype, ms, the commit and run of
+# chip_smoke.py they come from). The bf16 forward's are the FMA kernel's
+# with the regroup (PR 21's final run)
+_PR21 = "commit 8cd25e6's final run, H100 80GB HBM3, 700 W"
+EARLIER_MS = [
+    ("matmul", "chunk", "float64", 2.271,
+     "commit a5ae05a run 4, H100 80GB HBM3, 700 W"),
+    ("flash_attention", "chunk", "float64", 1.347,
+     "commit a5ae05a run 4, H100 80GB HBM3, 700 W"),
+    ("flash_attention", "gemma2", "bfloat16", 20.931, _PR21),
+    ("flash_attention", "gemma2_prefill", "bfloat16", 14.606, _PR21),
+    ("flash_attention", "gemma2_decode_local", "bfloat16", 3.332, _PR21),
+    ("flash_attention", "gemma2_decode_global", "bfloat16", 6.165, _PR21),
+    ("flash_attention", "jamba_prefill", "bfloat16", 54.153, _PR21),
+    ("flash_attention", "jamba_decode", "bfloat16", 4.106, _PR21),
+    ("flash_attention_bwd", "stablelm", "bfloat16", 48.073,
+     "commit 58c7205 run 5, H100 80GB HBM3, 700 W"),
+    ("mamba_scan", "chunk", "float64", 1.588,
+     "commit d9c8578 run 6, H100 80GB HBM3, 700 W")]
 
 # max |kernel - plain| allowed, scaled like tests/test_kernels.py: the
 # f32/bf16 tolerance applies both absolutely and relative to |plain|
@@ -910,8 +951,11 @@ def check_flash(torch, fa_kernel, fa_ops, fa_ref):
             kernel_fn = lambda: fa_kernel.flash_attention_bhsd(  # noqa: E731
                 q, k, v, **opts)
             plain = fa_ref.flash_attention_bhsd_ref
-            library_fn = None if (causal or window or cap) else \
-                (lambda: sdpa(q, k, v))
+            # one head per batch row, as (1, BH, S, D): on 3-d operands
+            # SDPA took its math path (13.7 ms at stablelm's shape, 0.26
+            # on 4-d)
+            library_fn = None if (window or cap or off is not None) else \
+                (lambda: sdpa(q[None], k[None], v[None], is_causal=causal))
         else:                     # a GQA layer through the dispatch
             q, k, v = (t.to("cuda", dt) for t in (q, k, v))
             kernel_fn = lambda: fa_ops.flash_attention(q, k, v,  # noqa: E731
@@ -940,7 +984,11 @@ def check_flash(torch, fa_kernel, fa_ops, fa_ref):
         extra = {"out_scale": scale, "controls_max_abs_err": controls}
         if off is not None:
             extra["q_offset"] = offs
-        if h > 1:
+        if dname == "bfloat16":
+            extra["kernels_run"], extra["device_ms"] = _fwd_route(
+                torch, fa_kernel, label, b, sq, h, kvh, skv, d, kernel_fn)
+        regrouped_call = h > 1 and dname != "bfloat16"
+        if regrouped_call:
             # the dispatch's two parts: the kernel alone on the regrouped
             # tensors, and the regroup (transposes, K/V repeated over the
             # query-head groups) alone
@@ -1021,7 +1069,7 @@ def check_flash(torch, fa_kernel, fa_ops, fa_ref):
             err, kernel_fn, plain_fn, library_fn, 4.0 * pairs * d, nbytes,
             reps=10, causal=causal, window=window, softcap=cap,
             yardstick=yardstick, **extra))
-        if h > 1:
+        if regrouped_call:
             print(f"flash_attention {label} {dname}: dispatch "
                   f"{out[-1]['ms']:.3f} ms = kernel alone "
                   f"{extra['kernel_alone_ms']:.3f} ms on the regrouped "
@@ -1033,6 +1081,73 @@ def check_flash(torch, fa_kernel, fa_ops, fa_ref):
         del q, k, v, got, want, yardstick, library_fn
         torch.cuda.empty_cache()
     return out
+
+
+def _profiled_kernels(torch, fn, want) -> tuple:
+    """({kernel: launches} of calls of ``fn`` by name from
+    ``torch.profiler``, {kernel: mean device ms a launch}, traced calls,
+    traces). A trace of one short call came back without some of its
+    kernels, or none (a 0.1 ms case: none in 4 traces), and a trace's
+    last kernel went missing in every one of 4 traces (the 77 ms gemma2
+    backward's dQ, after phase 3's forward traces), so each trace waits
+    50 ms once the profiler has started, repeats the call for at least
+    50 ms and ends with a sentinel kernel (``torch.cuda._sleep``'s
+    ``spin_kernel``, not counted) and 50 ms more; while a kernel of
+    ``want`` is missing the trace is taken again, up to 4 times, their
+    kernels counted together."""
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    ran, device_ms = {}, {}
+    calls = 0
+    for attempt in range(4):
+        with torch.profiler.profile(activities=[cuda]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 0.05 or not calls:
+                fn()
+                torch.cuda.synchronize()
+                calls += 1
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                found = re.search(r"(\w+_kernel)\b", e.name)
+                name = found.group(1) if found else e.name
+                if name != "spin_kernel":
+                    ran[name] = ran.get(name, 0) + 1
+                    device_ms[name] = device_ms.get(name, 0.0) \
+                        + e.device_time_total / 1e3
+        if want <= set(ran):
+            break
+    return ran, {n: device_ms[n] / ran[n] for n in ran}, calls, attempt + 1
+
+
+def _fwd_route(torch, fa_kernel, label, b, sq, h, kvh, skv, d,
+               kernel_fn) -> tuple:
+    """({kernel: launches}, device ms a call: the kernels' mean launches
+    summed) of a bf16 forward case's calls (torch.profiler; a short call's
+    CUDA-event time is its host's). The case must have run exactly the
+    kernels its shape asks for: the
+    split-KV decode (decode_kernel, and combine_kernel where the call
+    takes more than one split) where Sq x G <= FWD_DEC_ROWS, else the
+    tensor-core kernel (mma_fwd_kernel); never the FMA flash_kernel, and
+    nothing else (no regroup or copy kernel); fails otherwise."""
+    if sq * (h // kvh) <= FWD_DEC_ROWS:
+        split = h > 1 and fa_kernel._library().flash_attention_gqa_workspace(
+            b, sq, skv, h, kvh, d) > 0
+        want = {"decode_kernel"} | ({"combine_kernel"} if split else set())
+    else:
+        want = {"mma_fwd_kernel"}
+    ran, mean_ms, calls, traces = _profiled_kernels(torch, kernel_fn, want)
+    device_ms = sum(mean_ms.values())
+    print(f"flash_attention {label} bfloat16: kernels run {ran} in {calls} "
+          f"traced calls ({traces} traces); expected {sorted(want)} alone; "
+          f"device time a call {device_ms:.4f} ms", flush=True)
+    if set(ran) != want:
+        raise AssertionError(f"flash_attention {label} bfloat16: ran "
+                             f"{sorted(ran)}, not {sorted(want)} alone")
+    return ran, device_ms
 
 
 def _sdpa_bwd_library(torch, sdpa, q, k, v, do, causal):
@@ -1287,40 +1402,18 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
 
 def _bwd_route(torch, label, dname, d, kernel_fn) -> dict:
     """{kernel: launches} of backward calls, by name from
-    ``torch.profiler``. A bf16 case must have run the tensor-core kernels
-    (mma_dkdv_kernel, mma_dq_kernel) and no FMA dK/dV or dQ kernel up to
-    BWD_MMA_MAX_D, and the FMA kernels past it; fails otherwise. A trace
-    of one short call came back without some of its kernels, or none (a
-    0.1 ms case: none in 4 traces), so each trace waits 50 ms once the
-    profiler has started and then repeats the call for at least 50 ms;
-    while an expected kernel is missing the trace is taken again, up to
-    4 times, their kernels counted together."""
-    cuda = torch.profiler.ProfilerActivity.CUDA
+    ``torch.profiler`` (``_profiled_kernels``). A bf16 case must have run
+    the tensor-core kernels (mma_dkdv_kernel, mma_dq_kernel) and no FMA
+    dK/dV or dQ kernel up to BWD_MMA_MAX_D, and the FMA kernels past it;
+    fails otherwise."""
     mma = {"mma_dkdv_kernel", "mma_dq_kernel"}
     fma = {"dkdv_kernel", "dq_kernel"}
     want, not_want = (mma, fma) if d <= BWD_MMA_MAX_D else (fma, mma)
     if dname != "bfloat16":
         want = set()
-    ran = {}
-    calls = 0
-    for attempt in range(4):
-        with torch.profiler.profile(activities=[cuda]) as prof:
-            torch.cuda.synchronize()
-            time.sleep(0.05)
-            t0 = time.perf_counter()
-            while time.perf_counter() - t0 < 0.05 or not calls:
-                kernel_fn()
-                torch.cuda.synchronize()
-                calls += 1
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                found = re.search(r"(\w+_kernel)\b", e.name)
-                name = found.group(1) if found else e.name
-                ran[name] = ran.get(name, 0) + 1
-        if want <= set(ran):
-            break
+    ran, _, calls, traces = _profiled_kernels(torch, kernel_fn, want)
     print(f"flash_attention_bwd {label} {dname}: kernels run {ran} in "
-          f"{calls} traced calls ({attempt + 1} traces)", flush=True)
+          f"{calls} traced calls ({traces} traces)", flush=True)
     if dname == "bfloat16":
         if not want <= set(ran) or not_want & set(ran):
             raise AssertionError(f"flash_attention_bwd {label} {dname} (D = "
@@ -3182,9 +3275,10 @@ def main() -> int:
              "mamba_scan": check_scan(torch, sc,
                                       mamba_scan_promoted_ref),
              "mamba_scan_bwd": check_scan_bwd(torch, sc, sc_ref)}
-    for name, (label, before, run) in EARLIER_MS.items():
-        row = next(c for c in cases[name] if c["case"] == label)
-        print(f"{name} {label} {row['dtype']} {row['shape']}: "
+    for name, label, dname, before, run in EARLIER_MS:
+        row = next(c for c in cases[name]
+                   if c["case"] == label and c["dtype"] == dname)
+        print(f"{name} {label} {dname} {row['shape']}: "
               f"{row['ms']:.3f} ms redesigned for Hopper, {before:.3f} "
               f"ms before ({run})", flush=True)
     print(f"phase 3 done at {time.perf_counter() - t_start:.1f} s",

@@ -4,8 +4,7 @@ interleaved: other, this, this, other.
     PYTHONPATH=src python3 -m repro_torch.kernels.ab OTHER_CHECKOUT
 
 Each checkout builds its own ``matmul.cu``, ``flash_attention.cu`` and
-``mamba_scan.cu`` with its own ``kernels/build.py`` (in a subprocess, so
-its headers are its own) into its own ``build/kernels/``. This process
+``mamba_scan.cu`` with its own ``kernels/build.py`` (``ab_common.py``). This process
 loads both sets of libraries and calls their C entries on the same
 inputs (the flash entry by each library's own signature: the query
 offset, which the other checkout's must take too, and where
@@ -34,15 +33,11 @@ from __future__ import annotations
 import ctypes
 import json
 import math
-import os
-import subprocess
 import sys
 from pathlib import Path
 
-_BUILD = ("import json, sys; from pathlib import Path; "
-          "from repro_torch.kernels import build; "
-          "print(json.dumps([str(build.build(Path(s))[0]) "
-          "for s in sys.argv[1:]]))")
+from .ab_common import build, build_all, card, time_ms
+
 _SOURCES = ("src/repro_torch/kernels/matmul/csrc/matmul.cu",
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu")
@@ -52,14 +47,7 @@ _SCAN_ENTRY = {"float64": "mamba_scan_f64", "float32": "mamba_scan_f32"}
 def _libraries(root: Path):
     """(matmul, flash attention, scan) libraries of the checkout at
     ``root``, built by that checkout's own build module."""
-    env = {**os.environ, "PYTHONPATH": str(root / "src")}
-    out = subprocess.run([sys.executable, "-c", _BUILD,
-                          *(str(root / s) for s in _SOURCES)],
-                         cwd=root, env=env, capture_output=True, text=True)
-    if out.returncode != 0:
-        raise RuntimeError(f"build in {root} failed:\n{out.stderr}")
-    mm, fa, sc = (ctypes.CDLL(p)
-                  for p in json.loads(out.stdout.splitlines()[-1]))
+    mm, fa, sc = (ctypes.CDLL(str(p)) for p in build(root, _SOURCES))
     i64, ptr = ctypes.c_int64, ctypes.c_void_p
     mm.matmul_f64.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr]
     # q, k, v, o, [lse,] q_offset (passed null: every row at its own
@@ -176,20 +164,6 @@ def _cases(torch, mm, fa, sc):
     return cases
 
 
-def _time_ms(torch, fn, reps: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def main(argv) -> int:
     import torch
 
@@ -198,12 +172,13 @@ def main(argv) -> int:
         return 2
     this = Path(__file__).resolve().parents[3]
     other = Path(argv[0]).resolve()
-    libs = {"this": _libraries(this), "other": _libraries(other)}
+    built = build_all([this, other], _libraries)
+    libs = {"this": built[str(this)], "other": built[str(other)]}
     runs = {name: _cases(torch, *pair) for name, pair in libs.items()}
     times = {label: {"this": [], "other": []} for label in runs["this"]}
     for name in ("other", "this", "this", "other"):
         for label, (fn, _, _) in runs[name].items():
-            times[label][name].append(_time_ms(torch, fn))
+            times[label][name].append(time_ms(torch, fn))
     from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
 
     errors = {}
@@ -224,11 +199,8 @@ def main(argv) -> int:
             line += ", max |y - float64 recurrence| " + ", ".join(
                 f"{name} {err:.3e}" for name, err in errors[label].items())
         print(line, flush=True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
     print(json.dumps({"times_ms": times, "max_err_vs_float64": errors,
-                      "card": card}), flush=True)
+                      "card": card()}), flush=True)
     return 0
 
 

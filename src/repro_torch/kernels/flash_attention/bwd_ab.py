@@ -8,8 +8,8 @@ it).
         [OTHER_CHECKOUT ...]
 
 Each checkout builds its own ``flash_attention.cu`` and
-``flash_attention_bwd.cu`` with its own ``kernels/build.py`` (in a
-subprocess, so its headers are its own) into its own ``build/kernels/``;
+``flash_attention_bwd.cu`` with its own ``kernels/build.py``
+(``kernels/ab_common.py``);
 this process loads every library and calls its C entries on the same
 inputs: this checkout's forward gives o and lse once, then each
 checkout's ``flash_attention_bwd_bf16`` computes (dq, dk, dv). Cases: a
@@ -31,17 +31,11 @@ from __future__ import annotations
 
 import ctypes
 import json
-import os
-import re
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-_BUILD = ("import json, sys; from pathlib import Path; "
-          "from repro_torch.kernels import build; "
-          "print(json.dumps([str(build.build(Path(s))[0]) "
-          "for s in sys.argv[1:]]))")
+from ..ab_common import build, build_all, by_kernel, card, time_ms
+
 _SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
 # (label, (BH, Sq, Skv, D), causal)
 CASES = [("stablelm", (64, 4096, 4096, 80), True),
@@ -52,12 +46,7 @@ REPS = 10
 
 def _library(root: Path) -> ctypes.CDLL:
     """The backward's library of the checkout at ``root``."""
-    env = {**os.environ, "PYTHONPATH": str(root / "src")}
-    out = subprocess.run([sys.executable, "-c", _BUILD, str(root / _SOURCE)],
-                         cwd=root, env=env, capture_output=True, text=True)
-    if out.returncode != 0:
-        raise RuntimeError(f"build in {root} failed:\n{out.stderr}")
-    lib = ctypes.CDLL(json.loads(out.stdout.splitlines()[-1])[0])
+    lib = ctypes.CDLL(str(build(root, [_SOURCE])[0]))
     fn = lib.flash_attention_bwd_bf16
     # entries of ABI 2 take q_offset (passed null) after lse
     fn.argtypes = [ctypes.c_void_p] * (10 + _with_offset(lib)) + [
@@ -65,34 +54,6 @@ def _library(root: Path) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
-
-
-def _time_ms(torch, fn, reps: int = REPS) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def _by_kernel(torch, fn) -> dict:
-    """{kernel name: device ms} of one call of ``fn`` (torch.profiler)."""
-    cuda = torch.profiler.ProfilerActivity.CUDA
-    with torch.profiler.profile(activities=[cuda]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    times = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            found = re.search(r"(\w+_kernel)\b", e.name)
-            name = found.group(1) if found else e.name[:60]
-            times[name] = times.get(name, 0.0) + e.device_time_total / 1e3
-    return times
 
 
 def _inputs(torch, rng, bh, sq, skv, d):
@@ -125,13 +86,9 @@ def main(argv) -> int:
         return 1
     here = Path(__file__).resolve().parents[4]
     roots = [Path(a).resolve() for a in argv] + [here]
-    with ThreadPoolExecutor(len(roots)) as pool:    # one nvcc each, at once
-        libs = dict(zip(map(str, roots), pool.map(_library, roots)))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    print(f"card: {card}; torch {torch.__version__}, CUDA "
+    libs = build_all(roots, _library)
+    name = card()
+    print(f"card: {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(5)
@@ -180,21 +137,21 @@ def main(argv) -> int:
         bound_ms = 10.0 * pairs * d / PEAK_BF16 * 1e3
         order = list(libs) + list(reversed(libs))
         for rnd, r in enumerate(order):
-            ms = _time_ms(torch, lambda: call(libs[r], grads[r]))
+            ms = time_ms(torch, lambda: call(libs[r], grads[r]), REPS)
             print(json.dumps({"case": label, "shape": [bh, sq, skv, d],
                               "causal": causal, "round": rnd,
                               "checkout": r, "ms": ms}), flush=True)
         for r in libs:
             print(json.dumps({"case": label, "checkout": r,
-                              "kernels_ms": _by_kernel(
+                              "kernels_ms": by_kernel(
                                   torch, lambda: call(libs[r], grads[r]))}),
                   flush=True)
-        lib_ms = _time_ms(torch, library)
+        lib_ms = time_ms(torch, library, REPS)
         print(json.dumps({"case": label, "library_ms": lib_ms,
                           "bound_ms": bound_ms,
                           "max_diff_from_this": diffs,
                           "this_vs_plain_first_heads": plain,
-                          "card": card}), flush=True)
+                          "card": name}), flush=True)
         del q, k, v, do, o, lse, delta, grads, mine, want, out, qs, ks, vs
         torch.cuda.empty_cache()
     return 0

@@ -9,7 +9,10 @@ package took from JAX's autodiff of its plain attention.
 :func:`flash_attention_bhsd` checks its operands, allocates the output
 (and, asked for, the logsumexp per query row that the backward needs),
 launches the kernel on PyTorch's current stream and counts the launch in
-:data:`launches`; :func:`flash_attention_bhsd_bwd` launches the
+:data:`launches`; :func:`flash_attention_gqa` does the same for bf16 on
+the grouped-query layout (B, S, H, D) with K/V (B, S, KVH, D) read in
+place through their strides, allocating the split-KV decode's workspace
+where the kernel asks for one; :func:`flash_attention_bhsd_bwd` launches the
 backward's three kernels (the preamble Δ = rowsum(dO ⊙ O), dK/dV, dQ)
 and counts the call in :data:`bwd_launches`. They take CUDA tensors
 only: a kernel that does not build or launch raises, it never falls
@@ -55,7 +58,10 @@ _bwd_lib = None
 def _library() -> ctypes.CDLL:
     """The kernel library (built first if needed), with the ctypes
     signature of every entry point declared: q, k, v, o, lse (null: not
-    asked), q_offset, the sizes, the options and the stream."""
+    asked), q_offset, the sizes, the options and the stream; the
+    grouped-query entry takes the workspace after q_offset, B, Sq, Skv,
+    H, KVH, D and the 12 element strides before the options, and
+    ``flash_attention_gqa_workspace`` its size."""
     global _lib
     if _lib is None:
         lib = _build.load(SOURCE)
@@ -65,6 +71,13 @@ def _library() -> ctypes.CDLL:
                 ctypes.c_int, ctypes.c_int, ctypes.c_double,
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        fn = lib.flash_attention_gqa_bf16
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6 + [
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+            ctypes.c_double, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.flash_attention_gqa_workspace.argtypes = [ctypes.c_int64] * 6
+        lib.flash_attention_gqa_workspace.restype = ctypes.c_int64
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -166,6 +179,86 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash attention kernel launch failed: {msg} "
                            f"({err})")
+    launches += 1
+    return (out, lse) if return_lse else out
+
+
+def _check_gqa(q, k, v, q_offset, what: str) -> None:
+    """Raise for grouped-query operands the bf16 kernels do not take."""
+    if not (q.is_cuda and k.is_cuda and v.is_cuda) \
+            or not q.device == k.device == v.device:
+        raise ValueError(f"{what} needs q, k, v on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        raise TypeError(f"{what} takes bfloat16 operands, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
+        raise ValueError(f"{what} needs q (B, Sq, H, D) and k, v (B, Skv, "
+                         f"KVH, D) with H a multiple of KVH, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError(f"{what} needs unit stride in D, got strides "
+                         f"{q.stride()}, {k.stride()}, {v.stride()}")
+    d = q.shape[3]
+    if not 1 <= d <= MAX_D or k.shape[1] == 0:
+        raise ValueError(f"{what} takes 1 <= D <= {MAX_D} and Skv >= 1, got "
+                         f"D={d}, Skv={k.shape[1]}")
+    if q_offset is not None and (
+            q_offset.dtype != torch.int32 or q_offset.device != q.device
+            or tuple(q_offset.shape) != (q.shape[0],)
+            or not q_offset.is_contiguous()):
+        raise ValueError(f"{what} needs q_offset as a contiguous int32 "
+                         f"({q.shape[0]},) tensor on {q.device}, got "
+                         f"{q_offset.dtype} {tuple(q_offset.shape)} on "
+                         f"{q_offset.device}")
+
+
+def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0,
+                        q_offset: Optional[torch.Tensor] = None,
+                        return_lse: bool = False):
+    """bf16 attention of q ``(B, Sq, H, D)`` over k/v ``(B, Skv, KVH, D)``
+    on the card, query head ``h`` on KV head ``h // (H // KVH)``, each
+    operand read through its strides (unit stride in D: a slice of a KV
+    cache is read where it lies). Query row ``i`` of batch row ``b`` sits
+    at position ``q_offset[b] + i`` (``q_offset``: int32 ``(B,)`` on q's
+    device; None: every row at ``i``). Returns O ``(B, Sq, H, D)``
+    contiguous and, with ``return_lse``, the logsumexp ``(B, H, Sq)`` in
+    float32. The kernel (split-KV decode or tensor cores) is the C
+    entry's choice."""
+    global launches
+    what = "flash attention GQA kernel"
+    _check_gqa(q, k, v, q_offset, what)
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    if b == 0 or sq == 0 or h == 0:
+        return (out, lse) if return_lse else out    # nothing to compute
+    lib = _library()
+    with torch.cuda.device(q.device):
+        n = lib.flash_attention_gqa_workspace(b, sq, skv, h, kvh, d)
+        ws = torch.empty(n, dtype=torch.float32, device=q.device) if n \
+            else None
+        strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
+                                        *v.stride()[:3], *out.stride()[:3])
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_gqa_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            None if q_offset is None else q_offset.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, sq, skv, h, kvh, d,
+            strides, int(bool(causal)), int(window or 0),
+            float(softcap or 0.0), stream)
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash attention GQA kernel launch failed: "
+                           f"{msg} ({err})")
     launches += 1
     return (out, lse) if return_lse else out
 

@@ -5,12 +5,16 @@ kernel (:mod:`.flash_attention`, which masks ragged edges itself, so
 nothing is padded here) and CPU tensors to the kernel's plain version
 (:func:`.ref.flash_attention_bhsd_ref`), counting those calls in
 :data:`plain_calls`; the choice follows only where the tensors lie.
-:func:`flash_attention` regroups ``(B, S, H, D)`` GQA tensors to
-``(B·H, S, D)`` with K/V repeated over the query-head groups
-(:func:`regroup`, the reference's ``ops.py``), runs that, and regroups
-back. Its ``q_offset`` (the reference's ``plain_attention(...,
-q_offset=...)``) is an int or one position per batch row, ``(B,)``,
-repeated over the heads.
+:func:`flash_attention` takes ``(B, S, H, D)`` GQA tensors. bf16 CUDA
+tensors with no gradient recorded (the served path, which runs under
+``torch.inference_mode()``) go to the kernel's grouped-query entry
+(:func:`.flash_attention.flash_attention_gqa`), which reads K/V in place
+through their strides, query head ``h`` on KV head ``h // G``; every
+other call regroups to ``(B·H, S, D)`` with K/V repeated over the
+query-head groups (:func:`regroup`, the reference's ``ops.py``), runs
+:func:`flash_attention_bhsd`, and regroups back. Its ``q_offset`` (the
+reference's ``plain_attention(..., q_offset=...)``) is an int or one
+position per batch row, ``(B,)``, repeated over the heads.
 
 Gradients: where grad mode is on and an operand requires grad,
 :func:`flash_attention_bhsd` runs through :class:`FlashAttention`, a
@@ -92,18 +96,34 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def _records_grad(q, k, v) -> bool:
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+
+
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0,
                          q_offset: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """``q_offset``: None or int32 ``(BH,)``."""
-    if not (torch.is_grad_enabled()
-            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+    if not _records_grad(q, k, v):
         return _forward(q, k, v, causal=causal, window=window,
                         softcap=softcap, q_offset=q_offset)
     return FlashAttention.apply(q, k, v, bool(causal), int(window or 0),
                                 float(softcap or 0.0), q_offset)
+
+
+def batch_offset(q_offset: Union[int, torch.Tensor], b: int, device):
+    """An int or a 0-d or (B,) tensor offset as None (no offset) or a
+    contiguous int32 ``(B,)`` on ``device`` (no copy where it is one)."""
+    if isinstance(q_offset, torch.Tensor):
+        return q_offset.to(device, torch.int32).reshape(-1).expand(b) \
+            .contiguous()
+    if q_offset:
+        return torch.full((b,), int(q_offset), dtype=torch.int32,
+                          device=device)
+    return None
 
 
 def regroup(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -121,15 +141,8 @@ def regroup(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         .reshape(b * h, skv, d).contiguous()
     vf = v.transpose(1, 2).repeat_interleave(g, dim=1) \
         .reshape(b * h, skv, d).contiguous()
-    if isinstance(q_offset, torch.Tensor):       # one per batch row, or 0-d
-        off = q_offset.to(q.device, torch.int32).reshape(-1).expand(b) \
-            .repeat_interleave(h)
-    elif q_offset:
-        off = torch.full((b * h,), int(q_offset), dtype=torch.int32,
-                         device=q.device)
-    else:
-        off = None
-    return qf, kf, vf, off
+    off = batch_offset(q_offset, b, q.device)
+    return qf, kf, vf, None if off is None else off.repeat_interleave(h)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -138,6 +151,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: Union[int, torch.Tensor] = 0) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Skv, KVH, D), H a multiple of KVH;
     ``q_offset``: an int or (B,)."""
+    if q.is_cuda and q.dtype == torch.bfloat16 and not _records_grad(q, k,
+                                                                     v):
+        return _kernel.flash_attention_gqa(
+            q, k, v, causal=causal, window=window, softcap=softcap,
+            q_offset=batch_offset(q_offset, q.shape[0], q.device))
     b, sq, h, d = q.shape
     qf, kf, vf, off = regroup(q, k, v, q_offset)
     out = flash_attention_bhsd(qf, kf, vf, causal=causal, window=window,

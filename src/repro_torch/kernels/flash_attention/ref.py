@@ -11,6 +11,11 @@ the path CPU tensors take).
   to ``q``'s dtype. A row whose every key is masked averages all of
   ``v``, as the kernel's (and the reference's) running state does.
   Asked for, it also returns the logsumexp ``m + log(l)`` of each row.
+* :func:`attention_split_ref` — the split-KV decode's partition on
+  ``(B, S, H, D)`` with GQA (the tests' oracle of its algebra): the keys
+  cut into splits, each split's ``(m, l, acc)`` over the keys the batch
+  row's rows walk (the kernel's ``key_bounds``), merged in split order
+  as ``combine_kernel`` merges them.
 * :func:`flash_attention_bhsd_bwd_ref` — exactly what the backward
   kernels compute (``csrc/flash_attention_bwd.cu``), step by step from
   the forward's ``lse``: ``P = exp(S - lse)`` on the valid pairs,
@@ -116,6 +121,72 @@ def flash_attention_bhsd_ref(q: torch.Tensor, k: torch.Tensor,
     out = (o / den).to(q.dtype)
     if return_lse:
         return out, (m + torch.log(den))[..., 0]
+    return out
+
+
+def _walked_keys(sq: int, skv: int, causal: bool, window: int, device,
+                 q_offset: Offset = 0) -> torch.Tensor:
+    """(B or 1, Skv) bool: the keys the kernels walk for each batch row's
+    query rows, the union of their valid keys, or every key where one of
+    the rows has none (it averages v over all of them)."""
+    mask = _mask(sq, skv, causal, window, device, q_offset)
+    if mask.dim() == 2:
+        mask = mask[None]
+    every_row = mask.any(dim=-1).all(dim=-1, keepdim=True)      # (R, 1)
+    return mask.any(dim=1) | ~every_row
+
+
+def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, splits: int, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0,
+                        q_offset: Offset = 0, return_lse: bool = False):
+    """q: (B, Sq, H, D); k/v: (B, Skv, KVH, D); ``q_offset``: an int or
+    (B,). The keys cut into ``splits`` splits of ceil(Skv / splits); per
+    split and row, over the keys its batch row walks (masked keys at
+    NEG_INF): m_s, l_s = sum exp(s - m_s), acc_s = sum P v with P cast to
+    v's dtype; a split holding none of them is skipped. Merged in split
+    order: M = max m_s, l = sum l_s e^(m_s - M), acc likewise, out = acc
+    / max(l, 1e-30) in q's dtype. A row with valid keys takes nothing
+    from a split where it has none (m_s = NEG_INF, weight 0); a row with
+    none anywhere averages v over every key. With ``return_lse``, (out,
+    lse (B, H, Sq))."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4)  # b k g q d
+    kk = k.permute(0, 2, 1, 3)[:, :, None]                   # b k 1 s d
+    vv = v.permute(0, 2, 1, 3)[:, :, None].to(acc)
+    s = _scores(qg, kk, acc, softcap)                         # b k g q s
+    mask = _mask(sq, skv, causal, window, q.device, q_offset)
+    if mask.dim() == 3:                                       # per batch
+        mask = mask[:, None, None]
+    neg = torch.tensor(NEG_INF, dtype=acc, device=q.device)
+    s = torch.where(mask, s, neg)
+    walked = _walked_keys(sq, skv, causal, window, q.device, q_offset)
+    walked = walked.expand(b, skv)[:, None, None, None]       # b 1 1 1 s
+    length = -(-skv // splits)
+    parts = []
+    for k0 in range(0, skv, length):
+        keys = walked[..., k0:k0 + length]
+        x = torch.where(keys, s[..., k0:k0 + length], neg)
+        m = x.amax(dim=-1, keepdim=True)
+        p = torch.where(keys, torch.exp(x - m), torch.zeros((), dtype=acc))
+        took = keys.any(dim=-1, keepdim=True)                 # b 1 1 1 1
+        parts.append((m, took, p.sum(dim=-1, keepdim=True),
+                      p.to(v.dtype).to(acc) @ vv[..., k0:k0 + length, :]))
+    top = torch.stack([torch.where(t, m, torch.tensor(
+        -math.inf, dtype=acc)) for m, t, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(top)
+    o = torch.zeros(qg.shape, dtype=acc, device=q.device)
+    for m, took, ls, os in parts:            # in split order
+        w = torch.where(took, torch.exp(m - top), torch.zeros((), dtype=acc))
+        l = l + ls * w
+        o = o + os * w
+    den = torch.clamp(l, min=1e-30)
+    out = (o / den).to(q.dtype).permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+    if return_lse:
+        return out, (top + torch.log(den))[..., 0].reshape(b, h, sq)
     return out
 
 

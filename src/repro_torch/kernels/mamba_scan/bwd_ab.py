@@ -6,8 +6,7 @@ reverse).
         [OTHER_CHECKOUT ...]
 
 Each checkout builds its own ``mamba_scan_bwd.cu`` with its own
-``kernels/build.py`` (in a subprocess, so its headers are its own) into
-its own ``build/kernels/``; this process loads every library and calls
+``kernels/build.py`` (``kernels/ab_common.py``); this process loads every library and calls
 its ``mamba_scan_bwd_f32`` entry on the same inputs, with the entry
 states of this checkout's forward kernel (a variant must keep their
 layout). Cases: a Jamba-1.5-Large Mamba layer as phase 11 of
@@ -27,17 +26,12 @@ from __future__ import annotations
 
 import ctypes
 import json
-import os
 import re
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-_BUILD = ("import json, sys; from pathlib import Path; "
-          "from repro_torch.kernels import build; "
-          "print(json.dumps([str(build.build(Path(s))[0]) "
-          "for s in sys.argv[1:]]))")
+from ..ab_common import build, build_all, card, time_ms
+
 _SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu"
 # (label, (B, L, I, N))
 CASES = [("jamba_train", (1, 4096, 16384, 16)),
@@ -50,12 +44,7 @@ REPS = 10
 def _library(root: Path):
     """(library, ptxas lines of its float32 scan_bwd_kernel) of the
     checkout at ``root``."""
-    env = {**os.environ, "PYTHONPATH": str(root / "src")}
-    out = subprocess.run([sys.executable, "-c", _BUILD, str(root / _SOURCE)],
-                         cwd=root, env=env, capture_output=True, text=True)
-    if out.returncode != 0:
-        raise RuntimeError(f"build in {root} failed:\n{out.stderr}")
-    path = Path(json.loads(out.stdout.splitlines()[-1])[0])
+    path = build(root, [_SOURCE])[0]
     lib = ctypes.CDLL(str(path))
     lib.mamba_scan_bwd_f32.argtypes = [ctypes.c_void_p] * 16 + [
         ctypes.c_int64] * 4 + [ctypes.c_void_p]
@@ -74,19 +63,6 @@ def _library(root: Path):
     return lib, lines
 
 
-def _time_ms(torch, fn, reps: int = REPS) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -99,13 +75,9 @@ def main(argv) -> int:
         return 1
     here = Path(__file__).resolve().parents[4]
     roots = [Path(a).resolve() for a in argv] + [here]
-    with ThreadPoolExecutor(len(roots)) as pool:    # one nvcc each, at once
-        libs = dict(zip(map(str, roots), pool.map(_library, roots)))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    print(f"card: {card}; torch {torch.__version__}, CUDA "
+    libs = build_all(roots, _library)
+    name = card()
+    print(f"card: {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
     for r, (_, lines) in libs.items():
         print(json.dumps({"checkout": r, "ptxas": lines}), flush=True)
@@ -153,14 +125,14 @@ def main(argv) -> int:
                        5 * b * length * inner * 4 / PEAK_BYTES_S) * 1e3
         order = list(libs) + list(reversed(libs))
         for rnd, r in enumerate(order):
-            ms = _time_ms(torch, lambda: call(r))
+            ms = time_ms(torch, lambda: call(r), REPS)
             print(json.dumps({"case": label, "shape": [b, length, inner, n],
                               "round": rnd, "checkout": r, "ms": ms}),
                   flush=True)
         print(json.dumps({"case": label, "bound_ms": bound_ms,
                           "max_diff_from_this": diffs,
                           "this_norm_err_vs_float64_plain": plain,
-                          "card": card}), flush=True)
+                          "card": name}), flush=True)
         del args, states, work, grads, mine
         torch.cuda.empty_cache()
     return 0

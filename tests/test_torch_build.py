@@ -50,6 +50,15 @@ def test_backward_source_includes_the_bf16_tensor_core_header():
         flash_attention.BWD_SOURCE.read_text()
 
 
+def test_forward_source_includes_the_bf16_tensor_core_header():
+    """The bf16 forward's kernels (tensor-core prefill, split-KV decode)
+    take their fragments from the shared header, as the backward's do."""
+    text = flash_attention.SOURCE.read_text()
+    assert '#include "mma_bf16.cuh"' in text
+    for kernel in ("mma_fwd_kernel", "decode_kernel", "combine_kernel"):
+        assert f"{kernel}(" in text
+
+
 def test_bf16_header_edit_changes_the_backward_target(tree):
     """The backward's library is named by the bf16 header too: an edit of
     it renames the library; undoing it restores the name."""

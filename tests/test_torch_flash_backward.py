@@ -236,19 +236,21 @@ def _hold_offset_case(offset_reference, case):
             assert err <= TOL["float32"], (case[0], name, n, err)
 
 
-def test_gradient_with_a_query_offset_is_refused(offset_reference):
-    """(The name is kept from when this gradient was refused.) The
-    gradient with a query offset, one for every row and one per batch
-    row, against jax.grad of the reference's attention at that offset."""
+def test_gradient_with_a_query_offset_matches_reference_autodiff(
+        offset_reference):
+    """The gradient with a query offset, one for every row and one per
+    batch row, against jax.grad of the reference's attention at that
+    offset."""
     for case in OFFSET_CASES[:2]:
         _hold_offset_case(offset_reference, case)
 
 
-def test_gradient_through_rows_without_a_key_is_refused(offset_reference):
-    """(The name is kept from when this gradient was refused.) Rows with
-    no valid key (window > 0, Sq >= Skv + window; and past an offset):
-    against jax.grad of the reference's attention, where such a row's
-    softmax is uniform over every key, so dV gains dO / Skv and dQ is 0."""
+def test_gradient_through_rows_without_a_key_matches_reference_autodiff(
+        offset_reference):
+    """Rows with no valid key (window > 0, Sq >= Skv + window; and past
+    an offset): against jax.grad of the reference's attention, where such
+    a row's softmax is uniform over every key, so dV gains dO / Skv and
+    dQ is 0."""
     for case in OFFSET_CASES[2:]:
         _hold_offset_case(offset_reference, case)
         grads, _ = _grads(case, "float32")
@@ -280,11 +282,11 @@ def test_plain_backward_with_offsets_matches_autograd_of_plain_forward(
         assert _rel(g.numpy(), w.numpy()) <= 1e-12
 
 
-def test_scan_refuses_a_gradient_on_the_card(monkeypatch):
-    """(The name is kept from when the scan refused this.) With grad
-    asked for on the card, the scan op launches the forward kernel
-    keeping its states and its backward reaches the backward kernel's
-    entry, never the plain backward; without grad, the forward alone."""
+def test_scan_gradient_on_the_card_reaches_the_backward_kernel(monkeypatch):
+    """With grad asked for on the card, the scan op launches the forward
+    kernel keeping its states and its backward reaches the backward
+    kernel's entry, never the plain backward; without grad, the forward
+    alone."""
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda s: True))
     launched, backward = [], []
 
