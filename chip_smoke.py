@@ -86,13 +86,17 @@ exit:
    the plain backward in float64 on the same inputs, element by element
    and in norm; it must fail that comparison with dB zeroed and with the
    adjoint's carry between chunks dropped, and give the same bits on a
-   second call; timed beside its bound (x, dt, dy, dx, ddt once in
-   memory against one exp per (b, t, i, n)) and the plain backward.
+   second call; a ``torch.profiler`` trace of its calls must name the
+   redesigned ``scan_bwd_kernel`` (float32, bf16) or the first design's
+   ``scan_bwd_f64_kernel`` (float64) and the sums, and not the other;
+   timed beside its bound (x, dt, dy, dx, ddt once in memory against one
+   exp per (b, t, i, n)) and the plain backward.
    Each kernel redesigned for Hopper (the float64 matmul and flash
    attention on the tensor cores, the selective scan as a chunked scan
    parallel in L, the bf16 backward on the tensor cores, the bf16
    forward's prefill on the tensor cores and its decode split over the
-   keys) is printed beside its time before the redesign; the
+   keys, the float32 scan backward's warps each over a whole chunk) is
+   printed beside its time before the redesign; the
    float32 scan's bound includes its SFU roof (its exps at the SFU's
    rate), printed beside it.
 4. The main paths at full size, each compiled by
@@ -575,7 +579,8 @@ SPILL_MAX = {"matmul": [(r"3f64\d+\w*_kernel", (0, 0))],
                                  (r"decode_kernel", (0, 0)),
                                  (r"combine_kernel", (0, 0))],
              "mamba_scan": [(r"scan_kernel", (0, 0))],
-             "mamba_scan_bwd": [(r"scan_bwd_kernel|sum_kernel", (0, 0))],
+             "mamba_scan_bwd": [(r"scan_bwd_(?:f64_)?kernel|sum_kernel",
+                                 (0, 0))],
              "flash_attention_bwd": [(r"mma_d\w+_kernel", (0, 0)),
                                      (r"\d(?:dkdv|dq|delta)_kernel",
                                       (8, 32))]}
@@ -602,7 +607,9 @@ EARLIER_MS = [
     ("flash_attention_bwd", "stablelm", "bfloat16", 48.073,
      "commit 58c7205 run 5, H100 80GB HBM3, 700 W"),
     ("mamba_scan", "chunk", "float64", 1.588,
-     "commit d9c8578 run 6, H100 80GB HBM3, 700 W")]
+     "commit d9c8578 run 6, H100 80GB HBM3, 700 W"),
+    ("mamba_scan_bwd", "jamba_train", "float32", 2.997,
+     "commit 702dffe's final run, H100 80GB HBM3, 700 W")]
 
 # max |kernel - plain| allowed, scaled like tests/test_kernels.py: the
 # f32/bf16 tolerance applies both absolutely and relative to |plain|
@@ -1499,6 +1506,24 @@ def check_scan(torch, sc_kernel, plain):
     return out
 
 
+def _scan_bwd_route(torch, label, dname, kernel_fn) -> dict:
+    """{kernel: launches} of a scan-backward case's calls, by name from
+    ``torch.profiler`` (``_profiled_kernels``): float32 and bf16 must run
+    the redesigned ``scan_bwd_kernel``, float64 the first design's
+    ``scan_bwd_f64_kernel``, each with its sums and not the other."""
+    f64 = dname == "float64"
+    want = {"scan_bwd_f64_kernel" if f64 else "scan_bwd_kernel",
+            "sum_kernel"}
+    other = "scan_bwd_kernel" if f64 else "scan_bwd_f64_kernel"
+    ran, _, calls, traces = _profiled_kernels(torch, kernel_fn, want)
+    print(f"mamba_scan_bwd {label} {dname}: kernels run {ran} in {calls} "
+          f"traced calls ({traces} traces)", flush=True)
+    if not want <= set(ran) or other in ran:
+        raise AssertionError(f"mamba_scan_bwd {label} {dname}: ran "
+                             f"{sorted(ran)}, not {sorted(want)} alone")
+    return ran
+
+
 def _scan_bwd_within(torch, got, want, dname):
     """({gradient: [max |got - want|, ||got - want|| / ||want||]},
     whether each of the six gradients is finite, within TOL of ``want``
@@ -1586,6 +1611,7 @@ def check_scan_bwd(torch, sc_kernel, sc_ref):
             raise AssertionError(f"mamba_scan_bwd {label} {dname}: a "
                                  f"second call gave other bits")
         del again
+        ran = _scan_bwd_route(torch, label, dname, kernel_fn)
         faulty = {"db_zero": lambda: (*got[:2], torch.zeros_like(got[2]),
                                       *got[3:]),
                   "carry_zero": lambda: sc_ref.mamba_scan_bwd_chunked_ref(
@@ -1614,7 +1640,7 @@ def check_scan_bwd(torch, sc_kernel, sc_ref):
             peak=PEAK_FP64_FMA if f64 else None,
             exps=0.0 if f64 else steps, plain_reps=1,
             final_state_grad=state, errs=errs, plain_errs=plain_errs,
-            controls=controls))
+            controls=controls, kernels_run=ran))
         out[-1]["case_s"] = time.perf_counter() - t_case
         print(f"mamba_scan_bwd {label} {dname}: case took "
               f"{out[-1]['case_s']:.1f} s", flush=True)

@@ -148,7 +148,8 @@ __device__ __forceinline__ Acc step(Acc (&h)[NG],
     if constexpr (OUT) load_row<Acc, V>(cv, c_row + g0 + s0);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      h[s0 + v] = xp(dtt * dec[g0 + s0 + v]) * h[s0 + v] + dx * bv[v];
+      h[s0 + v] = state_step(xp(dtt * dec[g0 + s0 + v]), h[s0 + v], dx,
+                             bv[v]);
       if constexpr (OUT) yt += h[s0 + v] * cv[v];
     }
   }

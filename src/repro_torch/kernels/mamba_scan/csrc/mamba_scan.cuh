@@ -59,6 +59,18 @@ __device__ __forceinline__ float xp(float v) {
 }
 __device__ __forceinline__ double xp(double v) { return exp(v); }
 
+// one step of a state, decay (the step's exp) times the state plus dx
+// times B, rounded as written: the forward and both backward kernels take
+// it, so that the states the backward recomputes are the forward's bits
+__device__ __forceinline__ float state_step(float decay, float h, float dx,
+                                            float b) {
+  return __fmaf_rn(decay, h, __fmul_rn(dx, b));
+}
+__device__ __forceinline__ double state_step(double decay, double h,
+                                             double dx, double b) {
+  return __fma_rn(decay, h, __dmul_rn(dx, b));
+}
+
 // NS values of a row of B or C: 16-byte loads where the row allows
 template <typename Acc, int NS>
 __device__ __forceinline__ void load_row(Acc (&dst)[NS], const Acc* src) {
@@ -106,6 +118,15 @@ struct Decays<Acc, NS, true> {
     return p[s * LANES];
   }
 };
+
+// 4 bytes into shared memory, asynchronously (zero when !valid; src
+// must then still be an address of the array)
+__device__ __forceinline__ void copy4(void* dst, const void* src,
+                                      bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dmma::smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
 
 __device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
   unsigned v;

@@ -44,9 +44,11 @@ gradient cast to its operand's dtype.
   decomposition, all chunks at once: each chunk's entry state (the
   forward's carry), each chunk's adjoint walked back from 0, the
   adjoint's carry between chunks passed from the last chunk back by the
-  same combine (a chunk maps g to ``exp(decay * S) g + g_local``), and
-  the final walks of each chunk from its entry state and its carry.
-  ``carry=False`` drops the carry between chunks (a negative control).
+  same combine (a chunk maps g to ``exp(decay * S) g + g_local``), the
+  final walks of each chunk from its entry state and its carry, and dB
+  and dC summed over each tile of channels (a block's), then over the
+  tiles in order. ``carry=False`` drops the carry between chunks (a
+  negative control).
 """
 
 from __future__ import annotations
@@ -166,12 +168,15 @@ def mamba_scan_bwd_chunked_ref(x: torch.Tensor, dt: torch.Tensor,
                                Bm: torch.Tensor, Cm: torch.Tensor,
                                a: torch.Tensor, d_skip: torch.Tensor,
                                dy: torch.Tensor, dh_last=None, *,
-                               chunk: int = 64, carry: bool = True):
+                               chunk: int = 64, tile: int = 128,
+                               carry: bool = True):
     """:func:`mamba_scan_bwd_ref` as the backward kernel decomposes it,
     every chunk of ``chunk`` steps at once (L zero-padded to whole
     chunks: a step with dt = x = dy = 0 and B = C = 0 leaves the state
-    and the adjoint as they are). ``carry=False``: each chunk but the
-    last starts its adjoint from 0."""
+    and the adjoint as they are), dB and dC summed over tiles of ``tile``
+    channels (I zero-padded to whole tiles) and then over the tiles in
+    order. ``carry=False``: each chunk but the last starts its adjoint
+    from 0."""
     acc = torch.promote_types(x.dtype, torch.float32)
     b, l, inner = x.shape
     n = Bm.shape[-1]
@@ -190,6 +195,16 @@ def mamba_scan_bwd_chunked_ref(x: torch.Tensor, dt: torch.Tensor,
 
     def step(h, j):
         return a_bar(j) * h + dtx[:, :, j, :, None] * bs[:, :, j, None, :]
+
+    nt = max(1, math.ceil(inner / tile))
+
+    def tile_sum(t):                      # (B, nc, I, N) -> (B, nc, N)
+        t = F.pad(t, (0, 0, 0, nt * tile - inner))
+        t = t.reshape(b, nc, nt, tile, n).sum(3)
+        out = t[:, :, 0]
+        for k in range(1, nt):
+            out = out + t[:, :, k]
+        return out
 
     s = dts.sum(2)                                         # (B, nc, I)
     span = torch.exp(s[..., None] * decay)                 # exp(A S)
@@ -226,8 +241,8 @@ def mamba_scan_bwd_chunked_ref(x: torch.Tensor, dt: torch.Tensor,
         z = g * hs[j] * ab
         dx[:, :, j] = dts[:, :, j] * gb
         ddt[:, :, j] = xs[:, :, j] * gb + (z * decay).sum(-1)
-        dbm[:, :, j] = (g * dtx[:, :, j, :, None]).sum(2)
-        dcm[:, :, j] = (dys[:, :, j, :, None] * hs[j + 1]).sum(2)
+        dbm[:, :, j] = tile_sum(g * dtx[:, :, j, :, None])
+        dcm[:, :, j] = tile_sum(dys[:, :, j, :, None] * hs[j + 1])
         da = da + z * dts[:, :, j, :, None]
         g = ab * g
 

@@ -12,7 +12,8 @@ Tolerance: each gradient's error norm within 1e-10 (float64) or 1e-4
 (``mamba_scan_bwd_chunked_ref``: each chunk's entry state, each chunk's
 adjoint from 0, the adjoint's carry between chunks from the last chunk
 back) is held to the plain backward at chunks that do and do not divide
-L (1e-12 of each norm, float64), and without its carry must differ.
+L (1e-12 of each norm, float64), with dB and dC summed over channel
+tiles that do and do not divide I, and without its carry must differ.
 The op (``ops.mamba_scan``) is a ``torch.autograd.Function``: on CPU
 tensors its gradient is held to autograd through the plain forward
 (1e-12, float64), and to ``torch.autograd.gradcheck``. The backward
@@ -20,10 +21,12 @@ kernel runs only on a card: its tests carry the ``cuda`` marker and
 skip here; they hold it to the plain backward, element by element and
 in norm, and to its own bits on a second call. The reference side runs
 once per module in a subprocess (``tests/torch_reference.py``).
-The PTX check of the kernel's shared stores (``ptx_check``) is held to
-a small hand-written kernel body: a store in its own place, and the
+The PTX check of the kernels' shared stores (``ptx_check``) is held to
+small hand-written kernel bodies: a store in its own place, and the
 same store shifted by a tile (as nvcc 12.9 compiled the one-pass double
-kernels at 4-step mini-blocks), which it must report.
+kernels at 4-step mini-blocks), which it must report; for the float
+kernel's layout, a mini-block state and a dB/dC slot in their places,
+and shifted into the staged rows, another warp's slots or past the end.
 """
 
 import numpy as np
@@ -159,6 +162,22 @@ def test_chunked_decomposition_matches_plain_backward(shape, chunk, state):
         assert _norm_err(g.numpy(), w.numpy()) <= 1e-12, name
 
 
+# (B, L, I, N), chunk, channel tile
+TILED = [((2, 37, 5, 4), 16, 2), ((1, 70, 8, 16), 64, 4),
+         ((2, 50, 6, 1), 7, 4), ((1, 40, 3, 32), 64, 1)]
+
+
+@pytest.mark.parametrize("shape,chunk,tile", TILED,
+                         ids=[f"{s}-{c}-{t}" for s, c, t in TILED])
+def test_chunked_decomposition_over_channel_tiles(shape, chunk, tile):
+    arrays = _torch(_inputs(shape, 5 + tile, True), "float64")
+    want = mamba_scan_bwd_ref(*arrays[:7], dh_last=arrays[7])
+    got = mamba_scan_bwd_chunked_ref(*arrays[:7], dh_last=arrays[7],
+                                     chunk=chunk, tile=tile)
+    for name, g, w in zip(NAMES, got, want):
+        assert _norm_err(g.numpy(), w.numpy()) <= 1e-12, name
+
+
 def test_chunked_decomposition_without_its_carry_differs():
     """The negative control: each chunk's adjoint from 0 misses the later
     chunks' gradient in dx, ddt, dB and da (dC and dd_skip need none)."""
@@ -230,7 +249,7 @@ def _ptx_body(offset):
 def test_ptx_check_places_a_mini_block_state_store(shift, place):
     source = ptx_check.SOURCE.read_text()
     consts = ptx_check.constants(source, ptx_check.HEADER.read_text())
-    assert (consts["K_double"], consts["K_float"]) == (2, 4)
+    assert consts["K_double"] == 2
     consts["K_double"] = 4          # the double, N = 1 kernel at K = 4
     off, ng, kept = ptx_check.layout(consts, 8, 8, 1)
     assert (off["states"], off["end"], ng, kept) == (0xd000, 0xdc00, 1, 3)
@@ -238,6 +257,49 @@ def test_ptx_check_places_a_mini_block_state_store(shift, place):
         _ptx_body(off["states"] + shift), off, ng, kept, 8)
     assert places == {place: len(ptx_check.THREADS)}
     assert len(wrong) == (0 if place == "states" else len(ptx_check.THREADS))
+
+
+def _ptx_body32(offset, warp_bytes):
+    """A kernel body whose one store after the second barrier goes to
+    ``offset`` + 4 x lane + ``warp_bytes`` x warp bytes of shared
+    memory, the address built as nvcc builds it."""
+    return [
+        "\tmov.u32 \t%r1, %tid.x;", "\tbar.sync \t0;", "\tbar.sync \t0;",
+        "\tand.b32 \t%r2, %r1, 31;", "\tshl.b32 \t%r3, %r2, 2;",
+        "\tbfe.u32 \t%r4, %r1, 5, 3;",
+        f"\tmul.lo.s32 \t%r5, %r4, {warp_bytes};",
+        "\tmov.u32 \t%r6, _ZN50_GLOBAL__N_4smemE;",
+        "\tadd.s32 \t%r7, %r6, %r3;", "\tadd.s32 \t%r8, %r7, %r5;",
+        f"\tst.shared.f32 \t[%r8+{offset}], %f1;"]
+
+
+# (part, bytes between warps, shift, place): at N = 16 a warp's area is
+# 0x2000 bytes (8 mini-blocks x 8 elements x 32 lanes of states), its
+# staging of a segment's dt, x, dy 0xc00 bytes, its slots a segment's 16
+# steps x 32 floats (0x800 bytes; warp 6's row at 0x3000, a warp no
+# thread checked is in)
+PTX32 = [("areas", 0x2000, 0, "states"), ("rows", 0, 0x40, "staged rows"),
+         ("staging", 0xc00, 0, "staging"),
+         ("slots", 0x800, 0, "slots"),
+         ("slots", 0, 0x3000, "slots, another warp or lane"),
+         ("areas", 0x2000, 4, "states, another warp or lane"),
+         ("slots", 0x800, 0x4000, "outside")]
+
+
+@pytest.mark.parametrize("part,warp_bytes,shift,place", PTX32,
+                         ids=[f"{p}+{s:#x}" for p, _, s, _ in PTX32])
+def test_ptx_check_places_the_float_kernels_stores(part, warp_bytes, shift,
+                                                   place):
+    consts = ptx_check.constants(ptx_check.SOURCE.read_text(),
+                                 ptx_check.HEADER.read_text())
+    off, s, k = ptx_check.layout32(consts, 16)
+    assert (off["areas"], off["staging"], off["slots"], off["end"], s,
+            k) == (0x2000, 0x12000, 0x18000, 0x1c000, 4, 2)
+    places, wrong = ptx_check.classify32(
+        _ptx_body32(off[part] + shift, warp_bytes), off, s, k)
+    assert places == {place: len(ptx_check.THREADS32)}
+    ok = place in ("states", "staging", "slots")
+    assert len(wrong) == (0 if ok else len(ptx_check.THREADS32))
 
 
 @pytest.fixture
@@ -249,11 +311,15 @@ def cuda_device():
 
 
 # the card's cases: (B, L, I, N), with dh_L. Ragged L and I, every
-# instantiated N (1, 4, 16, 32: two or four passes of states), one chunk,
-# several look-back groups
+# instantiated N (1, 4, 16, 32) with and without dh_L, one chunk,
+# several look-back groups; I on both sides of the float kernel's
+# 128-channel tile (127, 128, 129, 300) and B = 3 over several tiles
 CUDA_CASES = [((2, 1000, 77, 4), False), ((2, 1000, 77, 32), True),
               ((1, 64, 32, 1), False), ((3, 65, 33, 16), True),
-              ((1, 700, 256, 16), False), ((2, 300, 40, 3), True)]
+              ((1, 700, 256, 16), False), ((2, 300, 40, 3), True),
+              ((1, 300, 127, 16), False), ((1, 300, 128, 16), True),
+              ((2, 257, 129, 4), False), ((3, 600, 300, 16), True),
+              ((1, 1100, 300, 1), True), ((2, 450, 200, 32), False)]
 CUDA_TOL = {"float64": 1e-8, "float32": 2e-4, "bfloat16": 2e-2}
 CUDA_NORM_TOL = {"float64": 1e-10, "float32": 1e-4, "bfloat16": 1e-2}
 
