@@ -171,6 +171,23 @@ exit:
    fault of a decode kernel that drops the query offset) and with a
    uniform softmax; a third control's readings (every query one key
    further) are printed. Each request's prefill is timed on its own.
+9b. The LM served from a cluster worker on the card: the same model and
+   seed behind ``repro_torch.serve.ClusterLMEngine`` on a 2-worker CUDA
+   fleet (spawn, no respawn), params and KV caches in a worker's object
+   store (4 slots x 2048 positions, re-anchored every 24 ops): 6
+   requests from two tenants, one per engine tick, prompts of 256-1536
+   tokens, 16 new tokens each, after the same requests on the head's
+   ``ServeEngine``. After the first anchor, mid-decode, the state's
+   owner is killed and the run finishes by lineage replay on the
+   survivor. It prints the boot's and each anchor's seconds and bytes,
+   the drill's recovery seconds, TTFT/TPOT p50/p95 and tokens/s beside
+   the head engine's, and each worker's counts and peak memory, and
+   fails unless every token equals the head engine's, there was an
+   anchor, a death and a replay, the head's chain never outgrew 24, and
+   on each worker that served (read by a function shipped to it) the
+   flash kernel launched 26 times per prefill and decode op it ran
+   (replays included) with no plain call, the two workers' ops adding up
+   to the engine's and the replayed ones.
 10. The MoE and recurrent families served on the card (FAMILIES), bf16,
    weights from the seed: Jamba-1.5-Large at full width cut to one
    period (8 of 72 layers) whose four MoE layers share one expert set,
@@ -285,6 +302,24 @@ LM_REQUESTS, LM_NEW_TOKENS = 8, 32
 LM_PROMPT = (512, 6144)
 LM_LOGIT_TOL = 0.0625
 LM_MIN_EXACT = 250
+# the LM served from a cluster worker (phase 9b): the same model and
+# seed behind ClusterLMEngine on a CLUSTER_WORKERS-worker CUDA fleet
+# (params and KV caches in a worker's object store, CLUSTER_SLOTS slots
+# of CLUSTER_MAX_SEQ positions, the chain re-anchored every CLUSTER_TRIM
+# ops); CLUSTER_REQUESTS requests from two tenants, one per engine tick,
+# prompts of CLUSTER_PROMPT tokens, CLUSTER_NEW_TOKENS generated each:
+# 6 prefills and 32 decode ticks, so one anchor (~6.3 GB pulled to the
+# head and pushed back). After it, mid-decode, the state's owner is
+# killed and the run finishes by lineage replay on the survivor. Every
+# token must equal the head ServeEngine's on the same requests
+CLUSTER_WORKERS = 2
+CLUSTER_SLOTS, CLUSTER_MAX_SEQ, CLUSTER_TRIM = 4, 2048, 24
+CLUSTER_REQUESTS, CLUSTER_NEW_TOKENS = 6, 16
+CLUSTER_PROMPT = (256, 1536)
+# the prompts' lengths, drawn from the seed (phase 3 holds the flash
+# kernel to its plain version at the shapes they give)
+CLUSTER_LENS = [int(n) for n in np.random.default_rng(SEED + 9).integers(
+    CLUSTER_PROMPT[0], CLUSTER_PROMPT[1] + 1, CLUSTER_REQUESTS)]
 # the MoE and recurrent families served (phase 10), bf16, weights from
 # the seed on the card, each behind ServeEngine with FAM_SLOTS slots:
 # FAM_REQUESTS requests from two tenants, one per engine tick, prompts
@@ -391,6 +426,17 @@ FLASH_CASES = [
      "bfloat16", [511, 2047, 4095, 8190]),
     ("gemma2_decode_global", (4, 1, 8, 4, 8192, 288), True, 0, 50.0,
      "bfloat16", [511, 2047, 4095, 8190]),
+    # the cluster-served LM's (phase 9b, in a worker): its longest
+    # prompt's prefill over the slot's 2048-key cache, and a decode step
+    # of its 4 slots halfway through the first four requests' tokens
+    ("cluster_prefill", (1, max(CLUSTER_LENS), 8, 4, CLUSTER_MAX_SEQ, 288),
+     True, 4096, 50.0, "bfloat16", [0]),
+    ("cluster_decode_local", (CLUSTER_SLOTS, 1, 8, 4, CLUSTER_MAX_SEQ, 288),
+     True, 4096, 50.0, "bfloat16",
+     [n + CLUSTER_NEW_TOKENS // 2 for n in CLUSTER_LENS[:CLUSTER_SLOTS]]),
+    ("cluster_decode_global", (CLUSTER_SLOTS, 1, 8, 4, CLUSTER_MAX_SEQ,
+                               288), True, 0, 50.0, "bfloat16",
+     [n + CLUSTER_NEW_TOKENS // 2 for n in CLUSTER_LENS[:CLUSTER_SLOTS]]),
     ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float32", None),
     ("ragged", (1, 1000, 1, 1, 777, 72), False, 40, 30.0, "float64", None),
     # Jamba-1.5-Large's attention layer as phase 10 serves it (64 heads,
@@ -436,7 +482,10 @@ FLEX_SMALL_TILES = {"BLOCK_M": 64, "BLOCK_N": 64, "num_stages": 1}
 FLEX_TRIES = {"gemma2": (None, FLEX_SMALL_TILES),
               "gemma2_prefill": (FLEX_SMALL_TILES,),
               "gemma2_decode_local": (None, FLEX_SMALL_TILES),
-              "gemma2_decode_global": (None, FLEX_SMALL_TILES)}
+              "gemma2_decode_global": (None, FLEX_SMALL_TILES),
+              "cluster_prefill": (FLEX_SMALL_TILES,),
+              "cluster_decode_local": (None, FLEX_SMALL_TILES),
+              "cluster_decode_global": (None, FLEX_SMALL_TILES)}
 # and of the backward cases with a softcap: the gradient through it, its
 # forward at the small tiles at D = 288 and its backward's own tiles (or
 # these small ones, should those need more shared memory than an SM has)
@@ -935,7 +984,8 @@ def check_flash(torch, fa_kernel, fa_ops, fa_ref):
     (a) the attention path's chunk, (b) one gemma2_2b attention layer
     (B=1, S=8192, H=8, KVH=4, D=288, causal, window 4096, softcap 50;
     src/repro/configs/gemma2_2b.py) through the GQA dispatch, (c) the
-    served LM's prefill and per-slot decode shapes with query offsets,
+    served LMs' prefill and per-slot decode shapes with query offsets
+    (phase 9's, and phase 9b's in a worker),
     (d) a ragged case."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(SEED + 2)
@@ -2460,6 +2510,262 @@ def served_lm(torch, card, fa_kernel, fa_ops, fa_ref, device="cuda"):
             "card": card}
 
 
+def _worker_counts(state):
+    """Shipped to the worker that holds ``state`` (by value: this module
+    is the head's ``__main__``): that process's flash launches, plain
+    attention calls, served ops (replays included) and peak memory."""
+    import os
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.serve import remote_lm
+
+    return {"pid": os.getpid(), "launches": fa.launches,
+            "plain_calls": fa_ops.plain_calls, "ops": dict(remote_lm.ops),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30
+            if torch.cuda.is_available() else None}
+
+
+class _TimedRuntime:
+    """The fleet as ClusterLMEngine sees it, timing each anchor: its
+    pull (``get`` of the state) and its push (``submit`` of
+    ``lm_anchor`` until the worker holds the new root)."""
+
+    def __init__(self, rt, remote_lm):
+        self.rt = rt
+        self.remote_lm = remote_lm
+        self.anchors = []
+
+    def __getattr__(self, name):
+        return getattr(self.rt, name)
+
+    def get(self, ref, timeout=60.0):
+        t = time.perf_counter()
+        value = self.rt.get(ref, timeout)
+        if isinstance(value, self.remote_lm.Resident):
+            self.anchors.append({"bytes": value.nbytes,
+                                 "pull_s": time.perf_counter() - t})
+        return value
+
+    def submit(self, fn, *args, **kw):
+        t = time.perf_counter()
+        ref = self.rt.submit(fn, *args, **kw)
+        if fn is self.remote_lm.lm_anchor:
+            ready, _ = self.rt.wait([ref], timeout=600.0)
+            if not ready:
+                raise AssertionError("cluster lm: an anchor's push took "
+                                     "over 600 s")
+            self.anchors[-1]["push_s"] = time.perf_counter() - t
+        return ref
+
+
+def _latency_row(lat) -> dict:
+    return {name: {q: lat[name][q] for q in ("p50", "p95")}
+            for name in ("ttft_ms", "tpot_ms")}
+
+
+def served_lm_cluster(torch, card, device="cuda"):
+    """Phase 9b: gemma2_2b served from a worker of a CUDA fleet by
+    ClusterLMEngine, with a worker-kill drill after the first anchor;
+    every token against the head ServeEngine's on the same requests,
+    and every served attention call on the flash kernel in the workers.
+    (``device`` is for a rehearsal on the CPU.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.distrib import ClusterRuntime
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (ClusterLMEngine, Request, ServeEngine,
+                                   remote_lm)
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params, _ = T.init_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED))
+    torch.cuda.synchronize(device)
+    t_init = time.perf_counter() - t0
+    param_bytes = sum(t.nbytes for t in _leaves(params))
+    rng = np.random.default_rng(SEED + 10)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in CLUSTER_LENS]
+    lens = [len(p) for p in prompts]
+
+    def serve(eng, after_step=None):
+        t = time.perf_counter()
+        for i, p in enumerate(prompts):
+            eng.add_request(Request(f"req-{i}", p,
+                                    max_tokens=CLUSTER_NEW_TOKENS),
+                            tenant=("tenant-a", "tenant-b")[i % 2])
+            eng.step()
+            if after_step is not None:
+                after_step()
+        while eng.queue or eng.active:
+            eng.step()
+            if after_step is not None:
+                after_step()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t
+        done = {r.request_id: list(r.generated) for r in eng.finished}
+        tokens = sum(len(g) for g in done.values())
+        return done, {"wall_s": wall, "tokens": tokens,
+                      "tokens_per_s": tokens / wall,
+                      "latency": _latency_row(eng.telemetry()["latency"])}
+
+    # the oracle: the head's ServeEngine on the same params and requests
+    gc.collect()
+    head = ServeEngine(params, cfg, n_slots=CLUSTER_SLOTS,
+                       max_seq=CLUSTER_MAX_SEQ, device=device)
+    want, head_run = serve(head)
+    del head
+    torch.cuda.empty_cache()
+    print(f"cluster lm: the head ServeEngine served {len(want)} requests "
+          f"in {head_run['wall_s']:.3f} s", flush=True)
+
+    t0 = time.perf_counter()
+    fleet = ClusterRuntime(workers=CLUSTER_WORKERS, device=device,
+                           start_method="spawn", respawn=False)
+    t_fleet = time.perf_counter() - t0
+    try:
+        rt = _TimedRuntime(fleet, remote_lm)
+        t0 = time.perf_counter()
+        eng = ClusterLMEngine(rt, params, cfg, n_slots=CLUSTER_SLOTS,
+                              max_seq=CLUSTER_MAX_SEQ,
+                              trim_every=CLUSTER_TRIM)
+        ready, _ = fleet.wait([eng._state], timeout=600.0)
+        t_boot = time.perf_counter() - t0
+        if not ready:
+            raise AssertionError("cluster lm: the boot took over 600 s")
+        print(f"cluster lm: fleet up in {t_fleet:.3f} s, boot of "
+              f"{param_bytes} bytes in {t_boot:.3f} s", flush=True)
+        del params
+        torch.cuda.empty_cache()
+        drill = {}
+        longest = [0]
+        rolls = {"prefill": 0, "decode": 0}
+        roll = eng._roll
+
+        def counted(fn, *args):
+            rolls["prefill" if fn is remote_lm.lm_prefill
+                  else "decode"] += 1
+            return roll(fn, *args)
+
+        def counts():
+            ref = fleet.submit(_worker_counts, eng._state)
+            try:
+                return fleet.get(ref, timeout=60.0)
+            finally:
+                fleet.release(ref)
+
+        def after_step():
+            longest[0] = max(longest[0], len(eng._chain))
+            if drill or not eng.anchors or len(eng._chain) < 2 \
+                    or not eng.active:
+                return
+            # after the first anchor, mid-decode: kill the state's owner
+            meta = fleet.plane.meta(eng._state.oid)
+            if meta.state != "remote":
+                raise AssertionError(f"cluster lm: the state is "
+                                     f"{meta.state}, not on a worker")
+            owner = meta.owner
+            drill.update(victim=counts(), owner=owner,
+                         replayed_ops=len(eng._chain))
+            fleet.kill_worker(owner)
+            t = time.perf_counter()
+            while fleet.stats()["worker_deaths"] < 1:
+                if time.perf_counter() - t > 30.0:
+                    raise AssertionError("cluster lm: the killed worker "
+                                         "was not declared dead in 30 s")
+                time.sleep(0.01)
+            t = time.perf_counter()
+            eng.step()
+            drill["recovery_s"] = time.perf_counter() - t
+            longest[0] = max(longest[0], len(eng._chain))
+            print(f"cluster lm: worker {owner} killed after anchor "
+                  f"{eng.anchors}; recovered in {drill['recovery_s']:.3f} s",
+                  flush=True)
+
+        eng._roll = counted
+        got, run = serve(eng, after_step)
+        survivor = counts()
+        stats = fleet.stats()
+        tel = eng.telemetry()
+        eng.close()
+    finally:
+        fleet.shutdown()
+    head_peak = torch.cuda.max_memory_allocated() / 2**30
+    for a in rt.anchors:
+        print(f"cluster lm anchor: {a['bytes']} bytes pulled in "
+              f"{a['pull_s']:.3f} s ({a['bytes'] / a['pull_s'] / 1e6:.1f} "
+              f"MB/s), pushed back in {a['push_s']:.3f} s "
+              f"({a['bytes'] / a['push_s'] / 1e6:.1f} MB/s)", flush=True)
+    print(f"cluster lm served ({cfg.name}, {param_bytes} bytes of bf16 "
+          f"params from seed {SEED} in {t_init:.3f} s; {CLUSTER_SLOTS} "
+          f"slots x {CLUSTER_MAX_SEQ}; {len(got)} requests, 2 tenants, "
+          f"prompts {lens}; {card}): fleet of {CLUSTER_WORKERS} up in "
+          f"{t_fleet:.3f} s, boot {param_bytes} bytes in {t_boot:.3f} s "
+          f"({param_bytes / t_boot / 1e6:.1f} MB/s); {run['tokens']} "
+          f"tokens in {run['wall_s']:.3f} s = {run['tokens_per_s']:.3f} "
+          f"tokens/s (head ServeEngine {head_run['tokens_per_s']:.3f} "
+          f"in {head_run['wall_s']:.3f} s); latency "
+          f"{json.dumps(run['latency'])}, head "
+          f"{json.dumps(head_run['latency'])}; ops {rolls}, anchors "
+          f"{tel['anchors']}, longest chain {longest[0]}; drill: worker "
+          f"{drill.get('owner')} killed with {drill.get('replayed_ops')} "
+          f"ops after its anchor, recovered in "
+          f"{drill.get('recovery_s', float('nan')):.3f} s, deaths "
+          f"{stats['worker_deaths']}, lineage replays "
+          f"{stats['lineage_replays']}; the victim "
+          f"{json.dumps(drill.get('victim'))}, the survivor "
+          f"{json.dumps(survivor)}; head peak memory {head_peak:.2f} GiB",
+          flush=True)
+    if got != want:
+        bad = sorted(k for k in want if got.get(k) != want[k])
+        raise AssertionError(f"cluster lm: tokens differ from the head "
+                             f"ServeEngine's in {bad}")
+    if len(got) != CLUSTER_REQUESTS or any(
+            len(g) != CLUSTER_NEW_TOKENS for g in got.values()):
+        raise AssertionError(f"cluster lm: generated "
+                             f"{[len(g) for g in got.values()]}")
+    if not (tel["anchors"] >= 1 and stats["worker_deaths"] >= 1
+            and stats["lineage_replays"] >= 1 and drill
+            and longest[0] <= CLUSTER_TRIM):
+        raise AssertionError(f"cluster lm: anchors {tel['anchors']}, "
+                             f"deaths {stats['worker_deaths']}, replays "
+                             f"{stats['lineage_replays']}, longest chain "
+                             f"{longest[0]}, drill {drill}")
+    victim = drill["victim"]
+    if survivor["pid"] == victim["pid"]:
+        raise AssertionError("cluster lm: the survivor is the victim")
+    served_ops = {w["pid"]: sum(w["ops"].values())
+                  for w in (victim, survivor)}
+    if sum(served_ops.values()) != sum(rolls.values()) \
+            + drill["replayed_ops"]:
+        raise AssertionError(f"cluster lm: the workers ran {served_ops} "
+                             f"ops, not the engine's {rolls} and "
+                             f"{drill['replayed_ops']} replayed")
+    for w in (victim, survivor):
+        ops = served_ops[w["pid"]]
+        if not ops or w["launches"] != cfg.layers * ops \
+                or w["plain_calls"]:
+            raise AssertionError(f"cluster lm: worker {w['pid']} ran "
+                                 f"{ops} ops with {w['launches']} flash "
+                                 f"launches (not {cfg.layers} x {ops}) "
+                                 f"and {w['plain_calls']} plain calls")
+    return {"arch": cfg.name, "param_bytes": param_bytes, "init_s": t_init,
+            "workers": CLUSTER_WORKERS, "slots": CLUSTER_SLOTS,
+            "max_seq": CLUSTER_MAX_SEQ, "trim_every": CLUSTER_TRIM,
+            "requests": len(got), "prompt_lens": lens,
+            "new_tokens": CLUSTER_NEW_TOKENS, "fleet_s": t_fleet,
+            "boot_s": t_boot, "boot_bytes": param_bytes,
+            "anchors": rt.anchors, "drill": drill, "survivor": survivor,
+            "prefills": rolls["prefill"], "decode_steps": rolls["decode"],
+            "launches": victim["launches"] + survivor["launches"],
+            "plain_calls": victim["plain_calls"] + survivor["plain_calls"],
+            "worker_deaths": stats["worker_deaths"],
+            "lineage_replays": stats["lineage_replays"],
+            "longest_chain": longest[0], "run": run, "head_run": head_run,
+            "head_peak_gib": head_peak, "tokens_equal_head": True,
+            "card": card}
+
+
 def _unique_numel(tree) -> int:
     """Elements of the distinct tensors of ``tree`` (a shared expert set
     counts once)."""
@@ -3361,6 +3667,11 @@ def main() -> int:
     print(f"phase 9 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
+    # 9b. the LM served from a cluster worker, with a worker-kill drill
+    cluster_lm = served_lm_cluster(torch, card)
+    print(f"phase 9b done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     # 10. the MoE and recurrent families served on the card
     family_kernels = (fa, fa_ops, fa_ref, sc, sc_ops, sc_ref)
     families = {name: served_family(torch, card, name, family_kernels)
@@ -3400,6 +3711,10 @@ def main() -> int:
     ]
     summary[1]["lm_path"] = {k: lm[k] for k in (
         "launches", "plain_calls", "prefills", "decode_steps", "requests")}
+    # phase 9b's run in the workers (the replayed ops' launches included)
+    summary[1]["cluster_lm_path"] = {k: cluster_lm[k] for k in (
+        "launches", "plain_calls", "prefills", "decode_steps", "requests",
+        "lineage_replays")}
     # phase 10's runs: flash in both models, the scan in Jamba's prefills
     summary[1]["family_paths"] = {name: {
         "launches": f["flash_launches"], "plain_calls":
@@ -3473,7 +3788,8 @@ def main() -> int:
         "launcher_smoke": launcher}
     print(json.dumps({"stap_path": stap, "whole_kernel_path": whole,
                       "served_stap": served, "raylite": raylite,
-                      "served_lm": lm, "served_families": families,
+                      "served_lm": lm, "served_lm_cluster": cluster_lm,
+                      "served_families": families,
                       "trained": train, "jamba_launcher_smoke": launcher}),
           flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -41,6 +41,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Set, Tuple
 
+from .transport import recv
+
 __all__ = ["ChaosPlan", "ChaosWire", "kill", "hang", "slow",
            "drop_conn", "babble", "exit_worker", "refuse_reconnect"]
 
@@ -198,7 +200,7 @@ class ChaosWire:
             self._cv.notify_all()
 
     def recv(self):
-        return self._conn.recv()
+        return recv(self._conn)
 
     def poll(self, timeout=0.0):
         return self._conn.poll(timeout)

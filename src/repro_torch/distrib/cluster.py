@@ -65,8 +65,13 @@ from .placement import PlacementScheduler, PlacementWeights, WorkerView
 from .serial import (ClosureParts, closure_arrays, dumps_fn,
                      split_fn_variants)
 from .transport import HeadListener
+from .transport import recv as transport_recv
 
 log = logging.getLogger("repro_torch.distrib")
+
+# a fetch asks again when, this long after its request, no message from
+# the owner is arriving (the request or its reply was lost)
+FETCH_RETRY_S = 30.0
 
 # worker errors carrying this marker mean "I don't hold that body blob"
 # (a dropped/evicted blob message): the head resets its shipped-state
@@ -175,6 +180,10 @@ class _WorkerHandle:
         # which a lost connection stops being "suspect, may reconnect"
         # and becomes a death
         self.last_msg = time.monotonic()
+        # monotonic stamp of the start of the message being read from
+        # this worker, None between messages: a fetch waits on while a
+        # reply may be arriving
+        self.rx_since: Optional[float] = None
         self.suspect_deadline: Optional[float] = None
         self.no_grace = False   # heartbeat expiry: skip reconnect grace
         self.inflight: set = set()
@@ -601,7 +610,7 @@ class ClusterRuntime:
                 if not conn.poll(10.0):
                     conn.close()
                     continue
-                msg = conn.recv()
+                msg = transport_recv(conn)
             except (EOFError, OSError):
                 continue
             try:
@@ -709,9 +718,13 @@ class ClusterRuntime:
         self._pongs.pop(wh.wid, None)
 
     def _recv_loop(self, wh: _WorkerHandle, conn) -> None:
+        def started(_size: int) -> None:
+            wh.rx_since = time.monotonic()
+
         while True:
             try:
-                msg = conn.recv()
+                msg = transport_recv(conn, started)
+                wh.rx_since = None
             except (EOFError, OSError):
                 break
             except Exception:
@@ -737,7 +750,7 @@ class ClusterRuntime:
         declare, so this loop just ends when the worker's end closes."""
         try:
             while True:
-                t_worker = conn.recv()
+                t_worker = transport_recv(conn)
                 wh.last_msg = time.monotonic()
                 wh.note_clock(t_worker)
         except (EOFError, OSError):
@@ -1469,7 +1482,10 @@ class ClusterRuntime:
                     raise ClusterTaskError(str(meta.value))
                 return meta.value
             if meta.state == REMOTE:
-                got = self._fetch(ref.oid)
+                # the fetch shares the caller's deadline, so a multi-GB
+                # object (an LM state) that takes minutes still arrives
+                got = self._fetch(ref.oid, None if deadline is None else
+                                  max(0.0, deadline - time.monotonic()))
                 if got is not None:
                     return got[1]
                 time.sleep(0.02)   # owner dying; wait for the LOST mark
@@ -1507,11 +1523,17 @@ class ClusterRuntime:
             time.sleep(0.005)
         return ready, pending
 
-    def _fetch(self, oid: int) -> Optional[tuple]:
+    def _fetch(self, oid: int,
+               timeout: Optional[float] = None) -> Optional[tuple]:
         """Pull a remote object to the head (transfer on demand).
         Returns ``("v", value)`` on success — the wrapper keeps a stored
         ``None`` distinguishable from failure — or ``None`` when the
-        owner is gone (caller falls through to the LOST/replay path)."""
+        owner is gone or ``timeout`` seconds passed (caller falls through
+        to the LOST/replay path), or when, FETCH_RETRY_S after the
+        request, no message from the owner is arriving: the request or
+        its reply was lost, and the caller asks again. A message that
+        has begun to arrive is never cut for that, however long its
+        transfer takes."""
         meta = self.plane.meta(oid)
         if meta.state == HEAD:
             return ("v", meta.value)
@@ -1525,12 +1547,15 @@ class ClusterRuntime:
         except OSError:
             self._fetch_events.pop(oid, None)
             return None
-        deadline = time.monotonic() + 30.0
+        asked = time.monotonic()
+        deadline = None if timeout is None else asked + timeout
         while not ev.wait(0.05):
             if not wh.alive:      # owner died before replying
                 self._fetch_events.pop(oid, None)
                 return None
-            if time.monotonic() > deadline:
+            now = time.monotonic()
+            if (deadline is not None and now > deadline) or (
+                    now > asked + FETCH_RETRY_S and wh.rx_since is None):
                 self._fetch_events.pop(oid, None)
                 return None
         meta = self.plane.meta(oid)

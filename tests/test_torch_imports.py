@@ -1,7 +1,8 @@
 """Import guard of the PyTorch/CUDA port: ``repro_torch`` and every one
 of its modules (``core/txp.py``, the torch backend's namespace, the
 raylite runtime ``repro_torch.runtime``, the serving plane
-``repro_torch.serve``, the LM models, configs and launchers, the
+``repro_torch.serve`` with the cluster LM's worker side
+``repro_torch.serve.remote_lm``, the LM models, configs and launchers, the
 training path ``repro_torch.train``, ``checkpoint`` and ``data``
 included), the port's examples ``examples/torch_stap.py``,
 ``examples/torch_stap_pipeline.py``, ``examples/torch_serve_lm.py`` and
@@ -61,6 +62,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.runtime.elastic", "repro_torch.obs.summarize",
                  "repro_torch.serve.admission", "repro_torch.serve.loadgen",
                  "repro_torch.serve.cluster_engine",
+                 "repro_torch.serve.remote_lm",
+                 "repro_torch.serve.transfer_rate",
                  "repro_torch.serve.engine", "repro_torch.serve.request",
                  "repro_torch.serve.kvcache", "repro_torch.models.common",
                  "repro_torch.models.transformer",
@@ -97,6 +100,8 @@ print(json.dumps({"bad": bad}))
 
 @pytest.mark.parametrize("package", ["repro_torch.runtime",
                                      "repro_torch.serve",
+                                     "repro_torch.serve.remote_lm",
+                                     "repro_torch.serve.cluster_engine",
                                      "repro_torch.models.transformer",
                                      "repro_torch.serve.engine",
                                      "repro_torch.launch.serve",
