@@ -229,7 +229,29 @@ exit:
    kernels once and the forward twice (remat), and no call took a plain
    version. Then ``launch/train.py --arch jamba_1_5_large_398b --smoke``
    trains on the card, through the scan's backward kernel.
-12. Summary: one JSON line with every kernel's numbers, the card's line,
+12. The planner on the card, after the earlier phases' garbage is
+   collected (at most SETTLED_MAX_GIB left): (a) ``launch/train.py
+   --arch stablelm_3b --steps 2 --batch 2 --seq 4096`` at full width
+   (no ``--smoke``): its planner call must plan on the card's 1-device
+   mesh (``make_host_mesh``, a 1-rank ``nccl`` group), every leaf
+   ``Replicate``, the estimate legal; its losses finite; the flash
+   forward launched twice (remat) and the backward once per layer and
+   step, with no plain call. It prints the estimate's HBM bytes,
+   compute and memory seconds beside the peak memory and the measured
+   step seconds (the estimate is a model: not gated), and the model
+   FLOP utilisation of step 2 at the bf16 datasheet peak. (b) The dry
+   run's train cell (``launch/dryrun.py``) for the same model and batch
+   on that mesh with real weights (the seed's) as DTensors, one step
+   under ``launch/op_analysis.py``: its loss and gradient norm against
+   a plain-tensor step of the same config on the same weights and batch
+   (the same bits expected: each local tensor is the whole; else within
+   TRAIN_GATE["norm_rel"], the difference printed), every attention
+   call through ``local_map`` (``local_calls``) launching the kernels
+   (forward twice, backward once a layer and microbatch), no plain call.
+   (c) The dry run's shape-only count of that cell (meta tensors on a
+   1x1 fake mesh): its FLOPs within PLANNER_FLOP_TOL of (b)'s real
+   count.
+13. Summary: one JSON line with every kernel's numbers, the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
 It needs a CUDA device and the checkout's ``src/``; without either it
@@ -575,6 +597,13 @@ TRAIN_GATE = {"cosine": 0.999, "norm_rel": 2e-2}
 # the garbage of the earlier phases is collected (GiB; an H100 read
 # 0.126, and 15.0 before the collection: PERF.md, section 6)
 SETTLED_MAX_GIB = 1.0
+# the planner on the card (phase 12): stablelm_3b at full width and
+# depth, bf16, weights from the seed, batch 2 x 4096 tokens (train_4k's
+# length); the shape-only and real op counts of one step must agree within
+# PLANNER_FLOP_TOL (relative); PLANNER_STEPS steps of launch/train.py
+PLANNER_ARCH, PLANNER_BATCH, PLANNER_SEQ = "stablelm_3b", 2, 4096
+PLANNER_STEPS = 2
+PLANNER_FLOP_TOL = 0.01
 # phase 3 cases of the selective-scan kernel: (label, (B, L, I, N), dtype,
 # whether the final state h_L is asked for)
 SCAN_CASES = [
@@ -1971,7 +2000,9 @@ def stap_path(rt, compile_kernel, obs, pricing, torch):
     if out_runs["kill"]["worker_deaths"] != 1:
         raise AssertionError("stap kill drill: no worker died")
     t0 = time.perf_counter()
-    while rt.workers_alive() < WORKERS:
+    # the replacement takes chunks once its device profile is in (a pfor
+    # routes over rt.profiles()), which can come after it is alive
+    while len(rt.profiles()) < WORKERS:
         if time.perf_counter() - t0 > 180:
             raise AssertionError("stap kill drill: no replacement worker")
         time.sleep(0.5)
@@ -3513,6 +3544,169 @@ def launcher_smoke(torch, sc, device="cuda") -> dict:
     return res
 
 
+def _full(t) -> float:
+    """A scalar (a DTensor's whole value) as a float."""
+    return float(t.full_tensor() if hasattr(t, "full_tensor") else t)
+
+
+def planner_on_card(torch, card, fa, fa_ops, device="cuda") -> dict:
+    """Phase 12: the planner's path on the card (the launcher's planner
+    call at full width; the dry run's train cell as DTensors with real
+    weights; its shape-only and real op counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+    from repro_torch.train import AdamWConfig, init_opt_state, \
+        make_train_step
+
+    t_phase = time.perf_counter()
+    full = get_config(PLANNER_ARCH)
+    n_attn = full.layers
+    tokens = PLANNER_BATCH * PLANNER_SEQ
+    model_flops = 6.0 * full.active_param_count() * tokens
+
+    def zero():
+        fa.launches = fa.bwd_launches = 0
+        fa_ops.plain_calls = fa_ops.local_calls = 0
+
+    # (a) the launcher at full width
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    out = launch_train.main([
+        "--arch", PLANNER_ARCH, "--steps", str(PLANNER_STEPS), "--batch",
+        str(PLANNER_BATCH), "--seq", str(PLANNER_SEQ), "--log-every", "1",
+        "--device", device])
+    plan = out["plan"]
+    placements = {type(p).__name__ for sh in _shardings(plan.param_shardings)
+                  for p in sh.placements}
+    # remat: the forward twice, the backward once, per layer and step
+    want = {"forward": 2 * n_attn * PLANNER_STEPS,
+            "backward": n_attn * PLANNER_STEPS}
+    launcher = {
+        "mesh": str(plan.mesh), "mesh_device": plan.mesh.device_type,
+        "mesh_size": plan.mesh.size(), "strategy": plan.strategy.name,
+        "placements": sorted(placements), "legal": plan.estimate.legal,
+        "estimate": {"hbm_bytes_per_chip": plan.estimate.hbm_bytes_per_chip,
+                     "compute_s": plan.estimate.compute_s,
+                     "memory_s": plan.estimate.memory_s,
+                     "collective_s": plan.estimate.collective_s},
+        "losses": [float(v) for v in out["losses"]],
+        "step_s": out["step_s"],
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "forward_launches": fa.launches, "backward_launches":
+        fa.bwd_launches, "plain_calls": fa_ops.plain_calls,
+        "expected_launches": want,
+        "mfu_step2_bf16_datasheet": model_flops
+        / (out["step_s"][-1] * PEAK_FLOPS["bfloat16"]), "card": card}
+    del out
+    print(f"phase 12 (a) launch/train.py --arch {PLANNER_ARCH} (full "
+          f"width) on the card: {json.dumps(launcher)}", flush=True)
+    if launcher["mesh_device"] != device or launcher["mesh_size"] != 1 \
+            or placements != {"Replicate"} or not launcher["legal"] \
+            or not np.isfinite(launcher["losses"]).all() \
+            or launcher["forward_launches"] != want["forward"] \
+            or launcher["backward_launches"] != want["backward"] \
+            or launcher["plain_calls"]:
+        raise AssertionError(f"phase 12 (a): {launcher}")
+
+    # (b) the dry run's train cell with real weights as DTensors
+    shape = ShapeSpec("planner_train", PLANNER_SEQ, PLANNER_BATCH, "train")
+    rng = np.random.default_rng(SEED + 12)
+    toks = torch.from_numpy(rng.integers(
+        0, full.vocab, (PLANNER_BATCH, PLANNER_SEQ + 1))).to(device)
+    batch = {"tokens": toks[:, :-1].to(torch.int32).contiguous(),
+             "labels": toks[:, 1:].to(torch.int32).contiguous()}
+
+    def weights():
+        return T.init_params(full, torch.Generator(
+            device=device).manual_seed(SEED))
+
+    mesh = mesh_mod.make_host_mesh(device=device)
+    try:
+        params, specs = weights()
+        zero()
+        t0 = time.perf_counter()
+        _, cfg, real, (_, _, m) = D.count_cell(
+            full, shape, mesh, params=params, specs=specs, batch=batch)
+        sharded = {"loss": _full(m["loss"]),
+                   "grad_norm": _full(m["grad_norm"]),
+                   "s": time.perf_counter() - t0,
+                   "forward_launches": fa.launches,
+                   "backward_launches": fa.bwd_launches,
+                   "local_calls": fa_ops.local_calls,
+                   "plain_calls": fa_ops.plain_calls,
+                   "microbatch": cfg.microbatch}
+        del params, m
+    finally:
+        mesh_mod.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, _ = weights()
+    opt_cfg = AdamWConfig(quantize_moments=cfg.opt_8bit)
+    _, _, m = make_train_step(cfg, opt_cfg)(
+        params, init_opt_state(params, opt_cfg), batch)
+    plain = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    del params, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    diff = {k: abs(sharded[k] - plain[k]) / abs(plain[k])
+            for k in ("loss", "grad_norm")}
+    calls = 2 * n_attn * cfg.microbatch
+    want_b = {"forward": calls, "backward": n_attn * cfg.microbatch,
+              "local_calls": calls}
+    cell = {"sharded": sharded, "plain": plain, "rel_diff": diff,
+            "same_bits": sharded["loss"] == plain["loss"]
+            and sharded["grad_norm"] == plain["grad_norm"],
+            "expected": want_b}
+    print(f"phase 12 (b) the dry run's train cell as DTensors on the "
+          f"card's 1x1 mesh: {json.dumps(cell)}", flush=True)
+    if max(diff.values()) > TRAIN_GATE["norm_rel"] \
+            or sharded["forward_launches"] != want_b["forward"] \
+            or sharded["backward_launches"] != want_b["backward"] \
+            or sharded["local_calls"] != want_b["local_calls"] \
+            or sharded["plain_calls"]:
+        raise AssertionError(f"phase 12 (b): {cell}")
+
+    # (c) the shape-only count of the same cell against the real one
+    mesh = mesh_mod.make_fake_mesh((1, 1), ("data", "model"))
+    try:
+        t0 = time.perf_counter()
+        _, _, shape_only, _ = D.count_cell(full, shape, mesh)
+        shape_only_s = time.perf_counter() - t0
+    finally:
+        mesh_mod.release()
+    rel = abs(shape_only["flops_corrected"] - real["flops_corrected"]) \
+        / real["flops_corrected"]
+    counts = {"real": {k: real[k] for k in (
+        "flops_corrected", "memory_bytes_corrected",
+        "collective_bytes_corrected", "ops")},
+        "shape_only": {k: shape_only[k] for k in (
+            "flops_corrected", "memory_bytes_corrected",
+            "collective_bytes_corrected", "ops")},
+        "flops_rel_diff": rel, "shape_only_s": shape_only_s,
+        "model_flops": model_flops,
+        "mfu_step2_bf16_datasheet": launcher["mfu_step2_bf16_datasheet"],
+        "card": card}
+    print(f"phase 12 (c) op counts, shape-only (meta tensors, 1x1 fake "
+          f"mesh) and real: "
+          f"{json.dumps(counts)}", flush=True)
+    if rel > PLANNER_FLOP_TOL:
+        raise AssertionError(f"phase 12 (c): {counts}")
+    return {"launcher": launcher, "cell": cell, "counts": counts,
+            "s": time.perf_counter() - t_phase}
+
+
+def _shardings(tree) -> list:
+    if isinstance(tree, dict):
+        return [s for v in tree.values() for s in _shardings(v)]
+    if isinstance(tree, list):
+        return [s for v in tree for s in _shardings(v)]
+    return [tree]
+
+
 def _summary(name, source, replaces, cases, path):
     """The kernel's entry of the ``{"kernels": [...]}`` line: the
     numbers of its main path's chunk case (the first), the worst error
@@ -3695,7 +3889,16 @@ def main() -> int:
     print(f"phase 11 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
-    # 12. summary
+    # 12. the planner on the card
+    left = _settle(torch, "before phase 12")
+    if left > SETTLED_MAX_GIB:
+        raise AssertionError(f"phase 12: {left:.3f} GiB still allocated "
+                             f"(at most {SETTLED_MAX_GIB} GiB)")
+    planner = planner_on_card(torch, card, fa, fa_ops)
+    print(f"phase 12 done at {time.perf_counter() - t_start:.1f} s "
+          f"({planner['s']:.1f} s)", flush=True)
+
+    # 13. summary
     base = "src/repro_torch/kernels"
     summary = [
         _summary("matmul", f"{base}/matmul/csrc/matmul.cu",
@@ -3726,6 +3929,14 @@ def main() -> int:
         "launches": t["counts"]["forward_launches"],
         "plain_calls": t["counts"]["plain_calls"],
         "steps": TRAIN_STEPS} for name, t in train.items()}
+    # phase 12's runs: the launcher's steps, and the DTensor step's
+    # attention calls through local_map
+    summary[1]["planner_paths"] = {
+        "launcher": {k: planner["launcher"][k] for k in (
+            "forward_launches", "backward_launches", "plain_calls")},
+        "dtensor_step": {k: planner["cell"]["sharded"][k] for k in (
+            "forward_launches", "backward_launches", "local_calls",
+            "plain_calls")}}
     bwd = cases["flash_attention_bwd"]
     main_case = next(c for c in bwd if c["case"] == "stablelm")
     summary[1]["backward"] = {
@@ -3790,7 +4001,8 @@ def main() -> int:
                       "served_stap": served, "raylite": raylite,
                       "served_lm": lm, "served_lm_cluster": cluster_lm,
                       "served_families": families,
-                      "trained": train, "jamba_launcher_smoke": launcher}),
+                      "trained": train, "jamba_launcher_smoke": launcher,
+                      "planner": planner}),
           flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -18,6 +18,7 @@ def config() -> ArchConfig:
         attn_softcap=50.0, logit_softcap=30.0,
         mlp_act="gelu", tie_embeddings=True,
         microbatch=2, remat="full", fused_xent=True,
+        seq_shard=True,
         skip_shapes={"long_500k": "global-attention layers are quadratic"},
     )
 

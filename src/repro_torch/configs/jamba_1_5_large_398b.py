@@ -20,6 +20,7 @@ def config() -> ArchConfig:
         ssm_state=16, ssm_expand=2,
         mlp_act="silu", tie_embeddings=False,
         microbatch=16, remat="full", fused_xent=True, opt_8bit=True,
+        seq_shard=True,
     )
 
 

@@ -17,6 +17,7 @@ def config() -> ArchConfig:
         # §Perf hillclimb winner: dots-remat (the port checkpoints as
         # "full": transformer.forward)
         microbatch=16, remat="dots", fused_xent=True, opt_8bit=True,
+        seq_shard=True,
         skip_shapes={"long_500k": "full quadratic attention"},
     )
 

@@ -11,6 +11,7 @@ def config() -> ArchConfig:
         d_ff=49152, vocab=152064,
         qkv_bias=True, mlp_act="silu", tie_embeddings=False,
         microbatch=16, remat="full", fused_xent=True, opt_8bit=True,
+        seq_shard=True,
         skip_shapes={"long_500k": "full quadratic attention"},
     )
 

@@ -20,19 +20,35 @@ from .scop import CanonStmt, VAccess, VBin, VReduce, VUnary, vexpr_accesses
 
 
 # ---------------------------------------------------------------------------
-# Hardware model (the CPU host; the launch-time TPU roofline of the
-# reference package is not on this slice)
+# Hardware model (the H100 for the launch-time roofline; the CPU host for
+# the kernel dispatcher)
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class ChipSpec:
     name: str
-    peak_flops: float        # FLOP/s (bf16 systolic)
+    peak_flops: float        # FLOP/s (bf16 dense)
     hbm_bw: float            # bytes/s
     ici_bw: float            # bytes/s per link
     hbm_bytes: float
     vmem_bytes: float
 
+
+# One H100 SXM (``nvidia-smi``: NVIDIA H100 80GB HBM3) at its 700 W power
+# limit, from NVIDIA's data sheet (datasheet figures, not measured):
+# bf16 dense tensor-core peak, HBM3 rate, NVLink 4 a direction, HBM
+# size, and the shared memory an SM may give one block (228 KiB) as
+# ``vmem_bytes``. The launch-time planner and dry run price every
+# collective at the NVLink rate, those of an axis that crosses nodes
+# too.
+H100_SXM = ChipSpec(
+    name="h100_sxm",
+    peak_flops=989e12,
+    hbm_bw=3.35e12,
+    ici_bw=450e9,
+    hbm_bytes=80e9,
+    vmem_bytes=228 * 2**10,
+)
 
 # A CPU host — used only for kernel-dispatch
 # profitability thresholds, not for roofline reporting.
@@ -44,6 +60,26 @@ HOST_CPU = ChipSpec(
     hbm_bytes=8 * 2**30,
     vmem_bytes=32 * 2**10,
 )
+
+
+@dataclass
+class RooflineTerms:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+
+    @property
+    def dominant(self) -> str:
+        terms = {
+            "compute": self.compute_s,
+            "memory": self.memory_s,
+            "collective": self.collective_s,
+        }
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
 
 
 # ---------------------------------------------------------------------------
@@ -368,3 +404,16 @@ def expr_flops_per_point(e, env: Optional[Dict[str, int]] = None) -> float:
 def domain_points(dims, env: Optional[Dict[str, int]] = None) -> float:
     """Public wrapper over domain cardinality with nominal fallbacks."""
     return _card(dims, env or {})
+
+
+# ---------------------------------------------------------------------------
+# Roofline helpers shared with the launch-time analysis
+# ---------------------------------------------------------------------------
+
+def roofline(flops: float, bytes_hbm: float, bytes_collective: float,
+             chips: int, spec: ChipSpec = H100_SXM) -> RooflineTerms:
+    return RooflineTerms(
+        compute_s=flops / (chips * spec.peak_flops),
+        memory_s=bytes_hbm / (chips * spec.hbm_bw),
+        collective_s=bytes_collective / (chips * spec.ici_bw),
+    )

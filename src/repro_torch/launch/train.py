@@ -4,14 +4,18 @@
         --smoke --steps 20 --batch 8 --seq 64 --ckpt-dir CKPT \
         [--device cpu]
 
-The reference's ``repro/launch/train.py`` on the port: config → data
-pipeline (``data/pipeline.py``, host-sharded, prefetch) → train step
-(grad accumulation, remat, optional int8 grad compression, AdamW with
-optional 8-bit moments, written in place) → async checkpointing with
+The reference's ``repro/launch/train.py`` on the port: config → planner
+(auto-sharding on the host mesh: ``launch/mesh.py``'s
+``make_host_mesh``, a 1-rank ``nccl`` group on the card or ``gloo`` on
+the CPU, released when the run ends; the parameters' shapes and logical
+axes from ``init_params`` on fake tensors) → data pipeline
+(``data/pipeline.py``, host-sharded, prefetch) → train step (grad
+accumulation, remat, optional int8 grad compression, AdamW with optional
+8-bit moments, written in place) → async checkpointing with
 resume-on-restart. It trains on the card unless ``--device cpu`` is
-given. Left out: the reference's planner call (auto-sharding on the
-host mesh, ``core/planner.py`` and ``launch/mesh.py``), which one card
-does not need; both wait in ROADMAP Queue 1.
+given. As in the reference, the plan is printed and returned (``main``'s
+``"plan"``) but not applied to the step; ``launch/dryrun.py`` applies
+plans to sharded steps.
 """
 
 from __future__ import annotations
@@ -20,10 +24,13 @@ import argparse
 import time
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.checkpoint import ckpt as C
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import planner as planner_mod
 from repro_torch.data.pipeline import DataConfig, make_pipeline
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import serving_device
 from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
@@ -50,6 +57,17 @@ def main(argv=None) -> dict:
     cfg.microbatch = min(cfg.microbatch, max(1, args.batch // 2)) or 1
     # checked before a weight is drawn: no card raises DeviceUnavailable
     device = serving_device(args.device)
+
+    # --- planner: auto-sharding on whatever mesh we actually have -------
+    with FakeTensorMode():
+        p_shapes, specs = T.init_params(cfg, torch.Generator().manual_seed(0))
+    mesh = mesh_mod.make_host_mesh(device=device.type)
+    try:
+        plan = planner_mod.plan(cfg, specs, p_shapes, mesh, seq=args.seq,
+                                batch=args.batch, kind="train")
+    finally:
+        mesh_mod.release()
+    print(f"[train] {cfg.name}: {plan.describe()}", flush=True)
 
     opt_cfg = AdamWConfig(lr=args.lr, quantize_moments=cfg.opt_8bit)
     step_fn = make_train_step(cfg, opt_cfg, compress=args.compress)
@@ -79,14 +97,16 @@ def main(argv=None) -> dict:
                          start_step=start_step)
     ckpt = C.AsyncCheckpointer(args.ckpt_dir) if args.ckpt_dir else None
 
-    losses = []
+    losses, step_s = [], []
     t0 = time.perf_counter()
     try:
         for i in range(start_step, start_step + args.steps):
+            t_step = time.perf_counter()
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in data.next().items()}
             params, opt, m = step_fn(params, opt, batch)
-            losses.append(float(m["loss"]))
+            losses.append(float(m["loss"]))     # waits for the step
+            step_s.append(time.perf_counter() - t_step)
             if (i + 1) % args.log_every == 0:
                 tput = (i + 1 - start_step) * args.batch * args.seq \
                     / (time.perf_counter() - t0)
@@ -100,7 +120,8 @@ def main(argv=None) -> dict:
         if ckpt:
             ckpt.wait()
     print(f"[train] done: loss {losses[0]:.4f} → {losses[-1]:.4f}")
-    return {"losses": losses, "params": params}
+    return {"losses": losses, "params": params, "plan": plan,
+            "step_s": step_s}
 
 
 if __name__ == "__main__":

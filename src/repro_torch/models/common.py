@@ -2,8 +2,8 @@
 
 The reference's ``repro/models/common.py`` in PyTorch. Parameters are
 nested dicts of tensors in the reference's layout, with a parallel
-``specs`` tree of logical axis names on every leaf (kept so that the
-two packages describe a model alike; no planner reads them here).
+``specs`` tree of logical axis names on every leaf, which the
+auto-sharding planner (``core/planner.py``) reads.
 
 What changes against the reference, and why:
 
@@ -23,15 +23,20 @@ What changes against the reference, and why:
   returns a new cache): a served cache of several GB is not copied each
   step. Its three ``index`` cases are the reference's.
 * :func:`lm_head_loss` with ``fused_xent`` walks the same chunks along S
-  as the reference's scan, each under ``torch.utils.checkpoint`` when a
-  gradient is asked for, so that only one chunk's logits are ever live
-  (autograd would otherwise keep every chunk's for the backward).
-* Gone, since one card needs none of them: the sharding knobs' effect
-  (``with_sharding_constraint``) and the planner's knobs (``attn_chunk``:
-  the flash op takes any length, ``seq_shard``, the mesh axes,
-  ``force_strategy``) and ``param_count``. The training knobs the port
-  reads are back: ``microbatch`` and ``opt_8bit`` (``train/``),
-  ``remat`` (``transformer.forward``) and ``fused_xent``.
+  as the reference's scan and, when a gradient is asked for, takes each
+  chunk's gradient as its logits are made (:class:`_ChunkedXent`), so
+  that only one chunk's logits are ever live (autograd would keep every
+  chunk's for the backward) and none is computed again.
+* The planner's inputs are the reference's: ``param_count``,
+  ``active_param_count``, ``seq_shard``, ``force_strategy`` and the mesh
+  axes the launch layer fills (``act_batch_axes``, ``moe_expert_axes``,
+  ``moe_capacity_axes``). Where a tensor is a DTensor (the dry run's, or
+  a sharded step's), :func:`anchor` redistributes it to those axes, the
+  counterpart of the reference's ``with_sharding_constraint``; a plain
+  tensor passes unchanged. ``attn_chunk`` is gone: the flash op takes
+  any length. The training knobs are the reference's: ``microbatch``
+  and ``opt_8bit`` (``train/``), ``remat`` (``transformer.forward``)
+  and ``fused_xent``.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..kernels.flash_attention import ops as flash_ops
+from ..kernels.sharded import is_dtensor, mesh_of
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +107,18 @@ class ArchConfig:
     remat: str = "full"          # 'full' | 'dots' | 'none'
     fused_xent: bool = True      # cross-entropy chunked along S
     opt_8bit: bool = False       # int8 Adam moments
+    # parallelism knobs (filled by configs and by the launch layer)
+    seq_shard: bool = False      # sequence-parallel residual stream: remat
+                                 # checkpoints shard seq over `model`
+    act_batch_axes: Optional[Tuple[str, ...]] = None
+    # ^ planner-chosen mesh axes for the activation batch dim; anchored
+    #   between periods (runtime knob, set by launch/dryrun.py)
+    moe_expert_axes: Optional[Tuple[str, ...]] = None
+    # ^ planner-chosen mesh axes for the expert dim of MoE dispatch
+    #   buffers (same anchoring, applied inside apply_moe)
+    moe_capacity_axes: Optional[Tuple[str, ...]] = None
+    # ^ mesh axes for the capacity dim (covers axes experts cannot)
+    force_strategy: Optional[str] = None   # pin the planner's strategy
     # skip list: shapes this arch cannot run (with reason)
     skip_shapes: Dict[str, str] = field(default_factory=dict)
 
@@ -138,6 +156,119 @@ class ArchConfig:
     def padded_vocab(self, tp: int = 16, align: int = 128) -> int:
         q = tp * align
         return ((self.vocab + q - 1) // q) * q
+
+    def param_count(self) -> int:
+        """Approximate total parameters (for roofline MODEL_FLOPS)."""
+        d, v = self.d_model, self.vocab
+        total = v * d  # embedding
+        if not self.tie_embeddings:
+            total += v * d
+        for p in range(self.period):
+            kind = self.layer_kind(p)
+            if kind == "attn":
+                total_l = d * self.n_heads * self.head_dim \
+                    + 2 * d * self.kv_heads * self.head_dim \
+                    + self.n_heads * self.head_dim * d
+            elif kind == "mamba":
+                inner = self.ssm_expand * d
+                total_l = d * inner * 2 + inner * d \
+                    + inner * (2 * self.ssm_state + 2)
+            elif kind in ("mlstm", "slstm"):
+                inner = d * 2
+                total_l = 4 * d * inner + inner * d
+            else:
+                total_l = 0
+            if self.layer_is_moe(p):
+                eff = self.expert_d_ff or self.d_ff
+                total_l += self.n_experts * 3 * d * eff
+                total_l += self.n_shared_experts * 3 * d * eff
+                total_l += d * self.n_experts  # router
+            elif kind == "attn" and self.d_ff > 0:
+                mult = 3 if self.mlp_act in ("silu", "gelu") else 2
+                total_l += mult * d * self.d_ff
+            total += total_l * self.n_periods
+        if self.is_encdec:
+            total = int(total * 1.6)  # encoder stack + cross attention
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k experts)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        d = self.d_model
+        eff = self.expert_d_ff or self.d_ff
+        per_layer_all = self.n_experts * 3 * d * eff
+        per_layer_act = (self.experts_topk + self.n_shared_experts) \
+            * 3 * d * eff
+        n_moe_layers = sum(1 for p in range(self.period)
+                           if self.layer_is_moe(p)) * self.n_periods
+        return self.param_count() - n_moe_layers * (per_layer_all -
+                                                    per_layer_act)
+
+
+# ---------------------------------------------------------------------------
+# Sharded activations (DTensors; a plain tensor passes every helper as is)
+# ---------------------------------------------------------------------------
+
+def anchor(t, spec):
+    """``t`` redistributed so that each dimension named in ``spec`` (one
+    entry per dimension: None for unconstrained, ``()`` for whole on
+    every rank, a mesh axis name or a tuple of them in mesh order) is
+    sharded over those axes, where it splits evenly; the other mesh
+    dimensions keep their placement, but none shards a dimension
+    ``spec`` names or asks whole. The counterpart of the
+    reference's ``with_sharding_constraint``: without it DTensor's
+    propagation may leave an activation replicated over idle axes. A
+    plain tensor, or a mesh without the axes (or with them of size 1),
+    passes unchanged."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = t.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    want = {}
+    whole = {d for d, entry in enumerate(spec) if entry == ()}
+    for d, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        axes = tuple(a for a in axes if a in names
+                     and mesh.size(names.index(a)) > 1)
+        n = math.prod(mesh.size(names.index(a)) for a in axes)
+        if axes and t.shape[d] % n == 0:
+            want.update({names.index(a): d for a in axes})
+    out = []
+    for m, cur in enumerate(t.placements):
+        if m in want:
+            out.append(Shard(want[m]))
+        elif isinstance(cur, Shard) and (cur.dim in want.values()
+                                         or cur.dim in whole):
+            out.append(Replicate())
+        else:
+            out.append(cur)
+    if tuple(out) == tuple(t.placements):
+        return t
+    return t.redistribute(mesh, out)
+
+
+def on_replicas(fn, n_out: int, *args):
+    """``fn(*args)``, whose result is ``n_out`` tensors (one: a tensor,
+    else a tuple). Where an argument is a DTensor, every tensor argument
+    is gathered whole on each rank and ``fn`` runs there on plain
+    tensors (``local_map``, every placement ``Replicate``), each rank
+    alike; its results come back replicated. For the steps whose result
+    depends on the whole batch (MoE routing: an expert's capacity is
+    shared by every token)."""
+    if not is_dtensor(*args):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = mesh_of(*args)
+    rep = [Replicate()] * mesh.ndim
+    ins = tuple(rep if isinstance(a, torch.Tensor) else None for a in args)
+    out = rep if n_out == 1 else (rep,) * n_out
+    return local_map(fn, out_placements=out, in_placements=ins,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +356,19 @@ def attention(q, k, v, cfg: ArchConfig, *, causal=True, window=0,
                                      q_offset=q_offset)
 
 
+def heads_proj(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)``. On DTensors, a batched product
+    over the heads: einsum flattens (heads, head_dim) into one dim, and
+    DTensor cannot unflatten it where head_dim is sharded and the heads
+    are too few to split (the planner's GQA fallback, gemma2's 4 KV
+    heads on 8)."""
+    if not is_dtensor(x, w):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    b, s, d = x.shape
+    out = torch.matmul(x.reshape(1, b * s, d), w.permute(1, 0, 2))
+    return out.permute(1, 0, 2).reshape(b, s, w.shape[1], w.shape[2])
+
+
 # ---------------------------------------------------------------------------
 # Attention block (params + apply, with optional KV cache)
 # ---------------------------------------------------------------------------
@@ -261,7 +405,14 @@ def _write_cache(cache, k, v):
     idx, ck, cv = cache["index"], cache["k"], cache["v"]
     s_new, s_max = k.shape[1], ck.shape[1]
     k, v = k.to(ck.dtype), v.to(cv.dtype)
-    if idx.dim() == 0:
+    if idx.dim() == 0 and is_dtensor(ck):
+        # the same write with the position left on the device: a DTensor
+        # (the dry run's on meta tensors) has no value for the host to read
+        at = idx.clamp(0, s_max - s_new).long() \
+            + torch.arange(s_new, device=ck.device)
+        ck.index_copy_(1, at, k)
+        cv.index_copy_(1, at, v)
+    elif idx.dim() == 0:
         # a uniform decode position: dynamic_update_slice, whose start
         # is clamped so that the update fits
         start = int(idx.clamp(0, s_max - s_new))
@@ -289,7 +440,7 @@ def apply_attn(p, x, cfg: ArchConfig, *, positions, window=0, cache=None,
     index. cross_kv: (k, v) for encoder-decoder cross attention (no
     cache, not causal, no window; the softcap is the model's)."""
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    q = heads_proj(h, p["wq"])
     if cross_kv is not None:
         if cfg.qkv_bias:
             q = q + p["bq"]
@@ -298,8 +449,8 @@ def apply_attn(p, x, cfg: ArchConfig, *, positions, window=0, cache=None,
         out = attention(q, k, v, cfg, causal=False, window=0)
         y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
         return x + y.to(x.dtype), cache
-    k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
+    k = heads_proj(h, p["wk"])
+    v = heads_proj(h, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -320,8 +471,8 @@ def apply_attn(p, x, cfg: ArchConfig, *, positions, window=0, cache=None,
 
 
 def cross_kv_from_encoder(p, enc_out, cfg: ArchConfig):
-    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    k = heads_proj(enc_out, p["wk"])
+    v = heads_proj(enc_out, p["wv"])
     return k, v
 
 
@@ -379,7 +530,14 @@ def _xent_terms(logits, labels):
     labels < 0 are ignored."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    idx = labels.clamp(min=0).long()[..., None]
+    if is_dtensor(logits):
+        # the vocab dim may be sharded: the gold logit as a masked sum,
+        # which shards (DTensor's gather along a sharded dim does not)
+        hit = torch.arange(logits.shape[-1], device=logits.device) == idx
+        gold = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        gold = logits.gather(-1, idx)[..., 0]
     valid = labels >= 0
     loss = torch.where(valid, lse - gold, torch.zeros((), device=lse.device))
     return loss.sum(), valid.sum().float()
@@ -393,18 +551,59 @@ def cross_entropy(logits, labels, vocab: int):
     return tot / torch.clamp(cnt, min=1)
 
 
+class _ChunkedXent(torch.autograd.Function):
+    """(sum of the valid positions' losses, their count) over chunks of
+    S, with each chunk's gradient taken in the forward: the chunk's
+    logits (one product), their gradient, and from it the chunk's dX and
+    its share of dW (two products), so that no chunk's logits stay live
+    and none is computed twice. The backward scales the sums by the
+    loss's gradient. Three products per chunk, as autograd through the
+    reference's chunk scan takes."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, post, n_chunks):
+        size = x.shape[1] // n_chunks
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        dxs, dw = [], None
+        for c in range(n_chunks):
+            xc = x[:, c * size:(c + 1) * size]
+            lc = labels[:, c * size:(c + 1) * size]
+            raw = torch.einsum("btd,vd->btv", xc, w).requires_grad_(True)
+            with torch.enable_grad():
+                t, n = _xent_terms(post(raw), lc)
+                (dlg,) = torch.autograd.grad(t, raw)
+            dxs.append(torch.einsum("btv,vd->btd", dlg, w))
+            part = torch.einsum("btv,btd->vd", dlg, xc).float()
+            dw = part if dw is None else dw + part
+            tot = tot + t.detach()
+            cnt = cnt + n
+        ctx.save_for_backward(torch.cat(dxs, dim=1), dw)
+        ctx.dtypes = (x.dtype, w.dtype)
+        return tot, cnt
+
+    @staticmethod
+    def backward(ctx, g_tot, g_cnt):
+        dx, dw = ctx.saved_tensors
+        return ((dx.float() * g_tot).to(ctx.dtypes[0]),
+                (dw * g_tot).to(ctx.dtypes[1]), None, None, None)
+
+
 def lm_head_loss(params, x, labels, cfg: ArchConfig, padded_vocab: int):
     """Final norm + unembed + xent. With cfg.fused_xent the (B,S,V) logit
-    tensor is consumed chunk-wise along S (the reference's chunks), each
-    chunk's logits recomputed in the backward, so only a chunk is ever
-    live."""
+    tensor is consumed chunk-wise along S (the reference's chunks), so
+    only a chunk is ever live: where a gradient is asked for, each
+    chunk's gradient is taken as its logits are made
+    (:class:`_ChunkedXent`)."""
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
     w = params.get("unembed", params["embed"])  # (Vpad, D)
 
-    def logit_fn(chunk):
-        logits = torch.einsum("btd,vd->btv", chunk, w)
+    def post(logits):
         return mask_padded_vocab(softcap(logits, cfg.logit_softcap),
                                  cfg.vocab)
+
+    def logit_fn(chunk):
+        return post(torch.einsum("btd,vd->btv", chunk, w))
 
     if not cfg.fused_xent:
         return cross_entropy(logit_fn(x), labels, cfg.vocab)
@@ -416,19 +615,14 @@ def lm_head_loss(params, x, labels, cfg: ArchConfig, padded_vocab: int):
         n_chunks -= 1
     size = s // n_chunks
 
-    def chunk_terms(xc, lc):
-        return _xent_terms(logit_fn(xc), lc)
-
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        tot, cnt = _ChunkedXent.apply(x, w, labels, post, n_chunks)
+        return tot / torch.clamp(cnt, min=1.0)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(n_chunks):
-        xc = x[:, c * size:(c + 1) * size]
-        lc = labels[:, c * size:(c + 1) * size]
-        if torch.is_grad_enabled():
-            t, n = torch.utils.checkpoint.checkpoint(
-                chunk_terms, xc, lc, use_reentrant=False)
-        else:
-            t, n = chunk_terms(xc, lc)
+        t, n = _xent_terms(logit_fn(x[:, c * size:(c + 1) * size]),
+                           labels[:, c * size:(c + 1) * size])
         tot = tot + t
         cnt = cnt + n
     return tot / torch.clamp(cnt, min=1.0)

@@ -15,8 +15,13 @@ What changes against the reference: the scatter is ``index_add_`` into
 an (E·cap + 1, D) buffer whose last row takes the dropped tokens and is
 discarded (the reference's ``.at[slot].add``); the expert products are
 ``torch.bmm`` (plain products outside any kernel, as the reference left
-them to XLA); ``_anchor`` (a sharding constraint) is gone, since nothing
-is sharded on one card.
+them to XLA). On DTensors (the dry run, a sharded step) the routing,
+the dispatch and the combine run on every rank alike over the whole
+batch (``common.on_replicas``: an expert's capacity is shared by every
+token of the batch, as in the reference), and the dispatch buffer and
+the experts' output are anchored to the planner's expert and capacity
+axes (``common.anchor``, the reference's ``_anchor``), so that the
+expert products run sharded; plain tensors take none of this.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ArchConfig, KeyGen, _act, _init, _zeros, rmsnorm
+from .common import (ArchConfig, KeyGen, _act, _init, _zeros, anchor,
+                     on_replicas, rmsnorm)
 
 
 def padded_experts(cfg: ArchConfig, tp: int = 16) -> int:
@@ -70,6 +76,13 @@ def init_moe(kg: KeyGen, cfg: ArchConfig, tp: int = 16,
     return p, s
 
 
+def capacity(cfg: ArchConfig, tokens: int, e_pad: int) -> int:
+    """Each expert's capacity for a batch of ``tokens`` (a decode step
+    of 4 slots gives olmoe one slot an expert)."""
+    return int(max(1, (tokens * cfg.experts_topk // e_pad)
+                   * cfg.capacity_factor))
+
+
 def route(p, ht, cfg: ArchConfig):
     """(weights, slot, cap) for the tokens ``ht`` (T, D): each token's
     top-k softmax weights (T, K) in ``ht``'s dtype, and each of its T·K
@@ -85,15 +98,43 @@ def route(p, ht, cfg: ArchConfig):
     weights = torch.softmax(weights, dim=-1).to(ht.dtype)  # (T, K)
 
     # --- capacity + position within expert -----------------------------
-    # (a decode step of 4 slots gives olmoe one slot an expert)
-    cap = int(max(1, (ht.shape[0] * cfg.experts_topk // e_pad)
-                  * cfg.capacity_factor))
+    cap = capacity(cfg, ht.shape[0], e_pad)
     flat_e = expert_ids.reshape(-1)                         # (T*K,)
     onehot = F.one_hot(flat_e, e_pad)                       # (T*K, E)
     pos = (onehot.cumsum(0) - 1).gather(1, flat_e[:, None])[:, 0]
     slot = torch.where(pos < cap, flat_e * cap + pos,
                        torch.full_like(pos, e_pad * cap))   # overflow row
     return weights, slot, cap
+
+
+def _dispatch(ht, slot, e_pad: int, cap: int, k: int):
+    """The (E, cap, D) buffer of each expert's tokens."""
+    t, d = ht.shape
+    xe = ht.repeat_interleave(k, dim=0)                     # (T*K, D)
+    buf = torch.zeros((e_pad * cap + 1, d), dtype=ht.dtype,
+                      device=ht.device).index_add_(0, slot, xe)
+    return buf[:-1].reshape(e_pad, cap, d)
+
+
+def _combine(out, slot, weights, k: int):
+    """Each token's experts' outputs, weighted and summed: (T, D)."""
+    e_pad, cap, d = out.shape
+    out_flat = torch.cat([out.reshape(e_pad * cap, d),
+                          out.new_zeros((1, d))])
+    gathered = out_flat[slot] * weights.reshape(-1)[:, None]  # (T*K, D)
+    return gathered.reshape(-1, k, d).sum(dim=1)
+
+
+def _anchor(t, cfg: ArchConfig):
+    """Pin (expert, capacity) dims to the planner's axes (DTensors only):
+    without it the expert products can stay replicated over idle mesh
+    axes. The capacity dim takes the axes the expert count cannot
+    cover."""
+    if not cfg.moe_expert_axes:
+        return t
+    return anchor(t, (tuple(cfg.moe_expert_axes),
+                      tuple(cfg.moe_capacity_axes or ()))
+                  + (None,) * (t.dim() - 2))
 
 
 def apply_moe(p, x, cfg: ArchConfig):
@@ -105,13 +146,13 @@ def apply_moe(p, x, cfg: ArchConfig):
     e_pad = p["router"].shape[1]
     k = cfg.experts_topk
     act = _act(cfg.mlp_act)
-    weights, slot, cap = route(p, ht, cfg)
+    cap = capacity(cfg, t, e_pad)
+    weights, slot = on_replicas(
+        lambda h_, r: route({"router": r}, h_, cfg)[:2], 2, ht, p["router"])
 
     # --- dispatch -------------------------------------------------------
-    xe = ht.repeat_interleave(k, dim=0)                     # (T*K, D)
-    buf = torch.zeros((e_pad * cap + 1, d), dtype=x.dtype,
-                      device=x.device).index_add_(0, slot, xe)
-    buf = buf[:-1].reshape(e_pad, cap, d)
+    buf = _anchor(on_replicas(
+        lambda h_, s_: _dispatch(h_, s_, e_pad, cap, k), 1, ht, slot), cfg)
 
     # --- expert computation (batched over experts) -----------------------
     up = torch.bmm(buf, p["wi"])                            # (E, C, F)
@@ -119,21 +160,22 @@ def apply_moe(p, x, cfg: ArchConfig):
         up = act(torch.bmm(buf, p["wg"])) * up
     else:
         up = act(up)
-    out = torch.bmm(up, p["wo"])                            # (E, C, D)
+    out = _anchor(torch.bmm(up, p["wo"]), cfg)              # (E, C, D)
 
     # --- combine ----------------------------------------------------------
-    out_flat = torch.cat([out.reshape(e_pad * cap, d),
-                          out.new_zeros((1, d))])
-    gathered = out_flat[slot] * weights.reshape(-1)[:, None]  # (T*K, D)
-    y = gathered.reshape(t, k, d).sum(dim=1)
+    y = on_replicas(lambda o, s_, w: _combine(o, s_, w, k), 1, out, slot,
+                    weights)
 
-    # --- shared experts (dense) -------------------------------------------
+    y = y.reshape(b, s, d)
+
+    # --- shared experts (dense; on (B, S, D): a DTensor's tokens flattened
+    # over two mesh dims would not reshape back) --------------------------
     if "shared_wi" in p:
-        up_s = ht @ p["shared_wi"]
+        up_s = h @ p["shared_wi"]
         if "shared_wg" in p:
-            up_s = act(ht @ p["shared_wg"]) * up_s
+            up_s = act(h @ p["shared_wg"]) * up_s
         else:
             up_s = act(up_s)
         y = y + up_s @ p["shared_wo"]
 
-    return x + y.reshape(b, s, d).to(x.dtype)
+    return x + y.to(x.dtype)

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba_scan import ops as scan_ops
-from .common import ArchConfig, KeyGen, _init, _zeros, rmsnorm
+from .common import ArchConfig, KeyGen, _init, _zeros, heads_proj, rmsnorm
 
 
 # ---------------------------------------------------------------------------
@@ -139,9 +139,9 @@ def apply_mlstm(p, x, cfg: ArchConfig, state: Optional[Dict] = None):
     h = cfg.n_heads
     hd = d // h
     xin = rmsnorm(x, p["ln"], cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", xin, p["wq"]) / math.sqrt(hd)
-    k = torch.einsum("bsd,dhk->bshk", xin, p["wk"]) / math.sqrt(hd)
-    v = torch.einsum("bsd,dhk->bshk", xin, p["wv"])
+    q = heads_proj(xin, p["wq"]) / math.sqrt(hd)
+    k = heads_proj(xin, p["wk"]) / math.sqrt(hd)
+    v = heads_proj(xin, p["wv"])
     gates = torch.einsum("bsd,dg->bsg", xin, p["wif"]).float()
     i_gate = torch.exp(torch.clamp(gates[..., :h], max=8.0))  # stabilized
     f_gate = torch.sigmoid(gates[..., h:])

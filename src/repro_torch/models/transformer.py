@@ -9,7 +9,9 @@ Each layer = mixer (attn | mamba | mlstm | slstm) + optional cross
 attention + optional FFN (dense MLP | MoE). Layer parameters are stacked
 over period instances (leading dim ``n_periods``), as in the reference,
 and :func:`forward` walks the periods in a Python loop where the
-reference scans them (no sharding constraints: one card needs none).
+reference scans them. On DTensors each period's input and output is
+anchored to the planner's activation axes (:func:`_anchor_acts`, the
+reference's ``seq_constraint``); a plain tensor passes unchanged.
 ``cfg.remat`` "full" checkpoints each period (and each encoder layer)
 with ``torch.utils.checkpoint`` (non-reentrant) when a gradient is
 asked for: the backward runs its forward again. "dots" (nemotron's:
@@ -38,10 +40,11 @@ import torch.utils.checkpoint
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from ..kernels.flash_attention import ops as flash_ops
-from .common import (ArchConfig, KeyGen, _init, apply_attn, apply_mlp,
-                     cross_kv_from_encoder, init_attn, init_mlp,
-                     lm_head_loss, mask_padded_vocab, rmsnorm, rope,
-                     softcap)
+from ..kernels.sharded import is_dtensor, remap
+from .common import (ArchConfig, KeyGen, _init, anchor, apply_attn,
+                     apply_mlp, cross_kv_from_encoder, heads_proj, init_attn,
+                     init_mlp, lm_head_loss, mask_padded_vocab, rmsnorm,
+                     rope, softcap)
 
 TP_DEFAULT = 16  # production mesh model-axis size (vocab/expert padding)
 
@@ -179,6 +182,7 @@ def params_from_reference(tree, cfg: ArchConfig, device,
 def _apply_layer(p, x, cfg: ArchConfig, idx_in_period: int, *, positions,
                  cache=None, enc_out=None):
     kind = cfg.layer_kind(idx_in_period)
+    x = _anchor_tokens(x, cfg)
     if kind == "attn":
         window = cfg.layer_window(idx_in_period)
         x, kv = apply_attn(p["attn"], x, cfg, positions=positions,
@@ -202,9 +206,9 @@ def _apply_layer(p, x, cfg: ArchConfig, idx_in_period: int, *, positions,
             if new_cache is not None and enc_out is not None:
                 new_cache["cross_kv"] = ckv      # new: stored by forward
     if "moe" in p:
-        x = moe_mod.apply_moe(p["moe"], x, cfg)
+        x = moe_mod.apply_moe(p["moe"], _anchor_tokens(x, cfg), cfg)
     elif "mlp" in p:
-        x = apply_mlp(p["mlp"], x, cfg)
+        x = apply_mlp(p["mlp"], _anchor_tokens(x, cfg), cfg)
     return x, new_cache
 
 
@@ -236,6 +240,30 @@ def _store_cross_kv(cache, ckv, j: int, n: int) -> None:
         dst[j] = src
 
 
+def _anchor_acts(x, cfg: ArchConfig):
+    """Activation anchoring between periods (DTensors only): the batch
+    dim pinned to the planner's axes, and optionally seq → model
+    (sequence-parallel residual stream) so that remat checkpoints shard
+    over the TP degree."""
+    want_seq = cfg.seq_shard and x.shape[1] % 16 == 0
+    if not want_seq and not cfg.act_batch_axes:
+        return x
+    b_spec = tuple(cfg.act_batch_axes or ())
+    s_spec = "model" if want_seq and "model" not in b_spec else None
+    return anchor(x, (b_spec, s_spec, None))
+
+
+def _anchor_tokens(x, cfg: ArchConfig):
+    """A mixer's or FFN's input (DTensors only): the batch dim on the
+    planner's axes and the sequence whole on every rank (gathered where
+    the residual stream was sequence-sharded, as sequence parallelism
+    gathers before its column-parallel products). DTensor flattens
+    (batch, seq) into a product's rows; with both sharded, over two
+    mesh dims, the flattened rows' sharding is one its matrix products
+    cannot take."""
+    return anchor(x, (tuple(cfg.act_batch_axes or ()), (), None))
+
+
 def forward(params, x, cfg: ArchConfig, *, positions, caches=None,
             enc_out=None):
     """x: (B, S, D) embeddings. caches: list per idx_in_period of stacked
@@ -245,10 +273,11 @@ def forward(params, x, cfg: ArchConfig, *, positions, caches=None,
     blocks = params["blocks"]
 
     def period(x, j):
+        x = _anchor_acts(x, cfg)
         for i in range(cfg.period):
             x, _ = _apply_layer(_period(blocks[i], j), x, cfg, i,
                                 positions=positions, enc_out=enc_out)
-        return x
+        return _anchor_acts(x, cfg)
 
     for j in range(cfg.n_periods):
         if caches is None:
@@ -256,6 +285,7 @@ def forward(params, x, cfg: ArchConfig, *, positions, caches=None,
                 period, x, j, use_reentrant=False) if _remat(cfg) \
                 else period(x, j)
             continue
+        x = _anchor_acts(x, cfg)
         for i in range(cfg.period):
             x, nc = _apply_layer(_period(blocks[i], j), x, cfg, i,
                                  positions=positions,
@@ -268,21 +298,26 @@ def forward(params, x, cfg: ArchConfig, *, positions, caches=None,
                     caches[i]["ssm"][name][j] = st
             if "cross_kv" in nc:
                 _store_cross_kv(caches[i], nc["cross_kv"], j, cfg.n_periods)
+        x = _anchor_acts(x, cfg)
     return x, caches
 
 
 def encode(params, src_embeds, cfg: ArchConfig):
     """Encoder stack (non-causal attention, no softcap) for enc-dec
-    archs."""
+    archs. On DTensors each layer's input and output is anchored as the
+    decoder's periods are, and its attention's and MLP's inputs as the
+    decoder's layers' (:func:`_anchor_tokens`; the reference's encoder
+    scan has no constraint)."""
     enc = params["encoder"]
     positions = torch.arange(src_embeds.shape[1], device=src_embeds.device)
 
     def layer(x, j):
         bp = _period(enc, j)
+        x = _anchor_tokens(_anchor_acts(x, cfg), cfg)
         h = rmsnorm(x, bp["attn"]["ln"], cfg.norm_eps)
-        q = torch.einsum("bsd,dhk->bshk", h, bp["attn"]["wq"])
-        k = torch.einsum("bsd,dhk->bshk", h, bp["attn"]["wk"])
-        v = torch.einsum("bsd,dhk->bshk", h, bp["attn"]["wv"])
+        q = heads_proj(h, bp["attn"]["wq"])
+        k = heads_proj(h, bp["attn"]["wk"])
+        v = heads_proj(h, bp["attn"]["wv"])
         if cfg.qkv_bias:
             q, k, v = q + bp["attn"]["bq"], k + bp["attn"]["bk"], \
                 v + bp["attn"]["bv"]
@@ -292,7 +327,8 @@ def encode(params, src_embeds, cfg: ArchConfig):
                                         softcap=0.0)
         x = x + torch.einsum("bshk,hkd->bsd", out,
                              bp["attn"]["wo"]).to(x.dtype)
-        return apply_mlp(bp["mlp"], x, cfg)
+        return _anchor_acts(apply_mlp(bp["mlp"], _anchor_tokens(x, cfg),
+                                      cfg), cfg)
 
     x = src_embeds
     for j in range(cfg.enc_layers):
@@ -375,6 +411,28 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
     return caches
 
 
+def _sharded_like(caches, x):
+    """Where ``x`` is a DTensor, the caches as DTensors with their batch
+    dim (1) sharded as ``x``'s batch dim, the rest replicated; else the
+    caches as they are."""
+    if not is_dtensor(x):
+        return caches
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = x.device_mesh
+    rows = remap(x.placements, {0: 1})
+
+    def place(t):
+        if isinstance(t, dict):
+            return {k: place(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(place(v) for v in t)
+        return distribute_tensor(t, mesh, rows if t.dim() > 1
+                                 else remap(x.placements, {}))
+
+    return place(caches)
+
+
 def prefill(params, batch, cfg: ArchConfig, max_seq: int):
     """Run the prompt through the model, filling caches.
     Returns (caches, last_token_logits). As in the reference, these
@@ -382,7 +440,7 @@ def prefill(params, batch, cfg: ArchConfig, max_seq: int):
     x = _input(params, batch, cfg)
     b, s = x.shape[0], x.shape[1]
     enc_out = _encoded(params, batch, cfg)
-    caches = init_caches(cfg, b, max_seq, device=x.device)
+    caches = _sharded_like(init_caches(cfg, b, max_seq, device=x.device), x)
     positions = torch.arange(s, device=x.device)
     x, caches = forward(params, x, cfg, positions=positions, caches=caches,
                         enc_out=enc_out)

@@ -83,8 +83,8 @@ def init_opt_state(params, cfg: AdamWConfig) -> OptState:
 
     def moments():
         return unflatten(params, iter([
-            _encode(torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device), cfg.quantize_moments)
+            _encode(torch.zeros_like(p, dtype=torch.float32),
+                    cfg.quantize_moments)
             for p in flat]))
 
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device),

@@ -24,6 +24,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.sharded import is_dtensor
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ArchConfig
 
@@ -32,11 +33,30 @@ from .optimizer import AdamWConfig, adamw_update, init_opt_state
 from .tree import leaves, unflatten
 
 
+def _split_rows(x, n: int):
+    """A DTensor's n microbatches, each rank splitting its own rows, as
+    data parallelism does: microbatch i holds every rank's i-th part and
+    is sharded as ``x`` is (other rows than the whole batch's split into
+    n, the same rows in all; a reshape of a batch sharded over more
+    ranks than a microbatch has rows cannot be sharded)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = x.to_local().shape[0]
+    if rows % n:
+        raise ValueError(f"{rows} rows a rank do not split into {n} "
+                         f"microbatches")
+    pl = x.placements
+    return local_map(lambda t: tuple(t.chunk(n)), out_placements=(pl,) * n,
+                     in_placements=(pl,), device_mesh=x.device_mesh)(x)
+
+
 def _split_microbatches(batch: Dict, n: int) -> List[Dict]:
     """(B, …) → n microbatches of (B/n, …), every leaf split alike."""
     def split(x):
         b = x.shape[0]
         assert b % n == 0, f"global batch {b} not divisible by {n}"
+        if is_dtensor(x):
+            return _split_rows(x, n)
         return x.reshape(n, b // n, *x.shape[1:])
 
     parts = {k: split(v) for k, v in batch.items()}
@@ -101,8 +121,8 @@ def accumulate_grads(cfg: ArchConfig, params, batch, mark: Mark = None
     for mb in _split_microbatches(batch, n):
         loss, grads = value_and_grad(loss_fn, params, mb, mark)
         if gsum is None:
-            gsum = [torch.zeros(g.shape, dtype=torch.float32,
-                                device=g.device) for g in grads]
+            gsum = [torch.zeros_like(g, dtype=torch.float32)
+                    for g in grads]
             lsum = torch.zeros((), dtype=torch.float32, device=loss.device)
         for a, g in zip(gsum, grads):
             a.add_(g.to(torch.float32))

@@ -3,10 +3,13 @@ of its modules (``core/txp.py``, the torch backend's namespace, the
 raylite runtime ``repro_torch.runtime``, the serving plane
 ``repro_torch.serve`` with the cluster LM's worker side
 ``repro_torch.serve.remote_lm``, the LM models, configs and launchers, the
-training path ``repro_torch.train``, ``checkpoint`` and ``data``
-included), the port's examples ``examples/torch_stap.py``,
-``examples/torch_stap_pipeline.py``, ``examples/torch_serve_lm.py`` and
-``examples/torch_train_lm.py`` and ``chip_smoke.py`` load neither jax nor
+training path ``repro_torch.train``, ``checkpoint`` and ``data``, the
+planner ``repro_torch.core.planner`` and the launch layer's mesh, op
+count and dry run included), the port's examples ``examples/torch_stap.py``,
+``examples/torch_stap_pipeline.py``, ``examples/torch_serve_lm.py``,
+``examples/torch_train_lm.py``, ``examples/torch_autoshard_demo.py``,
+``examples/torch_quickstart.py`` and
+``examples/torch_profile_then_compile.py`` and ``chip_smoke.py`` load neither jax nor
 any module of the JAX package ``repro``, and no source file of the port
 imports them. No kernel's wrapper or source (the flash backward's
 included) calls a library kernel for its work (a GEMM, fused
@@ -84,7 +87,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.train.grad_compress",
                  "repro_torch.train.train_loop", "repro_torch.train.tree",
                  "repro_torch.checkpoint.ckpt",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train",
+                 "repro_torch.core.planner", "repro_torch.launch.mesh",
+                 "repro_torch.launch.op_analysis",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.kernels.sharded"):
         assert name in res["modules"]
 
 
@@ -109,7 +116,9 @@ print(json.dumps({"bad": bad}))
                                      "repro_torch.launch.train",
                                      "repro_torch.train",
                                      "repro_torch.checkpoint.ckpt",
-                                     "repro_torch.data.pipeline"])
+                                     "repro_torch.data.pipeline",
+                                     "repro_torch.core.planner",
+                                     "repro_torch.launch.dryrun"])
 def test_importing_runtime_and_serve_alone_loads_no_jax_and_no_repro(
         package):
     env = dict(os.environ)
@@ -137,9 +146,13 @@ import examples.torch_stap as ex
 import examples.torch_stap_pipeline as pipe
 import examples.torch_serve_lm as lm
 import examples.torch_train_lm as train
+import examples.torch_autoshard_demo as autoshard
+import examples.torch_quickstart as quickstart
+import examples.torch_profile_then_compile as profile_then_compile
 assert callable(ex.stap_adaptive) and callable(ex.main)
 assert callable(pipe.main) and callable(lm.main_local)
-assert callable(train.main)
+assert callable(train.main) and callable(autoshard.main)
+assert callable(quickstart.main) and callable(profile_then_compile.main)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
@@ -160,6 +173,9 @@ def test_importing_the_port_stap_example_loads_no_jax_and_no_repro():
                                  "examples/torch_stap_pipeline.py",
                                  "examples/torch_serve_lm.py",
                                  "examples/torch_train_lm.py",
+                                 "examples/torch_autoshard_demo.py",
+                                 "examples/torch_quickstart.py",
+                                 "examples/torch_profile_then_compile.py",
                                  "chip_smoke.py"])
 def test_port_entry_scripts_import_no_jax_or_repro(rel):
     lines = (ROOT / rel).read_text().splitlines()
