@@ -223,8 +223,9 @@ exit:
    launches, and fails unless the trained parameters' loss on step 1's
    batch is below step 1's (each step draws a new batch, whose loss
    differs from the last by more than 4 steps at lr 3e-4 move
-   seamless's; both are printed), a save (``AsyncCheckpointer``) after
-   step 2 restored into fresh tensors gives steps 3-4 the same loss bits,
+   seamless's; both are printed), in the ``resume`` run (seamless's) a
+   save (``AsyncCheckpointer``) after step 2 restored into fresh tensors
+   gives steps 3-4 the same loss bits,
    every attention call and every Mamba layer launched the backward
    kernels once and the forward twice (remat), and no call took a plain
    version. Then ``launch/train.py --arch jamba_1_5_large_398b --smoke``
@@ -250,7 +251,17 @@ exit:
    (forward twice, backward once a layer and microbatch), no plain call.
    (c) The dry run's shape-only count of that cell (meta tensors on a
    1x1 fake mesh): its FLOPs within PLANNER_FLOP_TOL of (b)'s real
-   count.
+   count. (d) The dry run's decode cell for the same model: a
+   DECODE_PROMPT-token prefill of DECODE_BATCH rows on plain tensors
+   fills the caches; then the weights, the next tokens and the caches
+   are placed as DTensors by ``build_decode_cell`` on the card's 1x1
+   mesh and one decode step runs (``count_cell``): the weights' and
+   rows' gathers as no-ops, each layer's attention through
+   ``local_map`` into the split-KV decode kernel. Against the same
+   step on plain tensors: every row's argmax equal and the largest
+   logit difference at most LM_LOGIT_TOL; one flash launch and one
+   ``local_calls`` a layer, no plain call; every cache leaf after the
+   step on its ``cache_sharding`` placements.
 13. Summary: one JSON line with every kernel's numbers, the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -259,6 +270,7 @@ exits non-zero before printing any result. It imports nothing of JAX
 and nothing of the JAX package ``repro``.
 """
 
+import dataclasses
 import gc
 import json
 import re
@@ -573,12 +585,14 @@ FLASH_BWD_CASES = [
 # 11.799, the gradient norm 9.0 -> 40.3: PERF.md, section 6); the loss
 # after all the steps is printed beside it. ``controls``: the faults
 # each run's gradient gate must catch (attention's, or the scan
-# backward's)
+# backward's). ``resume``: the run whose step-2 checkpoint is saved,
+# restored and resumed (seamless's, 12 s; stablelm's and Jamba's took
+# 46 and 61 s of the smoke's 1200: PERF.md, section 6)
 TRAIN_RUNS = {
     "train_stablelm": {"arch": "stablelm_3b", "batch": 2,
                        "controls": ("detached", "dk_zero")},
     "train_seamless": {"arch": "seamless_m4t_medium", "batch": 2,
-                       "controls": ("detached", "dk_zero")},
+                       "controls": ("detached", "dk_zero"), "resume": True},
     "train_jamba": {"arch": "jamba_1_5_large_398b", "batch": 1,
                     "layers": 8, "n_experts": 2, "microbatch": 1,
                     "share_experts": True, "expert_multiple": 1,
@@ -604,6 +618,9 @@ SETTLED_MAX_GIB = 1.0
 PLANNER_ARCH, PLANNER_BATCH, PLANNER_SEQ = "stablelm_3b", 2, 4096
 PLANNER_STEPS = 2
 PLANNER_FLOP_TOL = 0.01
+# phase 12 (d): the decode cell of PLANNER_ARCH after a prefill of
+# DECODE_PROMPT tokens, DECODE_BATCH rows, caches DECODE_MAX_SEQ long
+DECODE_BATCH, DECODE_PROMPT, DECODE_MAX_SEQ = 2, 4096, 4224
 # phase 3 cases of the selective-scan kernel: (label, (B, L, I, N), dtype,
 # whether the final state h_L is asked for)
 SCAN_CASES = [
@@ -3424,9 +3441,10 @@ def trained(torch, card, name, kernels, device="cuda"):
         marks.append((what, ev))
 
     step = make_train_step(cfg, opt_cfg, mark=mark)
+    resume = spec.get("resume", False)
     ckpt_dir = ROOT / "build" / "train_ckpt" / name
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    ck = C.AsyncCheckpointer(str(ckpt_dir), keep=1)
+    ck = C.AsyncCheckpointer(str(ckpt_dir), keep=1) if resume else None
     torch.cuda.reset_peak_memory_stats(device)
     zero()
     losses, step_s, phases, save_s = [], [], [], None
@@ -3444,7 +3462,7 @@ def trained(torch, card, name, kernels, device="cuda"):
               f"{float(m['grad_norm']):.4f}, {step_s[-1]:.3f} s, "
               f"{batch_size * TRAIN_SEQ / step_s[-1]:.1f} tokens/s, "
               f"{json.dumps(phases[-1])} ms", flush=True)
-        if i + 1 == 2:
+        if i + 1 == 2 and resume:
             t0 = time.perf_counter()
             ck.save_async(2, {"params": params, "opt": opt},
                           extra={"data_step": 2})
@@ -3454,7 +3472,8 @@ def trained(torch, card, name, kernels, device="cuda"):
     train_counts = {k: v - kept_out[k] for k, v in counts().items()}
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     t0 = time.perf_counter()
-    ck.wait()
+    if resume:
+        ck.wait()
     write_wait_s = time.perf_counter() - t0
     check_counts("training", train_counts, TRAIN_STEPS)
     # the loss on step 1's batch after loss_steps steps, and after all
@@ -3471,25 +3490,29 @@ def trained(torch, card, name, kernels, device="cuda"):
                              f"-> {after!r}")
 
     # 3. resume from step 2 into fresh tensors: steps 3.. again
-    like = tree_map(lambda t: torch.empty((), dtype=t.dtype,
-                                          device=t.device),
-                    {"params": params, "opt": opt})
+    restore_s, resumed = None, None
+    if resume:
+        like = tree_map(lambda t: torch.empty((), dtype=t.dtype,
+                                              device=t.device),
+                        {"params": params, "opt": opt})
+        del params, opt, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state, extra = C.restore(str(ckpt_dir), 2, like)
+        torch.cuda.synchronize(device)
+        restore_s = time.perf_counter() - t0
+        params, opt = state["params"], state["opt"]
+        resumed = []
+        for i in range(int(extra["data_step"]), TRAIN_STEPS):
+            params, opt, m = step(params, opt, batch(i))
+            resumed.append(float(m["loss"]))
+        if resumed != losses[2:]:
+            raise AssertionError(f"{name}: resumed losses {resumed!r} are "
+                                 f"not the uninterrupted run's "
+                                 f"{losses[2:]!r}")
+        del state
     del params, opt, m
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    state, extra = C.restore(str(ckpt_dir), 2, like)
-    torch.cuda.synchronize(device)
-    restore_s = time.perf_counter() - t0
-    params, opt = state["params"], state["opt"]
-    resumed = []
-    for i in range(int(extra["data_step"]), TRAIN_STEPS):
-        params, opt, m = step(params, opt, batch(i))
-        resumed.append(float(m["loss"]))
-    if resumed != losses[2:]:
-        raise AssertionError(f"{name}: resumed losses {resumed!r} are not "
-                             f"the uninterrupted run's {losses[2:]!r}")
-    del params, opt, m, state
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3695,8 +3718,91 @@ def planner_on_card(torch, card, fa, fa_ops, device="cuda") -> dict:
           f"{json.dumps(counts)}", flush=True)
     if rel > PLANNER_FLOP_TOL:
         raise AssertionError(f"phase 12 (c): {counts}")
+
+    decode = decode_cell_on_card(torch, card, fa, fa_ops, full, device)
     return {"launcher": launcher, "cell": cell, "counts": counts,
-            "s": time.perf_counter() - t_phase}
+            "decode": decode, "s": time.perf_counter() - t_phase}
+
+
+def decode_cell_on_card(torch, card, fa, fa_ops, full, device) -> dict:
+    """Phase 12 (d): the dry run's decode cell with real weights and a
+    prefill's caches as DTensors on the card's 1x1 mesh, against the
+    same decode step on plain tensors."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.core import planner as PL
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    toks = torch.from_numpy(rng.integers(
+        0, full.vocab, (DECODE_BATCH, DECODE_PROMPT + 1)).astype(
+            np.int32)).to(device)
+    params, specs = T.init_params(full, torch.Generator(
+        device=device).manual_seed(SEED))
+    with torch.no_grad():
+        caches, _ = T.prefill(params, {"tokens": toks[:, :-1]}, full,
+                              max_seq=DECODE_MAX_SEQ)
+        for c in caches:                # one position a layer
+            c["kv"]["index"] = c["kv"]["index"][:, 0].contiguous()
+        step = toks[:, -1:].contiguous()
+        plain_caches = [{"kv": {k: t.clone() for k, t in c["kv"].items()}}
+                        for c in caches]
+        plain, _ = T.decode_step(params, step, plain_caches, full)
+        plain = plain[:, :full.vocab].float()
+        del plain_caches
+        shape = ShapeSpec("planner_decode", DECODE_MAX_SEQ, DECODE_BATCH,
+                          "decode")
+        moved = []
+
+        def probe(cfg, args, out):
+            strategy = next(st for st in PL.make_strategies(mesh)
+                            if st.name == "fsdp_tp")
+
+            def check(t):
+                want = PL.cache_sharding(mesh, strategy, cfg, DECODE_BATCH,
+                                         tuple(t.shape)).placements
+                if tuple(t.placements) != tuple(want):
+                    moved.append(str(t.placements))
+
+            for c in args[2]:
+                for t in c["kv"].values():
+                    check(t)
+
+        mesh = mesh_mod.make_host_mesh(device=device)
+        try:
+            fa.launches = 0
+            fa_ops.plain_calls = fa_ops.local_calls = 0
+            t1 = time.perf_counter()
+            plan, _, _, (logits, _) = D.count_cell(
+                dataclasses.replace(full, force_strategy="fsdp_tp"), shape,
+                mesh, params=params, specs=specs,
+                batch={"tokens": step, "caches": caches}, probe=probe)
+            step_s = time.perf_counter() - t1
+            got = logits.full_tensor()[:, :full.vocab].float()
+            launches, local_calls, plain_calls = \
+                fa.launches, fa_ops.local_calls, fa_ops.plain_calls
+        finally:
+            mesh_mod.release()
+    res = {"strategy": plan.strategy.name,
+           "argmax_equal": bool((got.argmax(-1) == plain.argmax(-1)).all()),
+           "max_logit_diff": float((got - plain).abs().max()),
+           "launches": launches, "local_calls": local_calls,
+           "plain_calls": plain_calls, "caches_moved": moved,
+           "expected_launches": full.layers, "step_s": step_s,
+           "s": time.perf_counter() - t0, "card": card}
+    del params, caches, logits, got, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12 (d) the dry run's decode cell ({DECODE_BATCH} rows "
+          f"after a {DECODE_PROMPT}-token prefill) as DTensors on the "
+          f"card's 1x1 mesh: {json.dumps(res)}", flush=True)
+    if not res["argmax_equal"] or res["max_logit_diff"] > LM_LOGIT_TOL \
+            or launches != full.layers or local_calls != full.layers \
+            or plain_calls or moved:
+        raise AssertionError(f"phase 12 (d): {res}")
+    return res
 
 
 def _shardings(tree) -> list:
@@ -3929,14 +4035,17 @@ def main() -> int:
         "launches": t["counts"]["forward_launches"],
         "plain_calls": t["counts"]["plain_calls"],
         "steps": TRAIN_STEPS} for name, t in train.items()}
-    # phase 12's runs: the launcher's steps, and the DTensor step's
-    # attention calls through local_map
+    # phase 12's runs: the launcher's steps, and the DTensor train and
+    # decode steps' attention calls through local_map
     summary[1]["planner_paths"] = {
         "launcher": {k: planner["launcher"][k] for k in (
             "forward_launches", "backward_launches", "plain_calls")},
         "dtensor_step": {k: planner["cell"]["sharded"][k] for k in (
             "forward_launches", "backward_launches", "local_calls",
-            "plain_calls")}}
+            "plain_calls")},
+        "dtensor_decode_step": {k: planner["decode"][k] for k in (
+            "launches", "local_calls", "plain_calls", "max_logit_diff",
+            "step_s")}}
     bwd = cases["flash_attention_bwd"]
     main_case = next(c for c in bwd if c["case"] == "stablelm")
     summary[1]["backward"] = {

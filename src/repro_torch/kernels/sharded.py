@@ -15,6 +15,8 @@ from __future__ import annotations
 import sys
 from typing import Iterable, Sequence
 
+import torch
+
 
 def is_dtensor(*ts) -> bool:
     """Whether any of ``ts`` is a DTensor."""
@@ -92,3 +94,87 @@ def remap(placements, dims: dict) -> list:
         to = dims.get(p.dim) if isinstance(p, Shard) else None
         out.append(Shard(to) if to is not None else Replicate())
     return out
+
+
+def gather_over(t, mdims):
+    """``t`` (a DTensor) whole over the mesh dimensions ``mdims``, its
+    other placements kept. Where several of them shard one tensor
+    dimension, and they are the innermost that shard it, that dimension
+    is gathered by one all-gather over their flattened group
+    (:class:`_FlatGather`), as GSPMD gathers over a product of mesh
+    axes: DTensor's redistribute takes one mesh dimension at a time, and
+    each step's all-gather moves its output again (1.5x the bytes of
+    one gather over a 2x2 group)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mdims = set(mdims)
+    place = list(t.placements)
+    by_dim: dict = {}
+    for m in sorted(mdims):
+        if type(place[m]) is Shard:
+            by_dim.setdefault(place[m].dim, []).append(m)
+    for d, ms in by_dim.items():
+        sharding = [m for m, p in enumerate(place)
+                    if isinstance(p, Shard) and p.dim == d]
+        if (len(ms) < 2 or sharding[-len(ms):] != ms
+                or t.shape[d] % shards(place, d, t.device_mesh)):
+            continue
+        out = [Replicate() if m in ms else p for m, p in enumerate(place)]
+        t = _FlatGather.apply(t, d, tuple(ms), tuple(out))
+        place = out
+    out = [Replicate() if m in mdims else p for m, p in enumerate(place)]
+    if out == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, out)
+
+
+def _flat_group(mesh, mdims):
+    """The 1-D mesh of ``mesh``'s dimensions ``mdims`` flattened (ranks in
+    mesh order; the root mesh keeps it by name, its group made once)."""
+    names = tuple(mesh.mesh_dim_names[m] for m in mdims)
+    return mesh[names]._flatten("_".join(names))
+
+
+class _FlatGather(torch.autograd.Function):
+    """Tensor dimension ``dim`` of a DTensor, sharded (nested, in mesh
+    order) over the mesh dimensions ``mdims``, gathered by one
+    all-gather over their flattened group. The gradient comes back by
+    one reduce-scatter where it is a partial sum over those dimensions
+    (a product over the rows they shard), else by each rank's slice."""
+
+    @staticmethod
+    def forward(ctx, t, dim, mdims, out_placements):
+        from torch.distributed.tensor import DTensor
+
+        mesh = t.device_mesh
+        group = _flat_group(mesh, mdims)
+        ctx.meta = (mesh, tuple(t.placements), dim, mdims, group)
+        ops = torch.ops._c10d_functional
+        # the collective ops themselves (stable across torch versions;
+        # funcol's wrappers are not): along dim 0, in group rank order
+        local = ops.wait_tensor(ops.all_gather_into_tensor(
+            t.to_local().movedim(dim, 0).contiguous(), group.size(),
+            group.get_group().group_name)).movedim(0, dim)
+        return DTensor.from_local(local, mesh, out_placements,
+                                  run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh, placements, dim, mdims, group = ctx.meta
+        partial = all(g.placements[m].is_partial() for m in mdims)
+        want = [(g.placements[m] if partial else Replicate())
+                if m in mdims else placements[m] for m in range(mesh.ndim)]
+        if want != list(g.placements):
+            g = g.redistribute(mesh, want)
+        local, n = g.to_local(), group.size()
+        if partial:
+            ops = torch.ops._c10d_functional
+            local = ops.wait_tensor(ops.reduce_scatter_tensor(
+                local.movedim(dim, 0).contiguous(), "sum", n,
+                group.get_group().group_name)).movedim(0, dim)
+        else:
+            local = local.chunk(n, dim)[group.get_local_rank()]
+        return (DTensor.from_local(local.contiguous(), mesh, placements,
+                                   run_check=False), None, None, None)

@@ -29,7 +29,8 @@ on the card's 1×1 mesh with real weights.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch stablelm_3b --shape train_4k
-  python -m repro_torch.launch.dryrun --all [--multi-pod] [--force]
+  python -m repro_torch.launch.dryrun --all [--multi-pod] [--force] \
+      [--jobs 4] [--exclude 'xlstm_125m|prefill_32k']
 """
 
 from __future__ import annotations
@@ -159,15 +160,23 @@ def build_prefill_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, plan,
 
 def build_decode_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, plan,
                       params, specs, batch=None):
+    """The decode step and (params, tokens, caches) as DTensors, the
+    caches placed by ``cache_sharding``. ``batch`` holds the ``tokens``
+    and, where given, the ``caches`` to decode against (a prefill's,
+    with one position per layer); else the caches are zeros of the
+    shape's length."""
     B, S = shape.global_batch, shape.seq_len
     cross = S if cfg.is_encdec else 0
 
     def serve_step(params, tokens, caches):
         return T.decode_step(params, tokens, caches, cfg)
 
-    tok = (batch or input_specs(cfg, shape))["tokens"]
-    caches = T.init_caches(cfg, B, S, cross_len=cross, uniform_index=True,
-                           device=tok.device)
+    batch = batch or input_specs(cfg, shape)
+    tok = batch["tokens"]
+    caches = batch.get("caches")
+    if caches is None:
+        caches = T.init_caches(cfg, B, S, cross_len=cross,
+                               uniform_index=True, device=tok.device)
     caches = tree_map(lambda t: place(t, planner_mod.cache_sharding(
         mesh, plan.strategy, cfg, B, tuple(t.shape))), caches)
     tok = place(tok, planner_mod.batch_sharding(mesh, plan.strategy, B,
@@ -221,12 +230,16 @@ BUILDERS = {"train": build_train_cell, "prefill": build_prefill_cell,
 
 
 def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, *, params=None,
-               specs=None, batch=None, verbose: bool = False):
+               specs=None, batch=None, verbose: bool = False,
+               probe=None):
     """(plan, wired config, counts, the step's output): plan the cell on
     ``mesh``, build it and run its step once under the op count. Without
     ``params`` the parameters and inputs are meta tensors at full size
     (:func:`meta_params`; the dry run); with real ``params`` (and
-    ``specs``, and optionally ``batch``), a real step."""
+    ``specs``, and optionally ``batch``), a real step. ``probe(cfg,
+    args, out)``, where given, is called after the step with the wired
+    config, the step's arguments (its caches written in place) and its
+    output."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     if params is None:
@@ -242,6 +255,8 @@ def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, *, params=None,
                                     batch)
     with implicit_replication(), op_analysis.OpCounter() as counter:
         out = fn(*args)
+    if probe is not None:
+        probe(cfg, args, out)
     return plan, cfg, counter.result(), out
 
 
@@ -345,26 +360,68 @@ def error_result(arch: str, shape: str, multi_pod: bool,
             "traceback": traceback.format_exc()[-4000:]}
 
 
-def sweep(archs, shapes, meshes, force=False) -> None:
+def _cell_in_process(arch: str, shape: str, multi_pod: bool):
+    """One cell in a process of its own (``main --no-save``): its
+    result, the last line the process prints."""
+    import subprocess
+    import sys
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           arch, "--shape", shape, "--no-save"] \
+        + (["--multi-pod"] if multi_pod else [])
+    src = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env)
+    try:
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        return {"arch": arch, "shape": shape,
+                "mesh": "multi" if multi_pod else "single",
+                "status": "error", "error": proc.stderr[-2000:]}
+
+
+def sweep(archs, shapes, meshes, force=False, jobs: int = 1,
+          exclude=()) -> None:
+    """Every (arch, shape) cell on each mesh, but those already ``ok`` or
+    ``skipped`` (unless ``force``) and those in ``exclude``
+    (``arch|shape``). With ``jobs`` > 1, that many cells at a time, each
+    in a process of its own (one mesh a process group)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.launch.mesh import release
 
     results = load_results()
     for multi_pod in meshes:
         release()                     # one mesh size a process group
+        todo = []
         for arch in archs:
             for shape in shapes:
                 key = cell_key(arch, shape, multi_pod)
                 prev = results.get(key)
-                if prev and not force and prev.get("status") in (
-                        "ok", "skipped"):
+                if f"{arch}|{shape}" in exclude or (
+                        prev and not force and prev.get("status") in (
+                            "ok", "skipped")):
                     continue
-                try:
-                    res = run_cell(arch, shape, multi_pod=multi_pod)
-                except Exception as exc:  # noqa: BLE001 - a cell's error
-                    res = error_result(arch, shape, multi_pod, exc)
-                    print(f"[{key}] ERROR: {exc}", flush=True)
+                todo.append((arch, shape, key))
+
+        def one(cell):
+            arch, shape, key = cell
+            if jobs > 1:
+                return _cell_in_process(arch, shape, multi_pod)
+            try:
+                return run_cell(arch, shape, multi_pod=multi_pod)
+            except Exception as exc:  # noqa: BLE001 - a cell's error
+                print(f"[{key}] ERROR: {exc}", flush=True)
+                return error_result(arch, shape, multi_pod, exc)
+
+        with ThreadPoolExecutor(max(1, jobs)) as pool:
+            for (_, _, key), res in zip(todo, pool.map(one, todo)):
                 results[key] = res
                 save_results(results)
+                print(f"[{key}] {res['status']} {res.get('trace_s')}",
+                      flush=True)
     release()
 
 
@@ -383,11 +440,19 @@ def main(argv=None) -> None:
     ap.add_argument("--tag", default=None,
                     help="store result under <cell>#<tag> (keeps the "
                          "baseline row)")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="--all: cells at a time, each in its own process")
+    ap.add_argument("--exclude", action="append", default=[],
+                    metavar="ARCH|SHAPE", help="--all: a cell to leave out")
+    ap.add_argument("--no-save", action="store_true",
+                    help="print the cell's whole result as the last line "
+                         "and leave results.json as it is")
     args = ap.parse_args(argv)
 
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     if args.all:
-        sweep(ARCHS, list(SHAPES), meshes, force=args.force)
+        sweep(ARCHS, list(SHAPES), meshes, force=args.force,
+              jobs=args.jobs, exclude=set(args.exclude))
         return
     assert args.arch and args.shape, "--arch and --shape (or --all)"
     cfg_override = None
@@ -417,6 +482,9 @@ def main(argv=None) -> None:
         release()
     if args.overrides:
         res["overrides"] = args.overrides
+    if args.no_save:
+        print(json.dumps(res))
+        return
     key = cell_key(args.arch, args.shape, args.multi_pod)
     if args.tag:
         key = f"{key}#{args.tag}"

@@ -136,6 +136,56 @@ def _under_fake_mode() -> bool:
         torch._C._TorchDispatchModeKey.FAKE) is not None
 
 
+# DTensor's sharding propagation: where an op has no sharding rule of
+# its own, torch 2.13 propagates through its decomposition, run on meta
+# tensors of the global shape (an in-place ``index_copy_`` into a KV
+# cache: the whole cache, in every layer). No rank runs those ops; they
+# are not counted. Looked up by name: a torch without them has nothing
+# to skip.
+_PROPAGATION = ("propagate_op_sharding_non_cached",
+                "_propagate_tensor_meta_non_cached")
+
+
+class _Propagation:
+    """While entered, marks every call of DTensor's propagation methods
+    (:data:`_PROPAGATION`), so that the counter skips the ops run
+    inside them."""
+
+    def __init__(self):
+        self.depth = 0
+        self.saved = {}
+
+    def __enter__(self):
+        try:
+            from torch.distributed.tensor._sharding_prop import \
+                ShardingPropagator
+        except ImportError:
+            return self
+        for name in _PROPAGATION:
+            fn = ShardingPropagator.__dict__.get(name)
+            if fn is not None:
+                self.saved[name] = fn
+                setattr(ShardingPropagator, name, self._marked(fn))
+        return self
+
+    def _marked(self, fn):
+        def marked(*args, **kwargs):
+            self.depth += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.depth -= 1
+        return marked
+
+    def __exit__(self, *exc):
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator
+
+        for name, fn in self.saved.items():
+            setattr(ShardingPropagator, name, fn)
+        self.saved = {}
+
+
 class OpCounter(TorchDispatchMode):
     """Counts what every op of the enclosed code does on this rank."""
 
@@ -153,7 +203,14 @@ class OpCounter(TorchDispatchMode):
         if _under_fake_mode():
             raise RuntimeError("OpCounter counts real or meta tensors, not "
                                "under FakeTensorMode")
+        self.propagation = _Propagation().__enter__()
         return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            self.propagation.__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -163,7 +220,7 @@ class OpCounter(TorchDispatchMode):
             # DTensor desugars into local ops (and collectives) first
             return NotImplemented
         out = func(*args, **kwargs)
-        if not _under_fake_mode():
+        if not _under_fake_mode() and not self.propagation.depth:
             self._count(func, args, kwargs, out)
         return out
 

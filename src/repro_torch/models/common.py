@@ -32,8 +32,11 @@ What changes against the reference, and why:
   axes the launch layer fills (``act_batch_axes``, ``moe_expert_axes``,
   ``moe_capacity_axes``). Where a tensor is a DTensor (the dry run's, or
   a sharded step's), :func:`anchor` redistributes it to those axes, the
-  counterpart of the reference's ``with_sharding_constraint``; a plain
-  tensor passes unchanged. ``attn_chunk`` is gone: the flash op takes
+  counterpart of the reference's ``with_sharding_constraint``, and each
+  product with a weight is one ``local_map`` whose rows stay sharded
+  (:func:`product`, :func:`lookup`; a weight gathered over the batch's
+  mesh axes as GSPMD's FSDP gathers it, or the rows gathered where that
+  moves fewer bytes); a plain tensor passes unchanged. ``attn_chunk`` is gone: the flash op takes
   any length. The training knobs are the reference's: ``microbatch``
   and ``opt_8bit`` (``train/``), ``remat`` (``transformer.forward``)
   and ``fused_xent``.
@@ -50,7 +53,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..kernels.flash_attention import ops as flash_ops
-from ..kernels.sharded import is_dtensor, mesh_of
+from ..kernels.sharded import gather_over, is_dtensor, mesh_of
 
 
 # ---------------------------------------------------------------------------
@@ -216,11 +219,12 @@ def anchor(t, spec):
     every rank, a mesh axis name or a tuple of them in mesh order) is
     sharded over those axes, where it splits evenly; the other mesh
     dimensions keep their placement, but none shards a dimension
-    ``spec`` names or asks whole. The counterpart of the
-    reference's ``with_sharding_constraint``: without it DTensor's
-    propagation may leave an activation replicated over idle axes. A
-    plain tensor, or a mesh without the axes (or with them of size 1),
-    passes unchanged."""
+    ``spec`` names or asks whole, and a partial sum is summed. The
+    counterpart of the reference's ``with_sharding_constraint`` (which
+    never leaves a partial sum either): without it DTensor's propagation
+    may leave an activation replicated over idle axes. A plain tensor,
+    or a mesh without the axes (or with them of size 1), passes
+    unchanged."""
     if not is_dtensor(t):
         return t
     from torch.distributed.tensor import Replicate, Shard
@@ -240,14 +244,187 @@ def anchor(t, spec):
     for m, cur in enumerate(t.placements):
         if m in want:
             out.append(Shard(want[m]))
-        elif isinstance(cur, Shard) and (cur.dim in want.values()
-                                         or cur.dim in whole):
+        elif cur.is_partial() or (isinstance(cur, Shard) and (
+                cur.dim in want.values() or cur.dim in whole)):
             out.append(Replicate())
         else:
             out.append(cur)
     if tuple(out) == tuple(t.placements):
         return t
     return t.redistribute(mesh, out)
+
+
+def _row_dims(x, rows):
+    """The mesh dimensions that shard one of ``x``'s dimensions ``rows``
+    (by default every one but the last, the contracted feature)."""
+    from torch.distributed.tensor import Shard
+
+    rows = set(range(x.dim() - 1) if rows is None else rows)
+    return {m for m, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim in rows}
+
+
+def gathered(w, x, rows=None):
+    """The weight ``w`` gathered whole over each mesh dimension that
+    shards one of the activation ``x``'s ``rows``, before ``w`` meets
+    ``x`` in an elementwise op or a product: the counterpart of GSPMD's
+    FSDP all-gather, after which the result's rows stay sharded as
+    ``x``'s. ``w``'s shards over the other mesh dimensions (tensor
+    parallelism) stay. Where either is a plain tensor, ``w`` is
+    returned as it is."""
+    if not (is_dtensor(w) and is_dtensor(x)):
+        return w
+    return gather_over(w, _row_dims(x, rows))
+
+
+def _local_nbytes(t) -> int:
+    """Bytes of each rank's piece of the DTensor ``t``."""
+    from ..kernels.sharded import shards
+
+    n = t.numel() * t.element_size()
+    for d in range(t.dim()):
+        n //= shards(t.placements, d, t.device_mesh)
+    return n
+
+
+def product(eq, x, w, plain=None):
+    """``torch.einsum(eq, x, w)`` of an activation ``x`` and a weight
+    ``w`` (``plain(x, w)``, the same product, on plain tensors, where
+    given). On DTensors, one ``local_map`` (:func:`_einsum_local`) whose
+    result's rows (``x``'s letters that ``w`` lacks) are sharded as
+    ``x``'s, never a partial sum over the mesh dimensions that shard
+    them (:func:`_fsdp`). DTensor's own propagation, where ``w`` is
+    sharded (FSDP) over those mesh dimensions, moves ``x`` onto ``w``'s
+    shards of the contracted dimension and leaves such a partial sum:
+    every rank then holds every row (a decode step's attention ran on
+    the whole batch on every rank). Its search for the product's
+    placements also took minutes a step on a three-axis mesh, where the
+    flattened rows of a sharded batch become strided shards."""
+    if not (is_dtensor(w) and is_dtensor(x)):
+        return plain(x, w) if plain is not None else torch.einsum(eq, x, w)
+    (xs, ws), out = eq.split("->")[0].split(","), eq.split("->")[1]
+    rows = [d for d, c in enumerate(xs) if c not in ws]
+    width = math.prod(w.shape[j] for j, c in enumerate(ws) if c not in xs)
+    return _fsdp(lambda a, b: _einsum_local(eq, a, b), x, w, rows, width,
+                 [out.index(xs[d]) for d in rows])
+
+
+def _fsdp(local, x, w, rows, width, out_dims):
+    """``local(x, w)`` for an activation ``x`` whose ``rows`` (its
+    dimensions at ``out_dims`` of the result) come out sharded as they
+    go in, and a weight ``w`` sharded (FSDP) over some of the mesh
+    dimensions that shard them. The cheaper of GSPMD's two ways, by the
+    bytes each gathers to a rank: ``w`` gathered over those mesh
+    dimensions (a training step's many rows), or ``x``'s rows gathered
+    over them, multiplied by ``w`` as it lies, and the result's rows
+    (``width`` elements each) scattered back (a decode step's few). Any
+    other partial sum of the result (a row-parallel product's, over
+    ``model``) is summed."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    by_rows = _row_dims(x, rows)
+    over = {m for m in by_rows if isinstance(w.placements[m], Shard)}
+    n_rows = math.prod(x.shape[d] for d in rows) \
+        // math.prod(mesh.size(m) for m in by_rows)
+    moved = n_rows * width * w.element_size()
+    if not over:
+        y = local(x, w)
+    elif _local_nbytes(w) <= _local_nbytes(x) + moved:
+        y = local(x, gather_over(w, over))
+    else:
+        y = local(gather_over(x, over), w)
+    back = [Shard(out_dims[rows.index(x.placements[m].dim)]) if m in over
+            else Replicate() if p.is_partial() else p
+            for m, p in enumerate(y.placements)]
+    return y if back == list(y.placements) else y.redistribute(mesh, back)
+
+
+def _einsum_local(eq, x, w):
+    """``torch.einsum(eq, x, w)`` on DTensors, one ``local_map``. Every
+    letter is a row (``x`` and the result), a contracted one (``x`` and
+    ``w``) or an output of ``w`` (``w`` and the result). Per mesh
+    dimension: ``x``'s rows sharded, ``w`` whole (gathered here if it is
+    not), the result's rows sharded; a contracted letter sharded (in
+    ``x`` or ``w``: the other sliced to it), the result a partial sum;
+    ``x`` whole and an output of ``w`` sharded, the result sharded so
+    (``x`` gathered first where it shards a contracted letter that
+    ``w`` does not); both whole, the result whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    (xs, ws), out = eq.split("->")[0].split(","), eq.split("->")[1]
+    mesh = x.device_mesh
+    xp, wp, yp, xg, wg = [], [], [], [], []
+    for m in range(mesh.ndim):
+        a, b = x.placements[m], w.placements[m]
+        ca = xs[a.dim] if isinstance(a, Shard) else None
+        cb = ws[b.dim] if isinstance(b, Shard) else None
+        if ca is not None and ca not in ws:            # a row
+            pl = (a, Replicate(), Shard(out.index(ca)), a, Partial())
+        elif ca is not None and cb in (None, ca):      # contracted
+            wc = Shard(ws.index(ca))
+            pl = (a, wc, Partial(), a, wc)
+        elif cb is not None and cb in xs:              # contracted, in w
+            xc = Shard(xs.index(cb))
+            pl = (xc, b, Partial(), xc, b)
+        elif cb is not None:                           # an output of w
+            pl = (Replicate(), b, Shard(out.index(cb)), Partial(), b)
+        else:
+            pl = (Replicate(),) * 5
+        for acc, p in zip((xp, wp, yp, xg, wg), pl):
+            acc.append(p)
+    return local_map(lambda a, b: torch.einsum(eq, a, b),
+                     out_placements=yp, in_placements=(xp, wp),
+                     in_grad_placements=(xg, wg), device_mesh=mesh,
+                     redistribute_inputs=True)(x, w)
+
+
+def lookup(table, tokens):
+    """``table[tokens]``: the rows of a (V, D) table. On DTensors, one
+    ``local_map``: each rank takes the tokens that fall in its slice of
+    the vocabulary (zeros for the others), a partial sum over the
+    vocabulary's mesh dims, and the embedding dimension keeps its
+    shards; the table gathered over the tokens' shards, or the tokens
+    over the table's, whichever moves fewer bytes (:func:`_fsdp`). The
+    counterpart of GSPMD's sharded gather; DTensor's own embedding
+    leaves a masked partial sum that its redistribution cannot take on
+    meta tensors."""
+    if not is_dtensor(table, tokens):
+        return table[tokens]
+    from ..kernels.sharded import as_dtensor
+
+    mesh = mesh_of(table, tokens)
+    tokens, table = as_dtensor(tokens, mesh), as_dtensor(table, mesh)
+    rows = list(range(tokens.dim()))
+    return _fsdp(_lookup, tokens, table, rows, table.shape[-1], rows)
+
+
+def _lookup(tokens, table):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..kernels.sharded import shard_index, shards
+
+    mesh = table.device_mesh
+    tp, kp = table.placements, tokens.placements
+    n = table.shape[0] // shards(tp, 0, mesh)
+    start = shard_index(tp, 0, mesh) * n
+    vocab = [m for m, p in enumerate(tp) if p == Shard(0)]
+    kp = [Replicate() if m in vocab else p for m, p in enumerate(kp)]
+    out = [Partial() if m in vocab else Shard(tokens.dim())
+           if tp[m] == Shard(1) else kp[m] for m in range(mesh.ndim)]
+    grad = [Partial() if isinstance(kp[m], Shard) else tp[m]
+            for m in range(mesh.ndim)]
+
+    def local(tab, tok):
+        idx = tok.long() - start
+        hit = (idx >= 0) & (idx < n)
+        return tab[idx.clamp(0, n - 1)] * hit[..., None].to(tab.dtype)
+
+    return local_map(local, out_placements=out, in_placements=(tp, kp),
+                     in_grad_placements=(grad, kp), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def on_replicas(fn, n_out: int, *args):
@@ -305,6 +482,7 @@ def _zeros(kg: KeyGen, shape, dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x, scale, eps=1e-6):
+    scale = gathered(scale, x)
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
@@ -356,17 +534,18 @@ def attention(q, k, v, cfg: ArchConfig, *, causal=True, window=0,
                                      q_offset=q_offset)
 
 
+def out_proj(out, w):
+    """``einsum("bshk,hkd->bsd", out, w)``: the attention heads' output
+    projection (:func:`product`)."""
+    return product("bshk,hkd->bsd", out, w)
+
+
 def heads_proj(x, w):
-    """``einsum("bsd,dhk->bshk", x, w)``. On DTensors, a batched product
-    over the heads: einsum flattens (heads, head_dim) into one dim, and
-    DTensor cannot unflatten it where head_dim is sharded and the heads
-    are too few to split (the planner's GQA fallback, gemma2's 4 KV
-    heads on 8)."""
-    if not is_dtensor(x, w):
-        return torch.einsum("bsd,dhk->bshk", x, w)
-    b, s, d = x.shape
-    out = torch.matmul(x.reshape(1, b * s, d), w.permute(1, 0, 2))
-    return out.permute(1, 0, 2).reshape(b, s, w.shape[1], w.shape[2])
+    """``einsum("bsd,dhk->bshk", x, w)`` (:func:`product`: on DTensors
+    one ``local_map``, which takes head_dim sharded where the heads are
+    too few to split, the planner's GQA fallback, gemma2's 4 KV heads
+    on 8; DTensor's einsum flattens (heads, head_dim) and cannot)."""
+    return product("bsd,dhk->bshk", x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -407,11 +586,16 @@ def _write_cache(cache, k, v):
     k, v = k.to(ck.dtype), v.to(cv.dtype)
     if idx.dim() == 0 and is_dtensor(ck):
         # the same write with the position left on the device: a DTensor
-        # (the dry run's on meta tensors) has no value for the host to read
-        at = idx.clamp(0, s_max - s_new).long() \
-            + torch.arange(s_new, device=ck.device)
-        ck.index_copy_(1, at, k)
-        cv.index_copy_(1, at, v)
+        # (the dry run's on meta tensors) has no value for the host to
+        # read. The new rows take the cache's placements, and each rank
+        # writes its own into its piece (torch 2.11's DTensor has no
+        # sharding rule for index_copy_)
+        at = (idx.clamp(0, s_max - s_new).long()
+              + torch.arange(s_new, device=ck.device))
+        at = at.full_tensor() if is_dtensor(at) else at
+        for c, t in ((ck, k), (cv, v)):
+            t = t.redistribute(c.device_mesh, c.placements)
+            c.to_local().index_copy_(1, at, t.to_local())
     elif idx.dim() == 0:
         # a uniform decode position: dynamic_update_slice, whose start
         # is clamped so that the update fits
@@ -443,18 +627,18 @@ def apply_attn(p, x, cfg: ArchConfig, *, positions, window=0, cache=None,
     q = heads_proj(h, p["wq"])
     if cross_kv is not None:
         if cfg.qkv_bias:
-            q = q + p["bq"]
+            q = q + gathered(p["bq"], q, (0, 1))
         k, v = cross_kv
         q = rope(q, positions, cfg.rope_theta)
         out = attention(q, k, v, cfg, causal=False, window=0)
-        y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        y = out_proj(out, p["wo"])
         return x + y.to(x.dtype), cache
     k = heads_proj(h, p["wk"])
     v = heads_proj(h, p["wv"])
     if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        q = q + gathered(p["bq"], q, (0, 1))
+        k = k + gathered(p["bk"], k, (0, 1))
+        v = v + gathered(p["bv"], v, (0, 1))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if cache is not None:
@@ -466,7 +650,7 @@ def apply_attn(p, x, cfg: ArchConfig, *, positions, window=0, cache=None,
                  "index": idx + k.shape[1]}
     else:
         out = attention(q, k, v, cfg, causal=True, window=window)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = out_proj(out, p["wo"])
     return x + y.to(x.dtype), cache
 
 
@@ -499,13 +683,13 @@ def init_mlp(kg: KeyGen, cfg: ArchConfig, d_ff: Optional[int] = None
 
 def apply_mlp(p, x, cfg: ArchConfig):
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
-    up = h @ p["wi"]
+    up = product("bsd,df->bsf", h, p["wi"], torch.matmul)
     act = _act(cfg.mlp_act)
     if "wg" in p:
-        up = act(h @ p["wg"]) * up
+        up = act(product("bsd,df->bsf", h, p["wg"], torch.matmul)) * up
     else:
         up = act(up)
-    y = up @ p["wo"]
+    y = product("bsf,fd->bsd", up, p["wo"], torch.matmul)
     return x + y.to(x.dtype)
 
 
@@ -596,7 +780,7 @@ def lm_head_loss(params, x, labels, cfg: ArchConfig, padded_vocab: int):
     chunk's gradient is taken as its logits are made
     (:class:`_ChunkedXent`)."""
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    w = params.get("unembed", params["embed"])  # (Vpad, D)
+    w = gathered(params.get("unembed", params["embed"]), x)  # (Vpad, D)
 
     def post(logits):
         return mask_padded_vocab(softcap(logits, cfg.logit_softcap),

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import (ArchConfig, KeyGen, _act, _init, _zeros, anchor,
-                     on_replicas, rmsnorm)
+                     gathered, on_replicas, product, rmsnorm)
 
 
 def padded_experts(cfg: ArchConfig, tp: int = 16) -> int:
@@ -126,15 +126,18 @@ def _combine(out, slot, weights, k: int):
 
 
 def _anchor(t, cfg: ArchConfig):
-    """Pin (expert, capacity) dims to the planner's axes (DTensors only):
-    without it the expert products can stay replicated over idle mesh
-    axes. The capacity dim takes the axes the expert count cannot
-    cover."""
+    """Pin (expert, capacity) dims to the planner's axes and the features
+    whole (DTensors only): without it the expert products can stay
+    replicated over idle mesh axes. The capacity dim takes the axes the
+    expert count cannot cover. Where the capacity does not split over
+    them (a decode step's few tokens), the weights stay sharded over
+    those axes: the first products' partial sums are summed here, and
+    the last one's features gathered."""
     if not cfg.moe_expert_axes:
         return t
     return anchor(t, (tuple(cfg.moe_expert_axes),
                       tuple(cfg.moe_capacity_axes or ()))
-                  + (None,) * (t.dim() - 2))
+                  + ((),) * (t.dim() - 2))
 
 
 def apply_moe(p, x, cfg: ArchConfig):
@@ -155,12 +158,14 @@ def apply_moe(p, x, cfg: ArchConfig):
         lambda h_, s_: _dispatch(h_, s_, e_pad, cap, k), 1, ht, slot), cfg)
 
     # --- expert computation (batched over experts) -----------------------
-    up = torch.bmm(buf, p["wi"])                            # (E, C, F)
+    # (each expert's weights gathered over the capacity's mesh dims)
+    up = _anchor(torch.bmm(buf, gathered(p["wi"], buf, (1,))), cfg)
     if "wg" in p:
-        up = act(torch.bmm(buf, p["wg"])) * up
+        up = act(_anchor(torch.bmm(buf, gathered(p["wg"], buf, (1,))),
+                         cfg)) * up                         # (E, C, F)
     else:
         up = act(up)
-    out = _anchor(torch.bmm(up, p["wo"]), cfg)              # (E, C, D)
+    out = _anchor(torch.bmm(up, gathered(p["wo"], up, (1,))), cfg)
 
     # --- combine ----------------------------------------------------------
     y = on_replicas(lambda o, s_, w: _combine(o, s_, w, k), 1, out, slot,
@@ -171,11 +176,12 @@ def apply_moe(p, x, cfg: ArchConfig):
     # --- shared experts (dense; on (B, S, D): a DTensor's tokens flattened
     # over two mesh dims would not reshape back) --------------------------
     if "shared_wi" in p:
-        up_s = h @ p["shared_wi"]
+        up_s = product("bsd,df->bsf", h, p["shared_wi"], torch.matmul)
         if "shared_wg" in p:
-            up_s = act(h @ p["shared_wg"]) * up_s
+            up_s = act(product("bsd,df->bsf", h, p["shared_wg"],
+                               torch.matmul)) * up_s
         else:
             up_s = act(up_s)
-        y = y + up_s @ p["shared_wo"]
+        y = y + product("bsf,fd->bsd", up_s, p["shared_wo"], torch.matmul)
 
     return x + y.to(x.dtype)

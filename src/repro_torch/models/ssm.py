@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba_scan import ops as scan_ops
-from .common import ArchConfig, KeyGen, _init, _zeros, heads_proj, rmsnorm
+from .common import (ArchConfig, KeyGen, _init, _zeros, gathered,
+                     heads_proj, out_proj, product, rmsnorm)
 
 
 # ---------------------------------------------------------------------------
@@ -71,21 +72,24 @@ def apply_mamba(p, x, cfg: ArchConfig, state: Optional[Dict] = None):
     b, s, d = x.shape
     n = cfg.ssm_state
     h0 = rmsnorm(x, p["ln"], cfg.norm_eps)
-    proj = torch.einsum("bsd,di->bsi", h0, p["in_proj"])
+    proj = product("bsd,di->bsi", h0, p["in_proj"])
     xz, gate = proj.chunk(2, dim=-1)
     xz = F.silu(xz)
-    dbc = torch.einsum("bsi,ik->bsk", xz, p["x_proj"]).float()
-    dt = F.softplus(dbc[..., 0:1] + p["dt_bias"][None, None])
+    dbc = product("bsi,ik->bsk", xz, p["x_proj"]).float()
+    dt = F.softplus(dbc[..., 0:1]
+                    + gathered(p["dt_bias"], dbc, (0, 1))[None, None])
     Bm, Cm = dbc[..., 1:1 + n], dbc[..., 1 + n:]
     a = p["a_log"]
 
     if state is not None and s == 1:
         # single-token decode: the recurrence, one step
+        a, d_skip = gathered(a, xz, (0, 1)), gathered(p["d_skip"], xz,
+                                                       (0, 1))
         a_bar = torch.exp(dt[:, 0, :, None] * (-torch.exp(a))[None])
         bx = (dt[:, 0] * xz[:, 0].float())[..., None] * Bm[:, 0, None, :]
         h = a_bar * state["h"] + bx                       # (B, I, N)
         y = (h * Cm[:, 0, None, :]).sum(-1)[:, None]      # (B, 1, I)
-        y = y + p["d_skip"][None, None] * xz.float()
+        y = y + d_skip[None, None] * xz.float()
         new_state = {"h": h}
     else:
         # the scan over the sequence from h = 0; a prefill keeps h_L
@@ -95,7 +99,7 @@ def apply_mamba(p, x, cfg: ArchConfig, state: Optional[Dict] = None):
         new_state = None if state is None else {"h": h}
 
     y = (y * F.silu(gate.float())).to(x.dtype)
-    out = torch.einsum("bsi,id->bsd", y, p["out_proj"])
+    out = product("bsi,id->bsd", y, p["out_proj"])
     return x + out, new_state
 
 
@@ -142,7 +146,7 @@ def apply_mlstm(p, x, cfg: ArchConfig, state: Optional[Dict] = None):
     q = heads_proj(xin, p["wq"]) / math.sqrt(hd)
     k = heads_proj(xin, p["wk"]) / math.sqrt(hd)
     v = heads_proj(xin, p["wv"])
-    gates = torch.einsum("bsd,dg->bsg", xin, p["wif"]).float()
+    gates = product("bsd,dg->bsg", xin, p["wif"]).float()
     i_gate = torch.exp(torch.clamp(gates[..., :h], max=8.0))  # stabilized
     f_gate = torch.sigmoid(gates[..., h:])
 
@@ -193,7 +197,7 @@ def apply_mlstm(p, x, cfg: ArchConfig, state: Optional[Dict] = None):
     out32 = out.float()
     var = out32.square().mean(dim=-1, keepdim=True)
     out = (out32 * torch.rsqrt(var + 1e-6)).to(x.dtype)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    y = out_proj(out, p["wo"])
     return x + y.to(x.dtype), new_state
 
 
@@ -215,8 +219,8 @@ def apply_slstm(p, x, cfg: ArchConfig, state: Optional[Dict] = None):
     given (whose carry after the last token is the new state)."""
     b, s, d = x.shape
     xin = rmsnorm(x, p["ln"], cfg.norm_eps)
-    pre_x = torch.einsum("bsd,dg->bsg", xin, p["wx"]).float()
-    wh = p["wh"].float()
+    pre_x = product("bsd,dg->bsg", xin, p["wx"]).float()
+    wh = gathered(p["wh"], xin).float()
 
     if state is None:
         zeros = torch.zeros((b, d), dtype=torch.float32, device=x.device)

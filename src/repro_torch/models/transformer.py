@@ -42,9 +42,10 @@ from . import ssm as ssm_mod
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.sharded import is_dtensor, remap
 from .common import (ArchConfig, KeyGen, _init, anchor, apply_attn,
-                     apply_mlp, cross_kv_from_encoder, heads_proj, init_attn,
-                     init_mlp, lm_head_loss, mask_padded_vocab, rmsnorm,
-                     rope, softcap)
+                     apply_mlp, cross_kv_from_encoder, gathered, heads_proj,
+                     init_attn, init_mlp, lm_head_loss, lookup,
+                     mask_padded_vocab, out_proj, product, rmsnorm, rope,
+                     softcap)
 
 TP_DEFAULT = 16  # production mesh model-axis size (vocab/expert padding)
 
@@ -255,13 +256,14 @@ def _anchor_acts(x, cfg: ArchConfig):
 
 def _anchor_tokens(x, cfg: ArchConfig):
     """A mixer's or FFN's input (DTensors only): the batch dim on the
-    planner's axes and the sequence whole on every rank (gathered where
+    planner's axes, the sequence whole on every rank (gathered where
     the residual stream was sequence-sharded, as sequence parallelism
-    gathers before its column-parallel products). DTensor flattens
+    gathers before its column-parallel products) and the features whole
+    (a row-parallel product's partial sum summed). DTensor flattens
     (batch, seq) into a product's rows; with both sharded, over two
     mesh dims, the flattened rows' sharding is one its matrix products
     cannot take."""
-    return anchor(x, (tuple(cfg.act_batch_axes or ()), (), None))
+    return anchor(x, (tuple(cfg.act_batch_axes or ()), (), ()))
 
 
 def forward(params, x, cfg: ArchConfig, *, positions, caches=None,
@@ -319,14 +321,13 @@ def encode(params, src_embeds, cfg: ArchConfig):
         k = heads_proj(h, bp["attn"]["wk"])
         v = heads_proj(h, bp["attn"]["wv"])
         if cfg.qkv_bias:
-            q, k, v = q + bp["attn"]["bq"], k + bp["attn"]["bk"], \
-                v + bp["attn"]["bv"]
+            q, k, v = (t + gathered(bp["attn"][b], t, (0, 1))
+                       for t, b in ((q, "bq"), (k, "bk"), (v, "bv")))
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         out = flash_ops.flash_attention(q, k, v, causal=False, window=0,
                                         softcap=0.0)
-        x = x + torch.einsum("bshk,hkd->bsd", out,
-                             bp["attn"]["wo"]).to(x.dtype)
+        x = x + out_proj(out, bp["attn"]["wo"]).to(x.dtype)
         return _anchor_acts(apply_mlp(bp["mlp"], _anchor_tokens(x, cfg),
                                       cfg), cfg)
 
@@ -339,12 +340,17 @@ def encode(params, src_embeds, cfg: ArchConfig):
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig):
-    return params["embed"][tokens] * torch.tensor(
+    return lookup(params["embed"], tokens) * torch.tensor(
         math.sqrt(cfg.d_model), dtype=cfg.dtype)
 
 
 def _unembed(params):
     return params.get("unembed", params["embed"])
+
+
+def _logits(params, x):
+    """(B, T, Vpad) logits of the final norm's output ``x``."""
+    return product("btd,vd->btv", x, _unembed(params))
 
 
 # ---------------------------------------------------------------------------
@@ -445,8 +451,7 @@ def prefill(params, batch, cfg: ArchConfig, max_seq: int):
     x, caches = forward(params, x, cfg, positions=positions, caches=caches,
                         enc_out=enc_out)
     x = rmsnorm(x[:, -1:], params["final_ln"], cfg.norm_eps)
-    logits = mask_padded_vocab(
-        torch.einsum("btd,vd->btv", x, _unembed(params)), cfg.vocab)[:, 0]
+    logits = mask_padded_vocab(_logits(params, x), cfg.vocab)[:, 0]
     return caches, logits
 
 
@@ -470,7 +475,7 @@ def decode_step(params, tokens, caches, cfg: ArchConfig, *, enc_out=None):
     x, caches = forward(params, x, cfg, positions=positions, caches=caches,
                         enc_out=enc_out)
     x = rmsnorm(x, params["final_ln"], cfg.norm_eps)
-    logits = torch.einsum("btd,vd->btv", x, _unembed(params))
+    logits = _logits(params, x)
     logits = mask_padded_vocab(softcap(logits, cfg.logit_softcap),
                                cfg.vocab)[:, 0]
     return logits, caches

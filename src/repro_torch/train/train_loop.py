@@ -133,13 +133,26 @@ def accumulate_grads(cfg: ArchConfig, params, batch, mark: Mark = None
     return lsum / n, gsum
 
 
+def _summed(grads, params) -> List:
+    """Each gradient on its parameter's placements (DTensors only): a
+    partial sum over the batch's mesh axes summed once, one all-reduce
+    or reduce-scatter a leaf, as GSPMD reduces each gradient once; a
+    partial sum left as it is would be summed again at each of the
+    optimizer's and the norm's reads (five all-reduces a leaf)."""
+    if not is_dtensor(*grads):
+        return grads
+    return [g.redistribute(g.device_mesh, p.placements)
+            if is_dtensor(g) and tuple(g.placements) != tuple(p.placements)
+            else g for g, p in zip(grads, params)]
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
                     compress: Optional[str] = None, mark: Mark = None):
     opt_cfg = opt_cfg or AdamWConfig(quantize_moments=cfg.opt_8bit)
 
     def train_step(params, opt_state, batch):
         loss, gsum = accumulate_grads(cfg, params, batch, mark)
-        grads = unflatten(params, iter(gsum))
+        grads = unflatten(params, iter(_summed(gsum, leaves(params))))
         if compress == "int8":
             grads = grad_compress.roundtrip_int8(grads)
         (mark or _no_mark)("optimizer")

@@ -92,6 +92,24 @@ def test_op_count_of_a_redistribute_is_its_all_gather(mesh22):
     assert got["flops_corrected"] == 0
 
 
+def test_op_count_skips_dtensor_propagation(mesh22):
+    """An in-place ``index_copy_`` into a DTensor (a KV cache's write):
+    DTensor propagates its sharding through the op's decomposition, run
+    on meta tensors of the global shape; the count holds only the local
+    op (the local cache read and written, the local rows read), not the
+    global cache, which no rank touches."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    cache = distribute_tensor(torch.empty(64, 128, 16, device="meta"),
+                              mesh22, [Shard(0), Replicate()])
+    rows = distribute_tensor(torch.empty(64, 1, 16, device="meta"),
+                             mesh22, [Shard(0), Replicate()])
+    at = torch.zeros(1, dtype=torch.long, device="meta")
+    got = OA.analyze_step(lambda: cache.index_copy_(1, at, rows))
+    local = 4 * (32 * 128 * 16 * 2 + 32 * 16)
+    assert got["memory_bytes_corrected"] <= local + 64
+
+
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_kernel_ops_count_by_their_formulas(device):
     """The flash and scan ops' custom ops count by their formulas
@@ -251,6 +269,47 @@ def test_full_size_stablelm_train_cell_on_the_production_mesh():
     assert counts["collective_bytes_corrected"] > 0
 
 
+# stablelm_3b × decode_32k on the (32, 8) mesh under the planner's plan
+# (fsdp_tp, the reference's too), per chip, as the reference's dry run
+# counts it on that mesh: ``PYTHONPATH=src:tests python
+# tests/torch_dryrun_parity.py --arch stablelm_3b --shape decode_32k
+# --mesh 32,8 --strategy fsdp_tp`` (PERF.md, section 6)
+REFERENCE_STABLELM_DECODE = {"flops": 8.037e9, "collective_bytes": 4.863e8}
+
+
+def test_full_size_stablelm_decode_within_bound_of_the_reference():
+    """Per-chip FLOPs at most 1.25x and collective bytes at most 3x the
+    reference's on the same mesh and plan: the batch stays sharded over
+    ``data`` through attention and the caches (each chip attends its 4
+    rows, not all 128)."""
+    try:
+        res = D.run_cell("stablelm_3b", "decode_32k", verbose=False)
+    finally:
+        mesh_mod.release()
+    assert res["status"] == "ok" and res["strategy"] == "fsdp_tp"
+    counts = res["op_counts"]
+    assert counts["flops_corrected"] \
+        <= 1.25 * REFERENCE_STABLELM_DECODE["flops"]
+    assert counts["collective_bytes_corrected"] \
+        <= 3.0 * REFERENCE_STABLELM_DECODE["collective_bytes"]
+
+
+def test_full_size_jamba_decode_on_the_multi_pod_mesh():
+    """jamba_1_5_large_398b × decode_32k on the (2, 32, 8) fake mesh
+    runs ``ok`` (it failed in DTensor's redistribute of a partial sum
+    over ``pod`` and ``model``)."""
+    try:
+        res = D.run_cell("jamba_1_5_large_398b", "decode_32k",
+                         multi_pod=True, verbose=False)
+    finally:
+        mesh_mod.release()
+    assert res["status"] == "ok", res.get("error")
+    assert res["chips"] == 512
+    counts = res["op_counts"]
+    assert counts["flops_corrected"] > 0
+    assert counts["collective_bytes_corrected"] > 0
+
+
 def test_a_cell_error_is_recorded_with_its_traceback(tmp_path, monkeypatch):
     """A propagation error is the cell's ``status: "error"`` (with its
     traceback), never a skipped op."""
@@ -269,6 +328,19 @@ def test_a_cell_error_is_recorded_with_its_traceback(tmp_path, monkeypatch):
     cell = res["stablelm_3b|train_4k|single"]
     assert cell["status"] == "error"
     assert "Traceback" in cell["traceback"]
+
+
+def test_sweep_runs_cells_in_processes(tmp_path, monkeypatch):
+    """``--all --jobs N``: each cell in a process of its own, its result
+    saved by the sweep; an excluded cell is left out."""
+    monkeypatch.setattr(D, "ART_DIR", str(tmp_path))
+    D.sweep(["xlstm_125m"], ["decode_32k", "long_500k", "train_4k"],
+            [False], jobs=2, exclude={"xlstm_125m|train_4k"})
+    assert not dist.is_initialized()
+    res = json.loads((tmp_path / "results.json").read_text())
+    assert sorted(res) == ["xlstm_125m|decode_32k|single",
+                           "xlstm_125m|long_500k|single"]
+    assert all(r["status"] == "ok" for r in res.values())
 
 
 # ---------------------------------------------------------------------------
