@@ -621,6 +621,10 @@ PLANNER_FLOP_TOL = 0.01
 # phase 12 (d): the decode cell of PLANNER_ARCH after a prefill of
 # DECODE_PROMPT tokens, DECODE_BATCH rows, caches DECODE_MAX_SEQ long
 DECODE_BATCH, DECODE_PROMPT, DECODE_MAX_SEQ = 2, 4096, 4224
+# phase 12 (e): the dry run's prefill cell of MOE_ARCH at full width and
+# depth, MOE_BATCH rows of MOE_PROMPT tokens (each expert's capacity 640
+# of the 65,536 assignments: some are dropped)
+MOE_ARCH, MOE_BATCH, MOE_PROMPT = "olmoe_1b_7b", 2, 2048
 # phase 3 cases of the selective-scan kernel: (label, (B, L, I, N), dtype,
 # whether the final state h_L is asked for)
 SCAN_CASES = [
@@ -3720,8 +3724,10 @@ def planner_on_card(torch, card, fa, fa_ops, device="cuda") -> dict:
         raise AssertionError(f"phase 12 (c): {counts}")
 
     decode = decode_cell_on_card(torch, card, fa, fa_ops, full, device)
+    moe = moe_prefill_on_card(torch, card, fa, fa_ops, device)
     return {"launcher": launcher, "cell": cell, "counts": counts,
-            "decode": decode, "s": time.perf_counter() - t_phase}
+            "decode": decode, "moe_prefill": moe,
+            "s": time.perf_counter() - t_phase}
 
 
 def decode_cell_on_card(torch, card, fa, fa_ops, full, device) -> dict:
@@ -3802,6 +3808,93 @@ def decode_cell_on_card(torch, card, fa, fa_ops, full, device) -> dict:
             or launches != full.layers or local_calls != full.layers \
             or plain_calls or moved:
         raise AssertionError(f"phase 12 (d): {res}")
+    return res
+
+
+def moe_prefill_on_card(torch, card, fa, fa_ops, device) -> dict:
+    """Phase 12 (e): the dry run's prefill cell of MOE_ARCH with real
+    weights as DTensors on the card's 1x1 mesh, against the same prefill
+    on plain tensors: the MoE layers' routing, dispatch and combine on
+    each rank's shard (``moe._Sharded``) in every layer, the same
+    assignments dropped."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    full = get_config(MOE_ARCH)
+    rng = np.random.default_rng(SEED + 14)
+    toks = torch.from_numpy(rng.integers(
+        0, full.vocab, (MOE_BATCH, MOE_PROMPT)).astype(np.int32)).to(device)
+    params, specs = T.init_params(full, torch.Generator(
+        device=device).manual_seed(SEED))
+    plain_slots, sharded_slots = [], []
+    route, sharded_route = moe.route, moe._Sharded.route
+
+    def plain_route(p, ht, cfg):
+        weights, slot, cap = route(p, ht, cfg)
+        plain_slots.append((slot, p["router"].shape[1] * cap))
+        return weights, slot, cap
+
+    def spy(layer, h, router):
+        weights, slot = sharded_route(layer, h, router)
+        sharded_slots.append((slot.full_tensor(), layer.e_pad * layer.cap))
+        return weights, slot
+
+    def dropped(slots):
+        return [s.reshape(-1) == over for s, over in slots]
+
+    moe.route, moe._Sharded.route = plain_route, spy
+    try:
+        with torch.no_grad():
+            _, plain = T.prefill(params, {"tokens": toks}, full,
+                                 max_seq=MOE_PROMPT)
+            plain = plain.float()
+            shape = ShapeSpec("moe_prefill", MOE_PROMPT, MOE_BATCH,
+                              "prefill")
+            mesh = mesh_mod.make_host_mesh(device=device)
+            try:
+                fa.launches = moe.local_calls = 0
+                fa_ops.plain_calls = fa_ops.local_calls = 0
+                t1 = time.perf_counter()
+                plan, _, _, (_, logits) = D.count_cell(
+                    dataclasses.replace(full, force_strategy="fsdp_tp"),
+                    shape, mesh, params=params, specs=specs,
+                    batch={"tokens": toks})
+                step_s = time.perf_counter() - t1
+                got = logits.full_tensor().float()
+                launches, local_calls, plain_calls, moe_calls = \
+                    fa.launches, fa_ops.local_calls, fa_ops.plain_calls, \
+                    moe.local_calls
+            finally:
+                mesh_mod.release()
+    finally:
+        moe.route, moe._Sharded.route = route, sharded_route
+    want, have = dropped(plain_slots), dropped(sharded_slots)
+    res = {"strategy": plan.strategy.name,
+           "argmax_equal": bool((got.argmax(-1) == plain.argmax(-1)).all()),
+           "max_logit_diff": float((got - plain).abs().max()),
+           "launches": launches, "local_calls": local_calls,
+           "plain_calls": plain_calls, "moe_local_calls": moe_calls,
+           "dropped": [int(m.sum()) for m in have],
+           "same_drops": len(want) == len(have) == full.layers and all(
+               bool(torch.equal(a, b)) for a, b in zip(want, have)),
+           "expected_layers": full.layers, "step_s": step_s,
+           "s": time.perf_counter() - t0, "card": card}
+    del params, logits, got, plain, plain_slots, sharded_slots, want, have
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12 (e) the dry run's prefill cell of {MOE_ARCH} "
+          f"({MOE_BATCH} rows of {MOE_PROMPT} tokens) as DTensors on the "
+          f"card's 1x1 mesh: {json.dumps(res)}", flush=True)
+    if not res["argmax_equal"] or res["max_logit_diff"] > LM_LOGIT_TOL \
+            or launches != full.layers or local_calls != full.layers \
+            or plain_calls or moe_calls != full.layers \
+            or not sum(res["dropped"]) or not res["same_drops"]:
+        raise AssertionError(f"phase 12 (e): {res}")
     return res
 
 
@@ -4045,7 +4138,10 @@ def main() -> int:
             "plain_calls")},
         "dtensor_decode_step": {k: planner["decode"][k] for k in (
             "launches", "local_calls", "plain_calls", "max_logit_diff",
-            "step_s")}}
+            "step_s")},
+        "dtensor_moe_prefill": {k: planner["moe_prefill"][k] for k in (
+            "launches", "local_calls", "plain_calls", "moe_local_calls",
+            "max_logit_diff", "step_s")}}
     bwd = cases["flash_attention_bwd"]
     main_case = next(c for c in bwd if c["case"] == "stablelm")
     summary[1]["backward"] = {

@@ -135,6 +135,15 @@ def _flat_group(mesh, mdims):
     return mesh[names]._flatten("_".join(names))
 
 
+def group_name(mesh, mdims) -> str:
+    """The name, as the functional collectives take it, of the process
+    group over ``mesh``'s dimensions ``mdims`` (several: flattened, ranks
+    in mesh order)."""
+    if len(mdims) == 1:
+        return mesh.get_group(mdims[0]).group_name
+    return _flat_group(mesh, mdims).get_group().group_name
+
+
 class _FlatGather(torch.autograd.Function):
     """Tensor dimension ``dim`` of a DTensor, sharded (nested, in mesh
     order) over the mesh dimensions ``mdims``, gathered by one

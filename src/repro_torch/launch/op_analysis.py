@@ -21,6 +21,9 @@ reference's per-device program counts:
                        ``chip_smoke.py`` bounds the kernels), so a kernel
                        call counts alike whether the kernel or its plain
                        version runs, or a meta tensor's shape function;
+                       the scan's share also under a key of its own
+                       (``flops_scan``: elementwise operations, where the
+                       reference's ``hlo_analysis`` counts only dots);
   * memory bytes     — Σ (result + operand bytes) of every op that is not
                        a view (the reference's post-fusion boundaries;
                        eager has no fusion, so every op is a boundary),
@@ -100,6 +103,8 @@ _register(torch.ops.repro_torch.flash_attention_fwd, _flash_fwd_flops)
 _register(torch.ops.repro_torch.flash_attention_bwd, _flash_bwd_flops)
 _register(torch.ops.repro_torch.mamba_scan_fwd, _scan_fwd_flops)
 _register(torch.ops.repro_torch.mamba_scan_bwd, _scan_bwd_flops)
+_SCAN_OPS = (torch.ops.repro_torch.mamba_scan_fwd,
+             torch.ops.repro_torch.mamba_scan_bwd)
 
 
 def _nbytes(tree) -> int:
@@ -192,6 +197,7 @@ class OpCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.flops = 0.0
+        self.scan_flops = 0.0
         self.memory_bytes = 0.0
         self.collective_bytes = 0.0
         self.per_kind: Dict[str, float] = {k: 0.0 for k in COLLECTIVES}
@@ -227,8 +233,11 @@ class OpCounter(TorchDispatchMode):
     def _count(self, func, args, kwargs, out) -> None:
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.flops += float(flop_registry[packet](*args, **kwargs,
-                                                      out_val=out))
+            flops = float(flop_registry[packet](*args, **kwargs,
+                                                out_val=out))
+            self.flops += flops
+            if packet in _SCAN_OPS:
+                self.scan_flops += flops
         kind = _collective_kind(func)
         res = _nbytes(out)
         if kind is not None:
@@ -248,6 +257,7 @@ class OpCounter(TorchDispatchMode):
         top = sorted(self.by_op.items(), key=lambda kv: -kv[1])[:10]
         return {
             "flops_corrected": self.flops,
+            "flops_scan": self.scan_flops,
             "memory_bytes_corrected": self.memory_bytes,
             "collective_bytes_corrected": self.collective_bytes,
             "collective_per_kind": dict(self.per_kind),

@@ -227,9 +227,17 @@ def anchor(t, spec):
     unchanged."""
     if not is_dtensor(t):
         return t
+    out = anchored(t.placements, t.shape, spec, t.device_mesh)
+    if tuple(out) == tuple(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, out)
+
+
+def anchored(placements, shape, spec, mesh) -> list:
+    """The placements :func:`anchor` gives a tensor of ``shape`` placed
+    by ``placements`` on ``mesh``."""
     from torch.distributed.tensor import Replicate, Shard
 
-    mesh = t.device_mesh
     names = tuple(mesh.mesh_dim_names or ())
     want = {}
     whole = {d for d, entry in enumerate(spec) if entry == ()}
@@ -238,10 +246,10 @@ def anchor(t, spec):
         axes = tuple(a for a in axes if a in names
                      and mesh.size(names.index(a)) > 1)
         n = math.prod(mesh.size(names.index(a)) for a in axes)
-        if axes and t.shape[d] % n == 0:
+        if axes and shape[d] % n == 0:
             want.update({names.index(a): d for a in axes})
     out = []
-    for m, cur in enumerate(t.placements):
+    for m, cur in enumerate(placements):
         if m in want:
             out.append(Shard(want[m]))
         elif cur.is_partial() or (isinstance(cur, Shard) and (
@@ -249,9 +257,7 @@ def anchor(t, spec):
             out.append(Replicate())
         else:
             out.append(cur)
-    if tuple(out) == tuple(t.placements):
-        return t
-    return t.redistribute(mesh, out)
+    return out
 
 
 def _row_dims(x, rows):
@@ -425,27 +431,6 @@ def _lookup(tokens, table):
     return local_map(local, out_placements=out, in_placements=(tp, kp),
                      in_grad_placements=(grad, kp), device_mesh=mesh,
                      redistribute_inputs=True)(table, tokens)
-
-
-def on_replicas(fn, n_out: int, *args):
-    """``fn(*args)``, whose result is ``n_out`` tensors (one: a tensor,
-    else a tuple). Where an argument is a DTensor, every tensor argument
-    is gathered whole on each rank and ``fn`` runs there on plain
-    tensors (``local_map``, every placement ``Replicate``), each rank
-    alike; its results come back replicated. For the steps whose result
-    depends on the whole batch (MoE routing: an expert's capacity is
-    shared by every token)."""
-    if not is_dtensor(*args):
-        return fn(*args)
-    from torch.distributed.tensor import Replicate
-    from torch.distributed.tensor.experimental import local_map
-
-    mesh = mesh_of(*args)
-    rep = [Replicate()] * mesh.ndim
-    ins = tuple(rep if isinstance(a, torch.Tensor) else None for a in args)
-    out = rep if n_out == 1 else (rep,) * n_out
-    return local_map(fn, out_placements=out, in_placements=ins,
-                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 # ---------------------------------------------------------------------------

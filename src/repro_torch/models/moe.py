@@ -15,24 +15,49 @@ What changes against the reference: the scatter is ``index_add_`` into
 an (E·cap + 1, D) buffer whose last row takes the dropped tokens and is
 discarded (the reference's ``.at[slot].add``); the expert products are
 ``torch.bmm`` (plain products outside any kernel, as the reference left
-them to XLA). On DTensors (the dry run, a sharded step) the routing,
-the dispatch and the combine run on every rank alike over the whole
-batch (``common.on_replicas``: an expert's capacity is shared by every
-token of the batch, as in the reference), and the dispatch buffer and
-the experts' output are anchored to the planner's expert and capacity
-axes (``common.anchor``, the reference's ``_anchor``), so that the
-expert products run sharded; plain tensors take none of this.
+them to XLA). Plain tensors (served, or trained on one card) take only
+this.
+
+On DTensors (the dry run, a sharded step) the routing, the dispatch and
+the combine are one ``local_map`` each on each rank's own shard, as the
+reference's GSPMD program partitions them (the tokens sharded over the
+batch's mesh axes, their sequence whole: ``transformer._anchor_tokens``):
+
+* routing: each rank routes its own tokens. A token's position within
+  its expert is its rank in the global flat order (b·S + s, then top-k
+  order), so each rank adds to its local cumsum the assignments to that
+  expert of the shards before its own (one all-gather of E counts a
+  rank): the reference's positions and drops.
+* dispatch: the token rows and their slots are gathered over the
+  batch's mesh axes only, and each rank fills its own piece of the
+  (E, cap, D) buffer, placed on the planner's expert and capacity axes
+  (``common.anchor``'s placements, the reference's ``_anchor``), so
+  that the expert products run sharded.
+* combine: each rank weights its piece's rows into a partial sum for
+  the gathered tokens, which one reduce-scatter over the batch's mesh
+  axes returns to their ranks; one all-reduce sums over the axes that
+  shard only the experts.
+
+No rank holds the experts' whole output, and no row crosses a mesh axis
+that shards neither the tokens nor the buffer (:class:`_Sharded`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..kernels.sharded import (group_name, is_dtensor, keep_shards,
+                               shard_index, shards)
 from .common import (ArchConfig, KeyGen, _act, _init, _zeros, anchor,
-                     gathered, on_replicas, product, rmsnorm)
+                     anchored, gathered, product, rmsnorm)
+
+#: the DTensor path's calls (:func:`_routed_sharded`: one a MoE layer
+#: and forward)
+local_calls = 0
 
 
 def padded_experts(cfg: ArchConfig, tp: int = 16) -> int:
@@ -90,21 +115,36 @@ def route(p, ht, cfg: ArchConfig):
     cap + position within the expert, or the last row, E·cap, for one
     past the expert's capacity ``cap``: dropped)."""
     e_pad = p["router"].shape[1]
-    logits = ht.float() @ p["router"]                       # (T, E)
+    weights, flat_e, pos, _ = _assignments(ht, p["router"], cfg)
+    cap = capacity(cfg, ht.shape[0], e_pad)
+    return weights, _slots(flat_e, pos, cap, e_pad), cap
+
+
+def _assignments(ht, router, cfg: ArchConfig):
+    """(weights, flat_e, pos, counts) for the tokens ``ht`` (T, D): the
+    top-k softmax weights (T, K), each of the T·K assignments' expert
+    and its position among these tokens' assignments to that expert,
+    and the number of assignments to each expert (E,)."""
+    e_pad = router.shape[1]
+    logits = ht.float() @ router                            # (T, E)
     if e_pad != cfg.n_experts:
         pad = torch.arange(e_pad, device=ht.device) >= cfg.n_experts
         logits = logits.masked_fill(pad, -1e30)
     weights, expert_ids = torch.topk(logits, cfg.experts_topk, dim=-1)
     weights = torch.softmax(weights, dim=-1).to(ht.dtype)  # (T, K)
 
-    # --- capacity + position within expert -----------------------------
-    cap = capacity(cfg, ht.shape[0], e_pad)
+    # --- position within expert ------------------------------------------
     flat_e = expert_ids.reshape(-1)                         # (T*K,)
-    onehot = F.one_hot(flat_e, e_pad)                       # (T*K, E)
-    pos = (onehot.cumsum(0) - 1).gather(1, flat_e[:, None])[:, 0]
-    slot = torch.where(pos < cap, flat_e * cap + pos,
-                       torch.full_like(pos, e_pad * cap))   # overflow row
-    return weights, slot, cap
+    running = F.one_hot(flat_e, e_pad).cumsum(0)            # (T*K, E)
+    pos = (running - 1).gather(1, flat_e[:, None])[:, 0]
+    return weights, flat_e, pos, running[-1]
+
+
+def _slots(flat_e, pos, cap: int, e_pad: int):
+    """Each assignment's row of the dispatch buffer; E·cap (the overflow
+    row) where its position is past the capacity."""
+    return torch.where(pos < cap, flat_e * cap + pos,
+                       torch.full_like(pos, e_pad * cap))
 
 
 def _dispatch(ht, slot, e_pad: int, cap: int, k: int):
@@ -125,6 +165,12 @@ def _combine(out, slot, weights, k: int):
     return gathered.reshape(-1, k, d).sum(dim=1)
 
 
+def _spec(cfg: ArchConfig, ndim: int):
+    """The anchor spec of an (expert, capacity, ...) tensor."""
+    return (tuple(cfg.moe_expert_axes), tuple(cfg.moe_capacity_axes or ())) \
+        + ((),) * (ndim - 2)
+
+
 def _anchor(t, cfg: ArchConfig):
     """Pin (expert, capacity) dims to the planner's axes and the features
     whole (DTensors only): without it the expert products can stay
@@ -135,9 +181,21 @@ def _anchor(t, cfg: ArchConfig):
     the last one's features gathered."""
     if not cfg.moe_expert_axes:
         return t
-    return anchor(t, (tuple(cfg.moe_expert_axes),
-                      tuple(cfg.moe_capacity_axes or ()))
-                  + ((),) * (t.dim() - 2))
+    return anchor(t, _spec(cfg, t.dim()))
+
+
+def _experts(p, buf, act, cfg: ArchConfig):
+    """The experts' outputs (E, cap, D) for their tokens ``buf``, batched
+    over the experts (each expert's weights gathered over the capacity's
+    mesh dims)."""
+    buf = _anchor(buf, cfg)
+    up = _anchor(torch.bmm(buf, gathered(p["wi"], buf, (1,))), cfg)
+    if "wg" in p:
+        up = act(_anchor(torch.bmm(buf, gathered(p["wg"], buf, (1,))),
+                         cfg)) * up                         # (E, C, F)
+    else:
+        up = act(up)
+    return _anchor(torch.bmm(up, gathered(p["wo"], up, (1,))), cfg)
 
 
 def apply_moe(p, x, cfg: ArchConfig):
@@ -145,33 +203,17 @@ def apply_moe(p, x, cfg: ArchConfig):
     b, s, d = x.shape
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
     t = b * s
-    ht = h.reshape(t, d)
     e_pad = p["router"].shape[1]
     k = cfg.experts_topk
     act = _act(cfg.mlp_act)
     cap = capacity(cfg, t, e_pad)
-    weights, slot = on_replicas(
-        lambda h_, r: route({"router": r}, h_, cfg)[:2], 2, ht, p["router"])
-
-    # --- dispatch -------------------------------------------------------
-    buf = _anchor(on_replicas(
-        lambda h_, s_: _dispatch(h_, s_, e_pad, cap, k), 1, ht, slot), cfg)
-
-    # --- expert computation (batched over experts) -----------------------
-    # (each expert's weights gathered over the capacity's mesh dims)
-    up = _anchor(torch.bmm(buf, gathered(p["wi"], buf, (1,))), cfg)
-    if "wg" in p:
-        up = act(_anchor(torch.bmm(buf, gathered(p["wg"], buf, (1,))),
-                         cfg)) * up                         # (E, C, F)
+    if is_dtensor(h):
+        y = _routed_sharded(p, h, cap, act, cfg)
     else:
-        up = act(up)
-    out = _anchor(torch.bmm(up, gathered(p["wo"], up, (1,))), cfg)
-
-    # --- combine ----------------------------------------------------------
-    y = on_replicas(lambda o, s_, w: _combine(o, s_, w, k), 1, out, slot,
-                    weights)
-
-    y = y.reshape(b, s, d)
+        ht = h.reshape(t, d)
+        weights, slot, _ = route(p, ht, cfg)
+        out = _experts(p, _dispatch(ht, slot, e_pad, cap, k), act, cfg)
+        y = _combine(out, slot, weights, k).reshape(b, s, d)
 
     # --- shared experts (dense; on (B, S, D): a DTensor's tokens flattened
     # over two mesh dims would not reshape back) --------------------------
@@ -185,3 +227,230 @@ def apply_moe(p, x, cfg: ArchConfig):
         y = y + product("bsf,fd->bsd", up_s, p["shared_wo"], torch.matmul)
 
     return x + y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# DTensors: routing, dispatch and combine on each rank's own shard
+# ---------------------------------------------------------------------------
+
+class _Sharded:
+    """One MoE layer's routing, dispatch and combine on DTensors, each
+    one ``local_map`` on each rank's own shard.
+
+    The tokens ``h`` (B, S, D) are sharded by batch rows over the mesh
+    dims ``tok`` (a rank's rows are block :attr:`index` of the global
+    flat order, blocks nested in mesh order); the dispatch buffer (E,
+    cap, D) lies on the placements ``bp`` (the planner's expert and
+    capacity axes, where they split it), its dims ``buf``. Each rank
+    gathers every ``tok`` rank's rows (:meth:`gather`). The combine's
+    partial sums over them go back (:meth:`reduce`) by one
+    reduce-scatter over the ``tok`` dims that shard the buffer; along
+    the others a rank's piece of the buffer is every rank's, so each
+    keeps its own block of rows only; then one all-reduce over the
+    ``buf`` dims that do not shard the tokens (:meth:`total`). The
+    exchanges take and give plain tensors (inside a ``local_map``)."""
+
+    def __init__(self, h, e_pad: int, cap: int, cfg: ArchConfig):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = self.mesh = h.device_mesh
+        self.cfg, self.e_pad, self.cap = cfg, e_pad, cap
+        self.hp = keep_shards(h.placements, (0,), h.shape, mesh)
+        bp = [Replicate()] * mesh.ndim
+        if cfg.moe_expert_axes:
+            bp = anchored(bp, (e_pad, cap, h.shape[-1]), _spec(cfg, 3),
+                          mesh)
+        self.bp = bp
+        tok = self.tok = [m for m, q in enumerate(self.hp)
+                          if isinstance(q, Shard)]
+        buf = self.buf = [m for m, q in enumerate(bp)
+                          if isinstance(q, Shard)]
+        coord = mesh.get_coordinate()
+        self.sizes = [mesh.size(m) for m in tok]
+        self.n = math.prod(self.sizes)
+        # per tok dim: summed over (it shards the buffer), or this rank's
+        # coordinate along it
+        self.pick = tuple(slice(None) if m in buf else coord[m]
+                          for m in tok)
+        self.index = shard_index(self.hp, 0, mesh)
+        red = [m for m in tok if m in buf]
+        rest = [m for m in buf if m not in tok]
+        self.n_red = math.prod(mesh.size(m) for m in red)
+        self.gather_group = group_name(mesh, tok) if tok else None
+        self.reduce_group = group_name(mesh, red) if red else None
+        self.sum_group = group_name(mesh, rest) if rest else None
+        # this rank's piece of the buffer: experts [e0, e0 + ne),
+        # positions [c0, c0 + nc)
+        self.ne = e_pad // shards(bp, 0, mesh)
+        self.nc = cap // shards(bp, 1, mesh)
+        self.e0 = shard_index(bp, 0, mesh) * self.ne
+        self.c0 = shard_index(bp, 1, mesh) * self.nc
+
+    # --- the three steps (DTensors) --------------------------------------
+
+    def route(self, h, router):
+        """(weights (B, S, K), slot (B, S·K)) of :func:`route`, sharded
+        as ``h``: each rank routes its own tokens and adds to each
+        position the assignments to its expert of the blocks before its
+        own."""
+        cfg, rep = self.cfg, self._placements()
+
+        def local(h_, router_):
+            b, s, d = h_.shape
+            weights, flat_e, pos, counts = _assignments(
+                h_.reshape(-1, d), router_, cfg)
+            if self.n > 1:
+                pos = pos + self.gather(counts[None])[:self.index].sum(
+                    0)[flat_e]
+            slot = _slots(flat_e, pos, self.cap, self.e_pad)
+            return weights.reshape(b, s, -1), slot.reshape(b, -1)
+
+        # the router's gradient: each tok rank's own tokens'
+        return self._map(local, (self.hp, rep), (self.hp, self.hp),
+                         (self.hp, self._placements(partial=self.tok))
+                         )(h, router)
+
+    def dispatch(self, h, slot):
+        """The dispatch buffer (E, cap, D) on ``bp``: each rank fills its
+        piece from every tok rank's rows."""
+        k = self.cfg.experts_topk
+
+        def local(h_, slot_):
+            every = _Gathered.apply(h_.reshape(-1, h_.shape[-1]), self)
+            return _fill(every, self._own(slot_), self.ne * self.nc,
+                         k).reshape(self.ne, self.nc, -1)
+
+        return self._map(local, (self.hp, self.hp), self.bp,
+                         (self._by_expert(), self.hp))(h, slot)
+
+    def combine(self, out, slot, weights):
+        """Each token's experts' outputs, weighted and summed (B, S, D),
+        sharded as ``h``."""
+        k = self.cfg.experts_topk
+
+        def local(out_, slot_, weights_):
+            every = _Gathered.apply(weights_.reshape(-1, k), self)
+            y = _Reduced.apply(_combine(out_, self._own(slot_), every, k),
+                               self)
+            return y.reshape(slot_.shape[0], -1, y.shape[-1])
+
+        return self._map(local, (self.bp, self.hp, self.hp), self.hp,
+                         (self.bp, self.hp, self._by_expert())
+                         )(out, slot, weights)
+
+    def _own(self, slot_):
+        """Each gathered assignment's row of this rank's piece (or the
+        piece's overflow row)."""
+        every = self.gather(slot_.reshape(-1))
+        e, c = every // self.cap, every % self.cap
+        mine = (e >= self.e0) & (e < self.e0 + self.ne) \
+            & (c >= self.c0) & (c < self.c0 + self.nc)
+        return torch.where(mine, (e - self.e0) * self.nc + c - self.c0,
+                           torch.full_like(every, self.ne * self.nc))
+
+    def _placements(self, base=None, partial=()):
+        from torch.distributed.tensor import Partial, Replicate
+
+        base = base or [Replicate()] * self.mesh.ndim
+        return [Partial() if m in partial else q
+                for m, q in enumerate(base)]
+
+    def _by_expert(self):
+        """A gradient of the tokens' rows or weights: sharded as ``h``,
+        a partial sum over the dims that shard only the buffer (each rank
+        has its experts' share)."""
+        return self._placements(self.hp, [m for m in self.buf
+                                          if m not in self.tok])
+
+    def _map(self, fn, ins, out, grads):
+        from torch.distributed.tensor.experimental import local_map
+
+        return local_map(fn, out_placements=out, in_placements=ins,
+                         in_grad_placements=grads, device_mesh=self.mesh,
+                         redistribute_inputs=True)
+
+    # --- the exchanges (plain tensors) -----------------------------------
+
+    def gather(self, x):
+        """(T, ...) rows of each tok rank → (n·T, ...), in rank order."""
+        if self.gather_group is None:
+            return x
+        ops = torch.ops._c10d_functional
+        return ops.wait_tensor(ops.all_gather_into_tensor(
+            x.contiguous(), self.n, self.gather_group))
+
+    def reduce(self, xg):
+        """(n·T, ...) partial sums → this rank's (T, ...)."""
+        if self.gather_group is None:
+            return xg
+        rest = xg.shape[1:]
+        x = xg.reshape(*self.sizes, -1, *rest)[self.pick]
+        x = x.reshape(-1, *rest)
+        if self.reduce_group is None:
+            return x
+        ops = torch.ops._c10d_functional
+        return ops.wait_tensor(ops.reduce_scatter_tensor(
+            x.contiguous(), "sum", self.n_red, self.reduce_group))
+
+    def total(self, y):
+        """``y`` summed over the buf dims that do not shard the tokens."""
+        if self.sum_group is None:
+            return y
+        ops = torch.ops._c10d_functional
+        return ops.wait_tensor(ops.all_reduce(y.contiguous(), "sum",
+                                              self.sum_group))
+
+
+class _Gathered(torch.autograd.Function):
+    """``layer.gather(x)``, its gradient ``layer.reduce``."""
+
+    @staticmethod
+    def forward(ctx, x, layer):
+        ctx.layer = layer
+        return layer.gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.layer.reduce(g), None
+
+
+class _Reduced(torch.autograd.Function):
+    """``layer.total(layer.reduce(x))`` of partial sums ``x`` over every
+    tok rank's rows, its gradient ``layer.gather``: each rank's gradient
+    of the partial sums is every row's (a partial sum over the tok dims
+    that shard the buffer: its rows' gradient whole; along the others
+    alike on each rank, as ``x`` is; the sum ``total`` takes is
+    replicated, and so is its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, layer):
+        ctx.layer = layer
+        return layer.total(layer.reduce(x))
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.layer.gather(g), None
+
+
+def _routed_sharded(p, h, cap: int, act, cfg: ArchConfig):
+    """The routed experts' sum (B, S, D) for the DTensor ``h``."""
+    global local_calls
+    local_calls += 1
+    layer = _Sharded(h, p["router"].shape[1], cap, cfg)
+    weights, slot = layer.route(h, p["router"])
+    out = _experts(p, layer.dispatch(h, slot), act, cfg)
+    return layer.combine(out, slot, weights)
+
+
+def _fill(every, own, n: int, k: int):
+    """The (n, D) rows of a piece of the dispatch buffer: the row of the
+    token of the assignment ``own`` sends there (an assignment a row of
+    the piece, or ``n``: elsewhere), zeros where none is sent. A gather
+    of the piece's rows (``_dispatch`` scatters all T·K)."""
+    t = every.shape[0]
+    tok = torch.full((n + 1,), t, dtype=own.dtype, device=own.device)
+    tok = tok.scatter(0, own, torch.arange(own.numel(), device=own.device)
+                      // k)[:n]
+    sent = tok < t
+    return torch.where(sent[:, None], every[tok.clamp(max=t - 1)],
+                       every.new_zeros(()))

@@ -115,7 +115,8 @@ def test_kernel_ops_count_by_their_formulas(device):
     """The flash and scan ops' custom ops count by their formulas
     (SDPA's 4·BH·Sq·Skv·D forward, 10·… backward; the scan's
     SCAN_FWD_OPS / SCAN_BWD_OPS per element), whether the plain version
-    runs (CPU tensors) or only the shape function (meta tensors)."""
+    runs (CPU tensors) or only the shape function (meta tensors); the
+    scan's also under ``flops_scan``."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.mamba_scan import ops as sc_ops
 
@@ -136,6 +137,8 @@ def test_kernel_ops_count_by_their_formulas(device):
     assert got["flops_corrected"] == (4 + 10) * bh * s * s * d
     assert scan["flops_corrected"] == (OA.SCAN_FWD_OPS + OA.SCAN_BWD_OPS) \
         * 2 * 24 * 8 * 4
+    assert scan["flops_scan"] == scan["flops_corrected"]
+    assert got["flops_scan"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +295,33 @@ def test_full_size_stablelm_decode_within_bound_of_the_reference():
         <= 1.25 * REFERENCE_STABLELM_DECODE["flops"]
     assert counts["collective_bytes_corrected"] \
         <= 3.0 * REFERENCE_STABLELM_DECODE["collective_bytes"]
+
+
+# the MoE prefill cells on the (32, 8) mesh under the reference's plan
+# (fsdp_tp), per chip, as the reference's dry run counts them there
+# (``tests/torch_dryrun_parity.py --arch ARCH --shape prefill_32k --mesh
+# 32,8``; PERF.md, section 6)
+REFERENCE_MOE_PREFILL = {
+    "olmoe_1b_7b": {"flops": 5.734e14, "collective_bytes": 1.390e11},
+    "qwen2_moe_a2_7b": {"flops": 8.631e14, "collective_bytes": 2.253e11}}
+
+
+@pytest.mark.parametrize("arch", list(REFERENCE_MOE_PREFILL))
+def test_full_size_moe_prefill_within_bound_of_the_reference(arch):
+    """Per-chip FLOPs at most 1.25x and collective bytes at most 3x the
+    reference's: each rank routes its own tokens, the rows go only over
+    the batch's axes, and no chip gathers the experts' whole output
+    (olmoe: 42.9 GB a layer, 6.15x the reference's bytes)."""
+    try:
+        res = D.run_cell(arch, "prefill_32k", verbose=False)
+    finally:
+        mesh_mod.release()
+    ref = REFERENCE_MOE_PREFILL[arch]
+    assert res["status"] == "ok" and res["strategy"] == "fsdp_tp"
+    counts = res["op_counts"]
+    assert counts["flops_corrected"] <= 1.25 * ref["flops"]
+    assert counts["collective_bytes_corrected"] \
+        <= 3.0 * ref["collective_bytes"]
 
 
 def test_full_size_jamba_decode_on_the_multi_pod_mesh():

@@ -1,11 +1,14 @@
 """A whole sharded step on four real ranks: the smoke configs' decode
-and train steps (stablelm_3b, and jamba_1_5_large_398b cut to one
-period for its Mamba scan and MoE) under FSDP×TP and FSDP forced, built
-by the dry run's cell builders on a (2, 2) ``gloo`` mesh, against the
-same step on plain tensors (``torch_sharded_step.py``, one process a
-rank). This is what shows that the sharded step's gathers keep each
-rank's values. Tolerance: 1e-5 relative in float32 (of the logits, and
-of the loss and gradient norm). About 35 s.
+and train steps (stablelm_3b, jamba_1_5_large_398b cut to one period
+for its Mamba scan and MoE, and olmoe_1b_7b) under FSDP×TP and FSDP
+forced, built by the dry run's cell builders on a (2, 2) ``gloo`` mesh,
+against the same step on plain tensors (``torch_sharded_step.py``, one
+process a rank). This is what shows that the sharded step's gathers
+keep each rank's values, and that each rank's routing of its own
+tokens gives every assignment the position one routing of the whole
+batch gives it: the MoE layers drop the same assignments (and some).
+Tolerance: 1e-5 relative in float32 (of the logits, and of the loss and
+gradient norm). About 40 s.
 """
 
 import json
@@ -46,3 +49,18 @@ def test_decode_keeps_batch_shards(results, case):
     """No flash input a partial sum; every cache leaf after the step on
     its ``cache_sharding`` placements."""
     assert results[case]["flash_ok"] and results[case]["caches_kept"]
+
+
+MOE_CASES = [c for c in CASES if not c.startswith("stablelm_3b/")]
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_sharded_routing_drops_the_plain_steps_assignments(results, case):
+    """Every MoE layer's routing drops exactly the assignments the plain
+    step's drops (the global flat order of positions within an
+    expert)."""
+    assert results[case]["dropped"] and results[case]["same_drops"]
+
+
+def test_some_routing_drops_assignments(results):
+    assert any(sum(results[c]["dropped"]) > 0 for c in MOE_CASES)

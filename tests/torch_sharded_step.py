@@ -6,8 +6,10 @@ parameters, batch and caches placed as DTensors by the plan), against
 the same step on plain tensors. The decode step runs against the caches
 of a plain prefill. Rank 0 writes, per case, the largest relative error
 of the logits (decode) or of the loss and the gradient norm (train),
-and whether every flash input and every cache leaf after the step kept
-its batch shards.
+whether every flash input and every cache leaf after the step kept
+its batch shards, and, for the MoE layers, the assignments each routing
+of the plain step dropped and whether the sharded step's routings
+dropped the same ones.
 
     PYTHONPATH=src python tests/torch_sharded_step.py RANK WORLD STORE OUT
 """
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-ARCHS = ("stablelm_3b", "jamba_1_5_large_398b")
+ARCHS = ("stablelm_3b", "jamba_1_5_large_398b", "olmoe_1b_7b")
 STRATEGIES = ("fsdp_tp", "fsdp")
 KINDS = ("decode", "train")
 SEQ, BATCH = 32, 8
@@ -47,6 +49,13 @@ def _uniform(caches):
     return caches
 
 
+def _dropped(slots) -> list:
+    """Each routing's dropped assignments (a mask in the global flat
+    order) from its recorded (slot, E·cap)."""
+    return [(s.full_tensor() if hasattr(s, "full_tensor") else s
+             ).reshape(-1) == over for s, over in slots]
+
+
 def run_case(mesh, arch: str, kind: str, strategy: str) -> dict:
     from torch.distributed.tensor import DTensor
 
@@ -55,6 +64,7 @@ def run_case(mesh, arch: str, kind: str, strategy: str) -> dict:
     from repro_torch.core import planner as PL
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import dryrun as D
+    from repro_torch.models import moe
     from repro_torch.models import transformer as T
     from repro_torch.train import (AdamWConfig, init_opt_state,
                                    make_train_step)
@@ -65,6 +75,11 @@ def run_case(mesh, arch: str, kind: str, strategy: str) -> dict:
     # Jamba's smoke config cut to one period: attention, Mamba, MoE, MLP
     cfg = dataclasses.replace(cfg, layers=max(cfg.period, 2),
                               dtype=torch.float32, force_strategy=strategy)
+    if arch == "olmoe_1b_7b":
+        # an odd capacity (41): under FSDP×TP the buffer's capacity does
+        # not split over `data`, so each `data` rank holds the whole of
+        # its experts' buffer, through the backward too (Jamba's splits)
+        cfg = dataclasses.replace(cfg, capacity_factor=1.3)
     shape = ShapeSpec(f"smoke_{kind}", SEQ, BATCH, kind)
     params, specs = T.init_params(cfg, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
@@ -79,14 +94,29 @@ def run_case(mesh, arch: str, kind: str, strategy: str) -> dict:
                             for p in t.placements))
         return sharded(q, k, v, **kw)
 
+    plain_slots, sharded_slots = [], []
+
+    def plain_route(p, ht, cfg):
+        weights, slot, cap = route(p, ht, cfg)
+        plain_slots.append((slot, p["router"].shape[1] * cap))
+        return weights, slot, cap
+
+    def sharded_route(layer, h, router):
+        weights, slot = sharded_route_(layer, h, router)
+        sharded_slots.append((slot, layer.e_pad * layer.cap))
+        return weights, slot
+
     sharded = fa_ops._sharded
+    route, sharded_route_ = moe.route, moe._Sharded.route
     fa_ops._sharded = spy
+    moe.route, moe._Sharded.route = plain_route, sharded_route
     try:
         if kind == "decode":
             caches, _ = T.prefill(params, {"tokens": tokens[:, :-1]}, cfg,
                                   max_seq=SEQ)
             caches = _uniform(caches)
             step = tokens[:, -1:]
+            plain_slots.clear()
             want, _ = T.decode_step(params, step, copy.deepcopy(caches), cfg)
             placed = []
 
@@ -120,7 +150,12 @@ def run_case(mesh, arch: str, kind: str, strategy: str) -> dict:
             assert isinstance(got["loss"], DTensor)
     finally:
         fa_ops._sharded = sharded
+        moe.route, moe._Sharded.route = route, sharded_route_
     res["flash_ok"] = bool(flash_ok) and all(flash_ok)
+    plain, got = _dropped(plain_slots), _dropped(sharded_slots)
+    res["dropped"] = [int(m.sum()) for m in plain]
+    res["same_drops"] = len(plain) == len(got) and all(
+        torch.equal(a, b) for a, b in zip(plain, got))
     res["seconds"] = time.perf_counter() - t0
     return res
 
