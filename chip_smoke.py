@@ -261,7 +261,19 @@ exit:
    step on plain tensors: every row's argmax equal and the largest
    logit difference at most LM_LOGIT_TOL; one flash launch and one
    ``local_calls`` a layer, no plain call; every cache leaf after the
-   step on its ``cache_sharding`` placements.
+   step on its ``cache_sharding`` placements. (e) olmoe_1b_7b's
+   prefill cell likewise (MOE_ARCH): the MoE layers' routing, dispatch
+   and combine on each rank's shard, the plain prefill's drops. (f)
+   Jamba's train cell at phase 11's cuts (JAMBA_CELL_RUN), one row of
+   TRAIN_SEQ tokens, FSDP forced and the experts wired to no mesh axis
+   (as (32, 8)'s plan gives them; the 1x1 mesh's size-1 axes would give
+   them one): its loss and gradient only (``count_cell(grad_only=
+   True)``), each MoE layer's expert products on the weights' shards
+   (``moe.shard_calls``); against the plain loss and gradient: the loss
+   and gradient norm within TRAIN_GATE["norm_rel"], each MoE leaf's
+   gradient within TRAIN_GATE, every attention and scan forward (twice:
+   remat) and backward on its kernel with no plain call, and the
+   shape-only count's FLOPs within PLANNER_FLOP_TOL of the real one.
 13. Summary: one JSON line with every kernel's numbers, the card's line,
    and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -625,6 +637,12 @@ DECODE_BATCH, DECODE_PROMPT, DECODE_MAX_SEQ = 2, 4096, 4224
 # depth, MOE_BATCH rows of MOE_PROMPT tokens (each expert's capacity 640
 # of the 65,536 assignments: some are dropped)
 MOE_ARCH, MOE_BATCH, MOE_PROMPT = "olmoe_1b_7b", 2, 2048
+# phase 12 (f): the dry run's train cell of JAMBA_CELL_RUN's model (its
+# TRAIN_RUNS cuts: full width, one period, 2 experts not padded, one
+# shared expert set), one row of TRAIN_SEQ tokens, under FSDP with no
+# mesh axis for the experts (as (32, 8)'s plan gives them): loss and
+# gradient only, against the plain step's
+JAMBA_CELL_RUN = "train_jamba"
 # phase 3 cases of the selective-scan kernel: (label, (B, L, I, N), dtype,
 # whether the final state h_L is asked for)
 SCAN_CASES = [
@@ -3576,10 +3594,12 @@ def _full(t) -> float:
     return float(t.full_tensor() if hasattr(t, "full_tensor") else t)
 
 
-def planner_on_card(torch, card, fa, fa_ops, device="cuda") -> dict:
+def planner_on_card(torch, card, kernels, device="cuda") -> dict:
     """Phase 12: the planner's path on the card (the launcher's planner
     call at full width; the dry run's train cell as DTensors with real
-    weights; its shape-only and real op counts)."""
+    weights; its shape-only and real op counts). ``kernels``: the flash
+    kernel, its ops and its plain module, the scan kernel, its ops and
+    its plain module."""
     from repro_torch.configs import get_config
     from repro_torch.configs.registry import ShapeSpec
     from repro_torch.launch import dryrun as D
@@ -3589,6 +3609,7 @@ def planner_on_card(torch, card, fa, fa_ops, device="cuda") -> dict:
     from repro_torch.train import AdamWConfig, init_opt_state, \
         make_train_step
 
+    fa, fa_ops = kernels[:2]
     t_phase = time.perf_counter()
     full = get_config(PLANNER_ARCH)
     n_attn = full.layers
@@ -3725,8 +3746,9 @@ def planner_on_card(torch, card, fa, fa_ops, device="cuda") -> dict:
 
     decode = decode_cell_on_card(torch, card, fa, fa_ops, full, device)
     moe = moe_prefill_on_card(torch, card, fa, fa_ops, device)
+    jamba = jamba_cell_on_card(torch, card, kernels, device)
     return {"launcher": launcher, "cell": cell, "counts": counts,
-            "decode": decode, "moe_prefill": moe,
+            "decode": decode, "moe_prefill": moe, "jamba_train": jamba,
             "s": time.perf_counter() - t_phase}
 
 
@@ -3895,6 +3917,145 @@ def moe_prefill_on_card(torch, card, fa, fa_ops, device) -> dict:
             or plain_calls or moe_calls != full.layers \
             or not sum(res["dropped"]) or not res["same_drops"]:
         raise AssertionError(f"phase 12 (e): {res}")
+    return res
+
+
+def jamba_cell_on_card(torch, card, kernels, device) -> dict:
+    """Phase 12 (f): the dry run's train cell of JAMBA_CELL_RUN's model
+    as DTensors on the card's 1x1 mesh under FSDP, its loss and gradient
+    only, with no mesh axis for the experts: each MoE layer's expert
+    products on the weights' shards (``moe._experts_on_shards``), every
+    attention and scan on its kernels; against the same loss and
+    gradient on plain tensors, and its shape-only op count against the
+    real one."""
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_loop import grad_norm, loss_and_grads
+    from repro_torch.train.tree import leaves_with_paths
+
+    fa, fa_ops, _, sc, sc_ops, _ = kernels
+    t0 = time.perf_counter()
+    spec = TRAIN_RUNS[JAMBA_CELL_RUN]
+    cfg, reduced = _train_config(torch, spec)
+    cfg = dataclasses.replace(cfg, force_strategy="fsdp")
+    kinds = [cfg.layer_kind(i) for i in range(cfg.period)]
+    n_attn = cfg.n_periods * kinds.count("attn")
+    n_mamba = cfg.n_periods * kinds.count("mamba")
+    n_moe = cfg.n_periods * sum(cfg.layer_is_moe(i)
+                                for i in range(cfg.period))
+    remat = 2 if cfg.remat in ("full", "dots") else 1
+    rng = np.random.default_rng(SEED + 15)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (spec["batch"], TRAIN_SEQ + 1)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1].contiguous().to(device),
+             "labels": toks[:, 1:].contiguous().to(device)}
+    shape = ShapeSpec("jamba_train", TRAIN_SEQ, spec["batch"], "train")
+    planned = []
+
+    def wire(wired):
+        # a mesh of size-1 axes gives the 16 padded experts an axis;
+        # (32, 8)'s plan gives them none
+        planned.append(wired.moe_expert_axes)
+        return dataclasses.replace(wired, moe_expert_axes=None,
+                                   moe_capacity_axes=None)
+
+    def weights():
+        return T.init_params(cfg, torch.Generator(
+            device=device).manual_seed(SEED), share_experts=True,
+            expert_multiple=spec["expert_multiple"])
+
+    def experts(grads):
+        return {"/".join(path): g for path, g in leaves_with_paths(grads)
+                if "moe" in path and path[-1] in ("wi", "wg", "wo",
+                                                  "router")}
+
+    mesh = mesh_mod.make_host_mesh(device=device)
+    try:
+        params, specs = weights()
+        fa.launches = fa.bwd_launches = 0
+        fa_ops.plain_calls = fa_ops.local_calls = 0
+        sc.launches = sc.bwd_launches = 0
+        sc_ops.plain_calls = sc_ops.bwd_plain_calls = sc_ops.local_calls = 0
+        moe.local_calls = moe.shard_calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        plan, wired, real, (loss, grads, norm) = D.count_cell(
+            cfg, shape, mesh, params=params, specs=specs, batch=batch,
+            grad_only=True, wire=wire)
+        sharded = {"loss": _full(loss), "grad_norm": _full(norm),
+                   "step_s": time.perf_counter() - t1,
+                   "forward_launches": fa.launches,
+                   "backward_launches": fa.bwd_launches,
+                   "local_calls": fa_ops.local_calls,
+                   "plain_calls": fa_ops.plain_calls,
+                   "scan_forward_launches": sc.launches,
+                   "scan_backward_launches": sc.bwd_launches,
+                   "scan_local_calls": sc_ops.local_calls,
+                   "scan_plain_calls": sc_ops.plain_calls
+                   + sc_ops.bwd_plain_calls,
+                   "moe_local_calls": moe.local_calls,
+                   "moe_shard_calls": moe.shard_calls,
+                   "peak_bytes": torch.cuda.max_memory_allocated()}
+        got = experts(grads)
+        names = sorted(got)
+        got = _to_host(torch, [got[k].full_tensor() for k in names])
+        del params, grads, loss, norm
+    finally:
+        mesh_mod.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, _ = weights()
+    loss, grads = loss_and_grads(wired, params, batch)
+    plain = {"loss": float(loss), "grad_norm": float(grad_norm(grads))}
+    want = experts(grads)
+    gate = _grad_gate(torch, got, [want[k] for k in names], names)
+    del params, grads, loss, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the shape-only count of the same cell (meta weights: 16 padded
+    # experts, unshared; the expert products' rows, E x cap, and so their
+    # FLOPs, are the same)
+    fake = mesh_mod.make_fake_mesh((1, 1), ("data", "model"))
+    try:
+        t1 = time.perf_counter()
+        _, _, shape_only, _ = D.count_cell(cfg, shape, fake,
+                                           grad_only=True, wire=wire)
+        shape_only_s = time.perf_counter() - t1
+    finally:
+        mesh_mod.release()
+    flops_rel = abs(shape_only["flops_corrected"] - real["flops_corrected"]) \
+        / real["flops_corrected"]
+    diff = {k: abs(sharded[k] - plain[k]) / abs(plain[k])
+            for k in ("loss", "grad_norm")}
+    want_counts = {
+        "forward_launches": remat * n_attn, "backward_launches": n_attn,
+        "local_calls": remat * n_attn, "plain_calls": 0,
+        "scan_forward_launches": remat * n_mamba,
+        "scan_backward_launches": n_mamba,
+        "scan_local_calls": remat * n_mamba, "scan_plain_calls": 0,
+        "moe_local_calls": remat * n_moe, "moe_shard_calls": remat * n_moe}
+    res = {"strategy": plan.strategy.name, "planned_moe_expert_axes":
+           planned[0], "wired_moe_expert_axes": wired.moe_expert_axes,
+           "sharded": sharded, "plain": plain, "rel_diff": diff,
+           "expert_grads": gate, "expected": want_counts,
+           "flops": {"real": real["flops_corrected"],
+                     "shape_only": shape_only["flops_corrected"],
+                     "rel_diff": flops_rel, "shape_only_s": shape_only_s},
+           "collective_bytes": real["collective_bytes_corrected"],
+           "reduced": reduced, "s": time.perf_counter() - t0,
+           "card": card}
+    print(f"phase 12 (f) the dry run's train cell of {cfg.name} (one "
+          f"period, {TRAIN_SEQ} tokens) as DTensors on the card's 1x1 "
+          f"mesh, FSDP, no expert axis, loss and gradient: "
+          f"{json.dumps(res)}", flush=True)
+    if plan.strategy.name != "fsdp" or wired.moe_expert_axes is not None \
+            or max(diff.values()) > TRAIN_GATE["norm_rel"] \
+            or not gate["passes"] or flops_rel > PLANNER_FLOP_TOL \
+            or any(sharded[k] != v for k, v in want_counts.items()):
+        raise AssertionError(f"phase 12 (f): {res}")
     return res
 
 
@@ -4093,7 +4254,8 @@ def main() -> int:
     if left > SETTLED_MAX_GIB:
         raise AssertionError(f"phase 12: {left:.3f} GiB still allocated "
                              f"(at most {SETTLED_MAX_GIB} GiB)")
-    planner = planner_on_card(torch, card, fa, fa_ops)
+    planner = planner_on_card(torch, card,
+                              (fa, fa_ops, fa_ref, sc, sc_ops, sc_ref))
     print(f"phase 12 done at {time.perf_counter() - t_start:.1f} s "
           f"({planner['s']:.1f} s)", flush=True)
 
@@ -4141,7 +4303,12 @@ def main() -> int:
             "step_s")},
         "dtensor_moe_prefill": {k: planner["moe_prefill"][k] for k in (
             "launches", "local_calls", "plain_calls", "moe_local_calls",
-            "max_logit_diff", "step_s")}}
+            "max_logit_diff", "step_s")},
+        "dtensor_jamba_train": {k: planner["jamba_train"]["sharded"][k]
+                                for k in (
+            "forward_launches", "backward_launches", "local_calls",
+            "plain_calls", "moe_local_calls", "moe_shard_calls",
+            "step_s")}}
     bwd = cases["flash_attention_bwd"]
     main_case = next(c for c in bwd if c["case"] == "stablelm")
     summary[1]["backward"] = {
@@ -4180,6 +4347,12 @@ def main() -> int:
         "steps": TRAIN_STEPS} for name, t in train.items()
         if t["counts"]["scan_backward_launches"]}
     summary[2]["train_paths"] = scan_train
+    # phase 12 (f): the DTensor train cell's scans through local_map
+    summary[2]["planner_paths"] = {
+        "dtensor_jamba_train": {k: planner["jamba_train"]["sharded"][k]
+                                for k in (
+            "scan_forward_launches", "scan_backward_launches",
+            "scan_local_calls", "scan_plain_calls")}}
     sbwd = cases["mamba_scan_bwd"]
     main_case = sbwd[0]
     summary[2]["backward"] = {

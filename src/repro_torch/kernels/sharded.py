@@ -128,6 +128,83 @@ def gather_over(t, mdims):
     return t.redistribute(t.device_mesh, out)
 
 
+def regrid(t, dim: int, mdims):
+    """``t`` (a DTensor) sharded on its dimension ``dim`` over the mesh
+    dimensions ``mdims`` (nested in mesh order) and whole over the
+    others. Where ``t`` lies on one other dimension over exactly those
+    mesh dimensions (a weight's FSDP shard, wanted on another of its
+    dimensions), one all-to-all over their flattened group moves it
+    (:class:`_AllToAll`), as GSPMD reshards; otherwise DTensor's own
+    redistribute does."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = t.device_mesh
+    mdims = sorted(mdims)
+    want = [Shard(dim) if m in mdims else Replicate()
+            for m in range(mesh.ndim)]
+    if list(t.placements) == want:
+        return t
+    on = [m for m, p in enumerate(t.placements) if type(p) is Shard]
+    src = {t.placements[m].dim for m in on}
+    n = 1
+    for m in mdims:
+        n *= mesh.size(m)
+    if (on == mdims and len(src) == 1 and not any(
+            p.is_partial() for p in t.placements)
+            and t.shape[dim] % n == 0 and t.shape[min(src)] % n == 0):
+        return _AllToAll.apply(t, src.pop(), dim, tuple(mdims),
+                               tuple(want))
+    return t.redistribute(mesh, want)
+
+
+def _all_to_all(x, src: int, dst: int, mesh, mdims):
+    """This rank's piece ``x``, a block of dimension ``src`` (the group
+    rank's, in order), as its block of dimension ``dst`` instead: ``x``'s
+    ``dst`` cut into one block a rank of the flattened group over
+    ``mdims``, block j sent to rank j, and the blocks received joined
+    along ``src`` in rank order."""
+    n = 1
+    for m in mdims:
+        n *= mesh.size(m)
+    if n == 1:
+        return x
+    rows = x.movedim(dst, 0).contiguous()
+    split = [rows.shape[0] // n] * n
+    ops = torch.ops._c10d_functional
+    got = ops.wait_tensor(ops.all_to_all_single(
+        rows, split, split, group_name(mesh, list(mdims)))).movedim(0, dst)
+    return torch.cat(got.chunk(n, dst), dim=src).contiguous()
+
+
+class _AllToAll(torch.autograd.Function):
+    """A DTensor sharded on dimension ``src`` over the mesh dimensions
+    ``mdims`` resharded on ``dst`` over them by one all-to-all; its
+    gradient goes back by the inverse one."""
+
+    @staticmethod
+    def forward(ctx, t, src, dst, mdims, out_placements):
+        from torch.distributed.tensor import DTensor
+
+        mesh = t.device_mesh
+        ctx.meta = (mesh, tuple(t.placements), src, dst, mdims,
+                    out_placements)
+        return DTensor.from_local(
+            _all_to_all(t.to_local(), src, dst, mesh, mdims), mesh,
+            list(out_placements), run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        mesh, placements, src, dst, mdims, out = ctx.meta
+        if tuple(g.placements) != tuple(out):
+            g = g.redistribute(mesh, list(out))
+        local = _all_to_all(g.to_local(), dst, src, mesh, mdims)
+        return (DTensor.from_local(local, mesh, list(placements),
+                                   run_check=False),
+                None, None, None, None)
+
+
 def _flat_group(mesh, mdims):
     """The 1-D mesh of ``mesh``'s dimensions ``mdims`` flattened (ranks in
     mesh order; the root mesh keeps it by name, its group made once)."""

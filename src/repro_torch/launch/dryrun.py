@@ -54,6 +54,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ArchConfig
 from repro_torch.train import AdamWConfig, init_opt_state, make_train_step
+from repro_torch.train.train_loop import grad_norm, loss_and_grads
 from repro_torch.train.tree import tree_map
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -118,8 +119,18 @@ def place(tree, shardings):
 
 
 def _place_params(params, specs, plan):
-    return planner_mod.map_specs(
-        lambda _, t, sh: place(t, sh), specs, params, plan.param_shardings)
+    """The parameters as DTensors by the plan; a tensor at several
+    places of the tree (tied: ``init_params(share_experts=True)``) is
+    placed once, so that it stays one leaf (``train/tree.py``)."""
+    placed = {}
+
+    def one(_, t, sh):
+        key = (id(t), tuple(sh.placements))
+        if key not in placed:
+            placed[key] = place(t, sh)
+        return placed[key]
+
+    return planner_mod.map_specs(one, specs, params, plan.param_shardings)
 
 
 def _place_batch(batch, mesh, plan, shape: ShapeSpec):
@@ -145,6 +156,22 @@ def build_train_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, plan, params,
     if batch is None:
         batch = input_specs(cfg, shape)
     return step, (p, opt, _place_batch(batch, mesh, plan, shape))
+
+
+def build_grad_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, plan, params,
+                    specs, batch=None):
+    """The train cell's loss and gradient, without the optimizer's step
+    (``count_cell(..., grad_only=True)``): the step takes (params,
+    batch) as DTensors and returns the mean loss, the gradient tree
+    (each leaf on its parameter's placements) and its norm."""
+    def grad_step(params, batch):
+        loss, grads = loss_and_grads(cfg, params, batch)
+        return loss, grads, grad_norm(grads)
+
+    if batch is None:
+        batch = input_specs(cfg, shape)
+    return grad_step, (_place_params(params, specs, plan),
+                       _place_batch(batch, mesh, plan, shape))
 
 
 def build_prefill_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, plan,
@@ -231,7 +258,7 @@ BUILDERS = {"train": build_train_cell, "prefill": build_prefill_cell,
 
 def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, *, params=None,
                specs=None, batch=None, verbose: bool = False,
-               probe=None):
+               probe=None, grad_only: bool = False, wire=None):
     """(plan, wired config, counts, the step's output): plan the cell on
     ``mesh``, build it and run its step once under the op count. Without
     ``params`` the parameters and inputs are meta tensors at full size
@@ -239,7 +266,10 @@ def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, *, params=None,
     ``specs``, and optionally ``batch``), a real step. ``probe(cfg,
     args, out)``, where given, is called after the step with the wired
     config, the step's arguments (its caches written in place) and its
-    output."""
+    output. ``grad_only``: a train cell's loss and gradient, no
+    optimizer step (:func:`build_grad_cell`). ``wire(cfg)``, where
+    given, edits the wired config (a mesh of size-1 axes gives the
+    experts an axis that (32, 8)'s plan does not)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     if params is None:
@@ -248,11 +278,13 @@ def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, *, params=None,
     plan = planner_mod.plan(cfg, specs, params, mesh, seq=shape.seq_len,
                             batch=shape.global_batch, kind=shape.kind)
     cfg = wire_config(cfg, shape, mesh, plan)
+    if wire is not None:
+        cfg = wire(cfg)
     if verbose:
         print(f"[{cfg.name} × {shape.name}] mb={cfg.microbatch} "
               f"{plan.describe()}", flush=True)
-    fn, args = BUILDERS[shape.kind](cfg, shape, mesh, plan, params, specs,
-                                    batch)
+    build = build_grad_cell if grad_only else BUILDERS[shape.kind]
+    fn, args = build(cfg, shape, mesh, plan, params, specs, batch)
     with implicit_replication(), op_analysis.OpCounter() as counter:
         out = fn(*args)
     if probe is not None:

@@ -24,6 +24,8 @@ reference's per-device program counts:
                        the scan's share also under a key of its own
                        (``flops_scan``: elementwise operations, where the
                        reference's ``hlo_analysis`` counts only dots);
+                       the largest single call's by op
+                       (``max_op_flops``);
   * memory bytes     — Σ (result + operand bytes) of every op that is not
                        a view (the reference's post-fusion boundaries;
                        eager has no fusion, so every op is a boundary),
@@ -203,6 +205,7 @@ class OpCounter(TorchDispatchMode):
         self.per_kind: Dict[str, float] = {k: 0.0 for k in COLLECTIVES}
         self.counts: Dict[str, int] = {k: 0 for k in COLLECTIVES}
         self.by_op: Dict[str, float] = {}
+        self.max_flops: Dict[str, float] = {}
         self.ops = 0
 
     def __enter__(self):
@@ -232,12 +235,14 @@ class OpCounter(TorchDispatchMode):
 
     def _count(self, func, args, kwargs, out) -> None:
         packet = func._overloadpacket
+        name = str(packet).replace("aten.", "")
         if packet in flop_registry:
             flops = float(flop_registry[packet](*args, **kwargs,
                                                 out_val=out))
             self.flops += flops
             if packet in _SCAN_OPS:
                 self.scan_flops += flops
+            self.max_flops[name] = max(self.max_flops.get(name, 0.0), flops)
         kind = _collective_kind(func)
         res = _nbytes(out)
         if kind is not None:
@@ -250,7 +255,6 @@ class OpCounter(TorchDispatchMode):
         self.ops += 1
         b = float(res + _nbytes((args, kwargs)))
         self.memory_bytes += b
-        name = str(packet).replace("aten.", "")
         self.by_op[name] = self.by_op.get(name, 0.0) + b
 
     def result(self) -> Dict[str, Any]:
@@ -264,6 +268,7 @@ class OpCounter(TorchDispatchMode):
             "collective_counts": dict(self.counts),
             "max_trip_product": 1,
             "top_memory_opcodes": {k: v for k, v in top},
+            "max_op_flops": dict(self.max_flops),
             "ops": self.ops,
         }
 

@@ -40,6 +40,9 @@ batch's mesh axes, their sequence whole: ``transformer._anchor_tokens``):
 
 No rank holds the experts' whole output, and no row crosses a mesh axis
 that shards neither the tokens nor the buffer (:class:`_Sharded`).
+Where the plan gives the experts no mesh axis, the buffer is whole on
+every rank, as the reference keeps it, and the expert products run on
+each rank's shard of the weights (:func:`_experts_on_shards`).
 """
 
 from __future__ import annotations
@@ -51,13 +54,15 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.sharded import (group_name, is_dtensor, keep_shards,
-                               shard_index, shards)
+                               regrid, shard_index, shards)
 from .common import (ArchConfig, KeyGen, _act, _init, _zeros, anchor,
                      anchored, gathered, product, rmsnorm)
 
 #: the DTensor path's calls (:func:`_routed_sharded`: one a MoE layer
 #: and forward)
 local_calls = 0
+#: its calls with no expert axis in the plan (:func:`_experts_on_shards`)
+shard_calls = 0
 
 
 def padded_experts(cfg: ArchConfig, tp: int = 16) -> int:
@@ -184,18 +189,95 @@ def _anchor(t, cfg: ArchConfig):
     return anchor(t, _spec(cfg, t.dim()))
 
 
-def _experts(p, buf, act, cfg: ArchConfig):
-    """The experts' outputs (E, cap, D) for their tokens ``buf``, batched
-    over the experts (each expert's weights gathered over the capacity's
-    mesh dims)."""
-    buf = _anchor(buf, cfg)
-    up = _anchor(torch.bmm(buf, gathered(p["wi"], buf, (1,))), cfg)
-    if "wg" in p:
-        up = act(_anchor(torch.bmm(buf, gathered(p["wg"], buf, (1,))),
-                         cfg)) * up                         # (E, C, F)
+def _ffn(buf, product, act, gated: bool):
+    """The experts' FFN over their tokens ``buf`` (E, cap, D), batched
+    over the experts: ``product(name, x)`` is ``x`` times the weight
+    ``name`` (``wi``, ``wg``, ``wo``)."""
+    up = product("wi", buf)
+    if gated:
+        up = act(product("wg", buf)) * up                   # (E, C, F)
     else:
         up = act(up)
-    return _anchor(torch.bmm(up, gathered(p["wo"], up, (1,))), cfg)
+    return product("wo", up)
+
+
+def _experts(p, buf, act, cfg: ArchConfig):
+    """The experts' outputs (E, cap, D) for their tokens ``buf`` (each
+    expert's weights gathered over the capacity's mesh dims). On
+    DTensors whose plan gives the experts no mesh axis, each rank
+    multiplies the whole buffer by its own shard of the weights
+    (:func:`_experts_on_shards`)."""
+    if is_dtensor(buf) and not cfg.moe_expert_axes:
+        return _experts_on_shards(p, buf, act)
+    return _ffn(_anchor(buf, cfg), lambda k, x: _anchor(
+        torch.bmm(x, gathered(p[k], x, (1,))), cfg), act, "wg" in p)
+
+
+def _experts_on_shards(p, buf, act):
+    """:func:`_experts` where the plan gives the experts no mesh axis
+    (Jamba under FSDP: 16 experts over 256 chips) and the buffer lies
+    whole on every rank: one ``local_map`` in which each rank multiplies
+    the whole buffer by its 1/n of every weight's F dimension, n the
+    ranks of the mesh dims that shard the weights (Megatron's column
+    then row split). The up and gate products give this rank's F/n
+    columns, the down product a partial sum (E, cap, D) that one
+    all-reduce over those ranks adds; the buffer's gradient, a partial
+    sum too, is added likewise. ``wo`` lies on F as planned. ``wi`` and
+    ``wg``, which the plan shards on D, each take the cheaper of two
+    ways by the bytes a rank receives: moved to F by one all-to-all (the
+    weight's shard, E·D·F/n; ``kernels/sharded.py::regrid``), or left
+    on D, multiplied by the buffer's D/n columns that match, and the
+    partial sums (E, cap, F) reduce-scattered onto F (about E·cap·F): a
+    training step's many rows move the weights, a decode step's few
+    (cap < D/n) the sums. Their gradients go back the same ways.
+
+    The reference's program gathers ``up`` whole in F instead, puts
+    ``wo`` on D and gathers the output along D: in the op count's
+    output bytes that moves (E·cap·F) + (E·cap·D) forward and as much
+    backward against this way's (E·cap·D) each, and on a ring more
+    whenever F > D / 2."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    global shard_calls
+    shard_calls += 1
+    mesh = buf.device_mesh
+    names = [k for k in ("wi", "wg", "wo") if k in p]
+    grid = sorted({m for k in names for m, q in enumerate(p[k].placements)
+                   if isinstance(q, Shard)})
+    n = math.prod(mesh.size(m) for m in grid)
+    group = group_name(mesh, grid) if grid else None
+
+    def on(dim):
+        return [Shard(dim) if m in grid else Replicate()
+                for m in range(mesh.ndim)]
+
+    _, cap, d = buf.shape
+    summed = {k for k in ("wi", "wg") if k in p and n > 1 and cap * n < d
+              and list(p[k].placements) == on(1)}
+    r = shard_index(on(1), 1, mesh)
+    lo, hi = r * d // n, (r + 1) * d // n          # this rank's D block
+    dims = {k: 1 if k in summed or k == "wo" else 2 for k in names}
+    rep = [Replicate()] * mesh.ndim
+    ins = [rep] + [on(dims[k]) for k in names]
+
+    def local(buf_, *ws):
+        weight = dict(zip(names, ws))
+
+        def product(k, x):
+            if k in summed:
+                return _ScatterSum.apply(torch.bmm(x[..., lo:hi], weight[k]),
+                                         group, n)
+            return torch.bmm(x, weight[k])
+
+        out = _ffn(_SumGrad.apply(buf_, group), product, act,
+                   "wg" in weight)
+        return _SumOver.apply(out, group)
+
+    return local_map(local, out_placements=rep, in_placements=ins,
+                     in_grad_placements=ins, device_mesh=mesh,
+                     redistribute_inputs=True)(
+        buf, *(regrid(p[k], dims[k], grid) for k in names))
 
 
 def apply_moe(p, x, cfg: ArchConfig):
@@ -394,11 +476,62 @@ class _Sharded:
 
     def total(self, y):
         """``y`` summed over the buf dims that do not shard the tokens."""
-        if self.sum_group is None:
-            return y
+        return _all_reduce(y, self.sum_group)
+
+
+def _all_reduce(y, group):
+    """``y`` summed over the ranks of ``group`` (None: as it is)."""
+    if group is None:
+        return y
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_reduce(y.contiguous(), "sum", group))
+
+
+class _SumOver(torch.autograd.Function):
+    """Partial sums added over ``group``; the gradient of the sum, the
+    same on every rank, is each partial sum's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Partial sums (E, cap, F) added over ``group``, this rank's F/n
+    block kept (one reduce-scatter); its gradient, every rank's block,
+    gathered (one all-gather)."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
         ops = torch.ops._c10d_functional
-        return ops.wait_tensor(ops.all_reduce(y.contiguous(), "sum",
-                                              self.sum_group))
+        return ops.wait_tensor(ops.reduce_scatter_tensor(
+            x.movedim(2, 0).contiguous(), "sum", n, group)).movedim(0, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        ops = torch.ops._c10d_functional
+        return ops.wait_tensor(ops.all_gather_into_tensor(
+            g.movedim(2, 0).contiguous(), ctx.n, ctx.group)
+        ).movedim(0, 2), None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """``x``, the same on every rank of ``group``, as it is; its
+    gradient, each rank's partial sum, added over ``group``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
 
 
 class _Gathered(torch.autograd.Function):

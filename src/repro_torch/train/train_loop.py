@@ -146,13 +146,25 @@ def _summed(grads, params) -> List:
             else g for g, p in zip(grads, params)]
 
 
+def loss_and_grads(cfg: ArchConfig, params, batch, mark: Mark = None):
+    """(mean loss, the gradient tree shaped as ``params``, each leaf on
+    its parameter's placements): a train step before its optimizer."""
+    loss, gsum = accumulate_grads(cfg, params, batch, mark)
+    return loss, unflatten(params, iter(_summed(gsum, leaves(params))))
+
+
+def grad_norm(grads):
+    """The gradient tree's global norm, in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                          for g in leaves(grads)))
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
                     compress: Optional[str] = None, mark: Mark = None):
     opt_cfg = opt_cfg or AdamWConfig(quantize_moments=cfg.opt_8bit)
 
     def train_step(params, opt_state, batch):
-        loss, gsum = accumulate_grads(cfg, params, batch, mark)
-        grads = unflatten(params, iter(_summed(gsum, leaves(params))))
+        loss, grads = loss_and_grads(cfg, params, batch, mark)
         if compress == "int8":
             grads = grad_compress.roundtrip_int8(grads)
         (mark or _no_mark)("optimizer")
@@ -161,9 +173,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
         (mark or _no_mark)("end")
         metrics = {
             "loss": loss,
-            "grad_norm": torch.sqrt(sum(
-                torch.sum(torch.square(g.to(torch.float32)))
-                for g in leaves(grads))),
+            "grad_norm": grad_norm(grads),
             "step": new_opt.step.clone(),
         }
         return new_params, new_opt, metrics

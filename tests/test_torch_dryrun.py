@@ -324,6 +324,40 @@ def test_full_size_moe_prefill_within_bound_of_the_reference(arch):
         <= 3.0 * ref["collective_bytes"]
 
 
+# Jamba's train cell on the (32, 8) mesh under the reference's plan
+# (fsdp: its 16 experts split over no mesh axis), per chip, as the
+# reference's dry run counts it there (``tests/torch_dryrun_parity.py
+# --arch jamba_1_5_large_398b --shape train_4k --mesh 32,8 --strategy
+# fsdp``; PERF.md, section 6), and its largest expert product: each dot
+# on 1/256 of one weight dimension
+REFERENCE_JAMBA_TRAIN = {"flops": 8.450e15, "collective_bytes": 6.241e13,
+                         "expert_dot_flops": 4.123e12}
+
+
+def test_full_size_jamba_train_within_bound_of_the_reference():
+    """Per-chip FLOPs at most 1.25x and collective bytes at most 3x the
+    reference's, and no single ``bmm`` over 2x the reference's expert
+    dot: each chip multiplies the whole buffer by its own shard of the
+    expert weights (every chip ran the whole down product, 1.055e15
+    FLOPs a call: 13.84x the reference's FLOPs)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("jamba_1_5_large_398b"),
+                              force_strategy="fsdp")
+    try:
+        res = D.run_cell("jamba_1_5_large_398b", "train_4k",
+                         cfg_override=cfg, verbose=False)
+    finally:
+        mesh_mod.release()
+    ref = REFERENCE_JAMBA_TRAIN
+    assert res["status"] == "ok" and res["strategy"] == "fsdp"
+    counts = res["op_counts"]
+    assert counts["flops_corrected"] <= 1.25 * ref["flops"]
+    assert counts["collective_bytes_corrected"] \
+        <= 3.0 * ref["collective_bytes"]
+    assert counts["max_op_flops"]["bmm"] <= 2 * ref["expert_dot_flops"]
+
+
 def test_full_size_jamba_decode_on_the_multi_pod_mesh():
     """jamba_1_5_large_398b × decode_32k on the (2, 32, 8) fake mesh
     runs ``ok`` (it failed in DTensor's redistribute of a partial sum
