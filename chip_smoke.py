@@ -15,8 +15,9 @@ exit:
    for any instantiation of the flash attention forward (its bf16
    tensor-core kernel, split-KV decode and combine among them), the
    selective scan or its backward (a source of its own too), or for the
-   flash backward's bf16 tensor-core kernels, or more than SPILL_MAX's
-   for the flash backward's FMA kernels.
+   flash backward's bf16 tensor-core kernels (every head dim), or more
+   than SPILL_MAX's for the flash backward's FMA kernels (float32 and
+   float64).
 3. Each kernel against its plain torch version on the card, in every
    dtype it takes, at its main path's chunk shape, at a language model's
    widths where the repo has one that runs it, and at a ragged shape;
@@ -42,10 +43,9 @@ exit:
    regroup alone. The training forward's shapes (stablelm_3b, seamless's
    encoder and Jamba's layer, S = 4096, on the layout the regroup hands
    the kernel) take ``scaled_dot_product_attention`` as their library
-   call. The gemma2 attention layer and these
+   call. The gemma2 attention layer (bf16 and float32) and these
    shapes in bf16 (softcap, causal, window, GQA) take ``flex_attention``,
-   compiled, as their library call (the f32 layer's is no longer built:
-   its compile took much of the script's time); the layer is also timed
+   compiled, as their library call; the layer is also timed
    beside a yardstick: ``scaled_dot_product_attention`` with its causal
    and window mask and no softcap. The flash kernel also runs the
    shapes phase 10 serves Jamba-1.5-Large at (64 heads, GQA 8, D = 128,
@@ -65,10 +65,12 @@ exit:
    stablelm_3b layer (2 sequences x 32 heads, S = 4096, D = 80,
    causal), seamless's encoder and cross attention (2 x 16 heads, Sq =
    Skv = 4096, D = 64, not causal), gemma2_2b's local layer (8 heads, S
-   = 8192, D = 288, window 4096, softcap 50) in bf16, a ragged case, and
+   = 8192, D = 288, window 4096, softcap 50) in bf16 and its layer as
+   phase 11 trains it (a microbatch of 1 x 8 heads, S = 4096), a ragged
+   case, and
    in float32 and bf16 a decode-like case with a query offset per slot
-   and a case with rows that have no valid key. Each case must fail that
-   comparison with dK zeroed, with P uniform over each row's mask, with
+   and a case with rows that have no valid key. Each case must give the
+   same bits on a second call, and fail that comparison with dK zeroed, with P uniform over each row's mask, with
    a softcap with dS missing its (1 - tanh^2), and with rows without a
    key with dV missing their dO / Skv. The library time is
    ``torch.autograd.grad`` through ``scaled_dot_product_attention`` with
@@ -77,8 +79,8 @@ exit:
    ``flex_attention``. A ``torch.profiler`` trace of each case (the call
    repeated over 50 ms; up to four traces, where one lost kernels) names
    the kernels that ran: a bf16 case fails unless it ran the tensor-core
-   kernels and no FMA dK/dV or dQ kernel (D <= BWD_MMA_MAX_D), or the FMA
-   kernels past that D.
+   kernels and no FMA dK/dV or dQ kernel (every D up to BWD_MMA_MAX_D,
+   gemma2_2b's 288).
    The selective scan's backward (SCAN_BWD_CASES: the Jamba layer as
    phase 11 trains it, at phase 10's served prompt lengths, ragged cases
    in float32 and float64, float64 at N = 32 and one seeded by the final
@@ -93,7 +95,8 @@ exit:
    exp per (b, t, i, n)) and the plain backward.
    Each kernel redesigned for Hopper (the float64 matmul and flash
    attention on the tensor cores, the selective scan as a chunked scan
-   parallel in L, the bf16 backward on the tensor cores, the bf16
+   parallel in L, the bf16 backward on the tensor cores (past D = 128
+   too: gemma2's local layer), the bf16
    forward's prefill on the tensor cores and its decode split over the
    keys, the float32 scan backward's warps each over a whole chunk) is
    printed beside its time before the redesign; the
@@ -206,17 +209,18 @@ exit:
    phases' garbage is collected (what stays allocated is printed, and
    must stay within SETTLED_MAX_GIB), bf16, weights from the seed,
    batches from the reference's pipeline (``SyntheticTokens``, seed
-   1234): stablelm_3b and seamless_m4t_medium at full width and depth,
-   and Jamba-1.5-Large at full width cut to one period with 2 shared
-   experts (its cuts in TRAIN_RUNS), each through ``repro_torch.train``'s
+   1234): stablelm_3b, seamless_m4t_medium and gemma2_2b (D = 288) at
+   full width and depth, and Jamba-1.5-Large at full width cut to one
+   period with 2 shared experts (its cuts in TRAIN_RUNS), each through
+   ``repro_torch.train``'s
    step (the run's microbatches, remat full, AdamW lr 3e-4, the config's
    moments, written in place) for TRAIN_STEPS steps. Step 1's gradient
    (``accumulate_grads``) is replayed with every attention's backward
    through the plain ``flash_attention_bhsd_bwd_ref`` and every scan's
    through the plain ``mamba_scan_bwd_ref`` (the forward kernels kept)
    and must agree within TRAIN_GATE (per leaf: cosine, relative norm
-   error); the run's controls must fail that gate (stablelm and
-   seamless: the attention output detached, the backward kernel with dK
+   error); the run's controls must fail that gate (stablelm, seamless
+   and gemma2: the attention output detached, the backward kernel with dK
    zeroed; Jamba: the scan backward with dB zeroed, and without the
    adjoint's carry between chunks). It prints step seconds, tokens/s,
    forward/backward/optimizer ms (CUDA events), peak memory and the
@@ -538,6 +542,7 @@ FLEX_TRIES = {"gemma2": (None, FLEX_SMALL_TILES),
 FLEX_BWD_SMALL_TILES = {**FLEX_SMALL_TILES, "BLOCK_M1": 16, "BLOCK_N1": 32,
                         "BLOCK_M2": 32, "BLOCK_N2": 16}
 FLEX_BWD_TRIES = {"gemma2_local": (FLEX_SMALL_TILES, FLEX_BWD_SMALL_TILES),
+                  "gemma2_train": (FLEX_SMALL_TILES, FLEX_BWD_SMALL_TILES),
                   "ragged": (None,)}
 # the Jamba cases (no softcap) take scaled_dot_product_attention with
 # enable_gqa and a boolean mask at the query offsets as their library call
@@ -548,10 +553,12 @@ SDPA_GQA = ("jamba_prefill", "jamba_decode")
 # attention path's (float64, and float32); stablelm_3b's layer as phase
 # 11 trains it (a microbatch of 1 x 32 heads; here 2 sequences),
 # seamless's encoder and cross attention (16 heads, Sq = Skv = 4096, not
-# causal; 2 sequences), gemma2_2b's local layer (at S = 4096 a window of
-# 4096 would mask nothing) and a ragged case (Sq > Skv, causal,
-# softcapped). Then, in float32 (the FMA kernels) and bf16 at D <= 128
-# (the tensor-core kernels): a decode-like ragged case with a query
+# causal; 2 sequences), gemma2_2b's local layer at S = 8192 (at S = 4096
+# a window of 4096 masks nothing) and its layer as phase 11 trains it (a
+# microbatch of 1 x 8 heads, S = 4096; the window masks nothing there)
+# and a ragged case (Sq > Skv, causal, softcapped). Then, in float32
+# (the FMA kernels) and bf16 (the tensor-core kernels): a decode-like
+# ragged case with a query
 # offset per slot (8 batch-heads of 37 new rows over a 1000-key cache,
 # offsets up to 963) and a case with rows that have no valid key (a
 # window of 256 past 600 keys: rows 855..999 see none)
@@ -566,6 +573,8 @@ FLASH_BWD_CASES = [
      "bfloat16", None),
     ("gemma2_local", (8, 8192, 8192, 288), True, 4096, 50.0, "bfloat16",
      None),
+    ("gemma2_train", (8, TRAIN_SEQ, TRAIN_SEQ, 288), True, 4096, 50.0,
+     "bfloat16", None),
     ("ragged", (2, 1000, 777, 72), True, 0, 30.0, "float32", None),
     ("offset", (8, 37, 1000, 72), True, 0, 0.0, "float32", BWD_OFFSETS),
     ("offset", (8, 37, 1000, 64), True, 0, 0.0, "bfloat16", BWD_OFFSETS),
@@ -576,9 +585,11 @@ FLASH_BWD_CASES = [
 # (train_4k's length; seamless's source frames too), each run's global
 # batch (train_4k's 256 cut to fit one card), each config's own remat
 # and moments (float32, or int8 where the config says opt_8bit), AdamW
-# at TRAIN_LR. stablelm_3b and seamless_m4t_medium at full depth with
-# their config's microbatch count. Jamba-1.5-Large cut to fit one card,
-# no width cut: one period (8 of 72 layers: 7 Mamba, 1 attention, 4 MoE
+# at TRAIN_LR. stablelm_3b, seamless_m4t_medium and gemma2_2b (D = 288:
+# the bf16 backward's widest tensor-core tiles; 2.660 B parameters,
+# 5.3 GB of bf16 weights, 10.6 GB of float32 gradient sums, 21.3 GB of
+# moments) at full depth with their config's microbatch count.
+# Jamba-1.5-Large cut to fit one card, no width cut: one period (8 of 72 layers: 7 Mamba, 1 attention, 4 MoE
 # and 4 dense FFNs), 2 routed experts (of 16; top-2 kept), not padded to
 # the production mesh's 16 (padding adds experts no token reaches), one
 # set shared by the period's 4 MoE layers (each its own router; tied, so
@@ -609,7 +620,9 @@ TRAIN_RUNS = {
                     "layers": 8, "n_experts": 2, "microbatch": 1,
                     "share_experts": True, "expert_multiple": 1,
                     "loss_steps": 1,
-                    "controls": ("scan_db_zero", "scan_carry_zero")}}
+                    "controls": ("scan_db_zero", "scan_carry_zero")},
+    "train_gemma2": {"arch": "gemma2_2b", "batch": 2,
+                     "controls": ("detached", "dk_zero")}}
 TRAIN_STEPS, TRAIN_LR = 4, 3e-4
 TRAIN_DATA_SEED = 1234
 # step 1's gradient against its replay on the plain backward: every leaf
@@ -687,9 +700,9 @@ SCAN_BWD_OPS = {"float64": 20 + 12, "float32": 12, "bfloat16": 12}
 # tensor-core kernel, split-KV decode and its combine), of the scan and
 # of its backward, and the flash
 # attention backward's bf16 tensor-core kernels (mma_dkdv_kernel,
-# mma_dq_kernel); for the backward's FMA kernels (float64, float32, bf16
-# past BWD_MMA_MAX_D), the most they spilled when they were written (bf16
-# dK/dV at two head-dim tiers: 8/32 and 4/4 bytes; PERF.md, section 6)
+# mma_dq_kernel, every head dim); for the backward's FMA kernels (float64,
+# float32), the most they spill (8/8 bytes; 8/32 while bf16 past D = 128
+# ran them too, PERF.md section 6)
 SPILL_MAX = {"matmul": [(r"3f64\d+\w*_kernel", (0, 0))],
              "flash_attention": [(r"flash_kernel", (0, 0)),
                                  (r"mma_fwd_kernel", (0, 0)),
@@ -700,11 +713,11 @@ SPILL_MAX = {"matmul": [(r"3f64\d+\w*_kernel", (0, 0))],
                                  (0, 0))],
              "flash_attention_bwd": [(r"mma_d\w+_kernel", (0, 0)),
                                      (r"\d(?:dkdv|dq|delta)_kernel",
-                                      (8, 32))]}
-# the backward runs bf16 up to this head dim on the tensor-core kernels
-# and past it on the FMA kernels (csrc/flash_attention_bwd.cu's
-# MMA_MAX_D, a static choice by D); phase 3 checks by name which ran
-BWD_MMA_MAX_D = 128
+                                      (8, 8))]}
+# the backward runs bf16 up to this head dim (every D it takes) on the
+# tensor-core kernels (csrc/flash_attention_bwd.cu's MMA_MAX_D); phase 3
+# checks by name that they ran and the FMA kernels did not
+BWD_MMA_MAX_D = 288
 # times before each kernel's Hopper redesign (PERF.md section 6), printed
 # beside this run's: (kernel, case, dtype, ms, the commit and run of
 # chip_smoke.py they come from). The bf16 forward's are the FMA kernel's
@@ -723,6 +736,9 @@ EARLIER_MS = [
     ("flash_attention", "jamba_decode", "bfloat16", 4.106, _PR21),
     ("flash_attention_bwd", "stablelm", "bfloat16", 48.073,
      "commit 58c7205 run 5, H100 80GB HBM3, 700 W"),
+    # the FMA kernels past D = 128
+    ("flash_attention_bwd", "gemma2_local", "bfloat16", 77.263,
+     "commit 702dffe's final run, H100 80GB HBM3, 700 W"),
     ("mamba_scan", "chunk", "float64", 1.588,
      "commit d9c8578 run 6, H100 80GB HBM3, 700 W"),
     ("mamba_scan_bwd", "jamba_train", "float32", 2.997,
@@ -989,6 +1005,11 @@ def _flex_library(torch, q, k, v, causal, window, cap, options=None,
     mask = create_block_mask(mask_mod, None if off is None else q.shape[0],
                              None, qh.shape[2], kh.shape[2],
                              device=q.device)
+    # each case's mask and score functions are new closures, so each
+    # compiles anew; past 8 compiles of one function dynamo runs the
+    # unfused eager flex_attention instead (its recompile limit; phase 3
+    # makes more than 8), so every case starts from an empty cache
+    torch._dynamo.reset()
     flex = torch.compile(flex_attention, dynamic=False)
     return lambda: flex(qh, kh, vh, score_mod=score_mod if cap else None,
                         block_mask=mask, enable_gqa=True,
@@ -1127,13 +1148,11 @@ def check_flash(torch, fa_kernel, fa_ops, fa_ref):
                 torch, lambda: fa_ops.regroup(q, k, v,
                                               0 if off is None else off), 10)
             del regrouped, bare
-        if label in FLEX_TRIES and dname == "bfloat16":
+        if label in FLEX_TRIES and dname != "float64":
             # flex_attention as the library call, with the tiles of
             # FLEX_TRIES in turn; its build (Triton, at D = 288) or its
             # answer may fail: then library_ms stays None and the reasons
-            # are kept. It is no part of the port. (The float32 layer's
-            # compiled flex_attention, 714 ms in PR 16, is no longer
-            # built: its compile took much of this script's time.)
+            # are kept. It is no part of the port.
             extra["library"] = "flex_attention (compiled)"
             extra["library_errors"] = []
             for options in FLEX_TRIES[label]:
@@ -1382,10 +1401,11 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
     (the plain backward from the plain forward's output and logsumexp),
     in norm: in bf16 the two forwards' outputs round apart by an ulp,
     which dS = P (dO V^T - rowsum(dO o)) magnifies in single elements.
-    Cases with query offsets or rows without a valid key take as their
-    library call ``scaled_dot_product_attention`` with the kernel's mask
-    added as 0 and -1e30, which gives a row without a key the kernel's
-    uniform weights."""
+    A second call must give the same bits (no atomics). Cases with query
+    offsets or rows without a valid key take as their library call
+    ``scaled_dot_product_attention`` with the kernel's mask added as 0
+    and -1e30, which gives a row without a key the kernel's uniform
+    weights."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(SEED + 5)
     out = []
@@ -1420,6 +1440,11 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
         plain_fn = lambda: fa_ref.flash_attention_bhsd_bwd_ref(  # noqa: E731
             q, k, v, o, do, lse, **opts)
         ran = _bwd_route(torch, label, dname, d, kernel_fn)
+        again = kernel_fn()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {label} {dname}: a "
+                                 f"second call gave other bits")
+        del again
         want = plain_fn()
         errs, ok = _bwd_within(torch, got, want, dname)
         scales = {n: float(w.double().abs().max())
@@ -1432,7 +1457,7 @@ def check_flash_bwd(torch, fa_kernel, fa_ref):
               f"{errs} against the gradients' largest values {scales} "
               f"(tol {TOL[dname]:g}, norm {BWD_NORM_TOL[dname]:g}); the "
               f"kernel path's norm err against the wholly plain gradient "
-              f"{whole}", flush=True)
+              f"{whole}; a second call the same bits", flush=True)
         if not ok or not max(whole.values()) <= BWD_NORM_TOL[dname]:
             raise AssertionError(f"flash_attention_bwd {label} {dname}: "
                                  f"{errs}, whole path {whole}: over the "
@@ -1529,8 +1554,8 @@ def _bwd_route(torch, label, dname, d, kernel_fn) -> dict:
     """{kernel: launches} of backward calls, by name from
     ``torch.profiler`` (``_profiled_kernels``). A bf16 case must have run
     the tensor-core kernels (mma_dkdv_kernel, mma_dq_kernel) and no FMA
-    dK/dV or dQ kernel up to BWD_MMA_MAX_D, and the FMA kernels past it;
-    fails otherwise."""
+    dK/dV or dQ kernel up to BWD_MMA_MAX_D (every D the kernels take),
+    and the FMA kernels past it; fails otherwise."""
     mma = {"mma_dkdv_kernel", "mma_dq_kernel"}
     fma = {"dkdv_kernel", "dq_kernel"}
     want, not_want = (mma, fma) if d <= BWD_MMA_MAX_D else (fma, mma)

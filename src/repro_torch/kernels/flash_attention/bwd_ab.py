@@ -5,26 +5,30 @@ reverse), beside ``torch.autograd.grad`` through
 it).
 
     PYTHONPATH=src python3 -m repro_torch.kernels.flash_attention.bwd_ab \\
-        [OTHER_CHECKOUT ...]
+        [--cases NAME,NAME] [OTHER_CHECKOUT ...]
 
 Each checkout builds its own ``flash_attention.cu`` and
 ``flash_attention_bwd.cu`` with its own ``kernels/build.py``
 (``kernels/ab_common.py``);
 this process loads every library and calls its C entries on the same
 inputs: this checkout's forward gives o and lse once, then each
-checkout's ``flash_attention_bwd_bf16`` computes (dq, dk, dv). Cases: a
-stablelm_3b layer as training runs it (64 batch-heads, S = 4096, D = 80,
-causal) and seamless_m4t_medium's encoder and cross attention (32, S =
-4096, D = 64, not causal), inputs drawn as ``chip_smoke.py`` phase 3
-draws them (q at standard deviation 3, every 4th row at 40; k, v, dO
-N(0, 1)). It prints one JSON line per case and round (mean CUDA-event
-time over 10 launches after a warm-up), each checkout's device time by
-kernel over one call (``torch.profiler``), each checkout's largest
-difference from this checkout's gradients and, on the first 4
-batch-heads, this checkout's largest difference and norm error against
-the plain backward (``ref.flash_attention_bhsd_bwd_ref``), the bound
-(five products of 2 D operations a valid pair at 989 TFLOP/s) and the
-card's name and power limit. Nothing here runs at import time.
+checkout's ``flash_attention_bwd_bf16`` computes (dq, dk, dv). Cases
+(``--cases`` picks some by label): a stablelm_3b layer as training runs
+it (64 batch-heads, S = 4096, D = 80, causal), seamless_m4t_medium's
+encoder and cross attention (32, S = 4096, D = 64, not causal) and
+gemma2_2b's layer (D = 288, window 4096, softcap 50) as training runs it
+(8 batch-heads, S = 4096) and at S = 8192, inputs drawn as
+``chip_smoke.py`` phase 3 draws them (q at standard deviation 3, every
+4th row at 40; k, v, dO N(0, 1)). It prints one JSON line per case and
+round (mean CUDA-event time over 10 launches after a warm-up), each
+checkout's device time by kernel over one call (``torch.profiler``),
+each checkout's largest difference from this checkout's gradients and,
+on the first 4 batch-heads, this checkout's largest difference and norm
+error against the plain backward (``ref.flash_attention_bhsd_bwd_ref``),
+the library's time where SDPA computes the case (no window, no
+softcap), the bound (five products of 2 D operations a valid pair at
+989 TFLOP/s) and the card's name and power limit. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -37,9 +41,11 @@ from pathlib import Path
 from ..ab_common import build, build_all, by_kernel, card, time_ms
 
 _SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
-# (label, (BH, Sq, Skv, D), causal)
-CASES = [("stablelm", (64, 4096, 4096, 80), True),
-         ("seamless_enc_cross", (32, 4096, 4096, 64), False)]
+# (label, (BH, Sq, Skv, D), causal, window, softcap)
+CASES = [("stablelm", (64, 4096, 4096, 80), True, 0, 0.0),
+         ("seamless_enc_cross", (32, 4096, 4096, 64), False, 0, 0.0),
+         ("gemma2_train", (8, 4096, 4096, 288), True, 4096, 50.0),
+         ("gemma2_local", (8, 8192, 8192, 288), True, 4096, 50.0)]
 PEAK_BF16 = 989e12
 REPS = 10
 
@@ -67,6 +73,15 @@ def _inputs(torch, rng, bh, sq, skv, d):
                  for t in (q, k, v, do))
 
 
+def _pairs(sq, skv, causal, window) -> int:
+    """Valid (query, key) pairs of one batch-head."""
+    import numpy as np
+    i = np.arange(sq)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    hi = np.minimum(skv - 1, i) if causal else np.full_like(i, skv - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
 def _with_offset(lib) -> bool:
     """Whether ``lib``'s entries take q_offset (and a Δ scratch of BH x
     (Sq + D))."""
@@ -84,6 +99,9 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
+    only = None
+    if argv[:1] == ["--cases"]:
+        only, argv = set(argv[1].split(",")), argv[2:]
     here = Path(__file__).resolve().parents[4]
     roots = [Path(a).resolve() for a in argv] + [here]
     libs = build_all(roots, _library)
@@ -92,10 +110,12 @@ def main(argv) -> int:
           f"{torch.version.cuda}", flush=True)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rng = np.random.default_rng(5)
-    for label, (bh, sq, skv, d), causal in CASES:
+    for label, (bh, sq, skv, d), causal, window, cap in CASES:
+        if only is not None and label not in only:
+            continue
         q, k, v, do = _inputs(torch, rng, bh, sq, skv, d)
-        o, lse = fa.flash_attention_bhsd(q, k, v, causal=causal,
-                                         return_lse=True)
+        opts = dict(causal=causal, window=window, softcap=cap)
+        o, lse = fa.flash_attention_bhsd(q, k, v, return_lse=True, **opts)
         delta = torch.empty((bh, sq + d), dtype=lse.dtype, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
 
@@ -104,7 +124,7 @@ def main(argv) -> int:
                 *(t.data_ptr() for t in (q, k, v, o, do, lse)),
                 *((None,) if _with_offset(lib) else ()),
                 *(t.data_ptr() for t in (delta, *out)),
-                bh, sq, skv, d, int(causal), 0, 0.0, stream)
+                bh, sq, skv, d, int(causal), window, cap, stream)
             if err:
                 raise RuntimeError(f"launch failed ({err})")
 
@@ -119,40 +139,44 @@ def main(argv) -> int:
                  for r, g in grads.items()}
         n = min(4, bh)
         want = flash_attention_bhsd_bwd_ref(q[:n], k[:n], v[:n], o[:n],
-                                            do[:n], lse[:n], causal=causal)
+                                            do[:n], lse[:n], **opts)
         plain = {name: [float((g[:n].double() - w.double()).abs().max()),
                         float((g[:n].double() - w.double()).norm()
                               / w.double().norm())]
                  for name, g, w in zip(("dq", "dk", "dv"), mine, want)}
-        # one head per batch row of the (BH, S, D) layout, as chip_smoke.py
-        qs, ks, vs = (t.detach()[None].requires_grad_(True)
-                      for t in (q, k, v))
-        out = sdpa(qs, ks, vs, is_causal=causal)
+        # one head per batch row of the (BH, S, D) layout, as chip_smoke.py;
+        # SDPA has no window and no softcap
+        library = None
+        if not window and not cap:
+            qs, ks, vs = (t.detach()[None].requires_grad_(True)
+                          for t in (q, k, v))
+            out = sdpa(qs, ks, vs, is_causal=causal)
 
-        def library():
-            torch.autograd.grad(out, (qs, ks, vs), do[None],
-                                retain_graph=True)
+            def library():
+                torch.autograd.grad(out, (qs, ks, vs), do[None],
+                                    retain_graph=True)
 
-        pairs = bh * (sq * (sq + 1) // 2 if causal else sq * skv)
+        pairs = bh * _pairs(sq, skv, causal, window)
         bound_ms = 10.0 * pairs * d / PEAK_BF16 * 1e3
         order = list(libs) + list(reversed(libs))
         for rnd, r in enumerate(order):
             ms = time_ms(torch, lambda: call(libs[r], grads[r]), REPS)
             print(json.dumps({"case": label, "shape": [bh, sq, skv, d],
-                              "causal": causal, "round": rnd,
+                              "causal": causal, "window": window,
+                              "softcap": cap, "round": rnd,
                               "checkout": r, "ms": ms}), flush=True)
         for r in libs:
             print(json.dumps({"case": label, "checkout": r,
                               "kernels_ms": by_kernel(
                                   torch, lambda: call(libs[r], grads[r]))}),
                   flush=True)
-        lib_ms = time_ms(torch, library, REPS)
+        lib_ms = time_ms(torch, library, REPS) if library else None
         print(json.dumps({"case": label, "library_ms": lib_ms,
                           "bound_ms": bound_ms,
                           "max_diff_from_this": diffs,
                           "this_vs_plain_first_heads": plain,
                           "card": name}), flush=True)
-        del q, k, v, do, o, lse, delta, grads, mine, want, out, qs, ks, vs
+        del q, k, v, do, o, lse, delta, grads, mine, want, library
         torch.cuda.empty_cache()
     return 0
 

@@ -37,9 +37,10 @@
 // per key tile (gigabytes at a training layer's shape); and dK takes dS
 // in two bf16 parts (below).
 //
-// bf16, D <= 128: the tensor cores (mma_dkdv_kernel, mma_dq_kernel).
-// Every product is mma.sync m16n8k16 (bf16 in, float32 accumulation; the
-// helpers are kernels/csrc/mma_bf16.cuh):
+// bf16, every D (up to 288): the tensor cores (mma_dkdv_kernel,
+// mma_dq_kernel). Every product is mma.sync m16n8k16 (bf16 in, float32
+// accumulation; the helpers are kernels/csrc/mma_bf16.cuh). Up to D =
+// 128 (past it, below):
 //   - dK/dV: a block of 8 warps owns 128 keys, a warp 16 of them, and
 //     walks BR query rows a step. Sᵀ = K Qᵀ and dPᵀ = V dOᵀ land in
 //     float32 fragments; P and dS are computed there (grad_pair's math,
@@ -95,18 +96,50 @@
 //     * ex2.approx.ftz for P (ex2_ftz) rather than exp2f: 3.61 -> 3.11
 //       ms at D = 80.
 //
-// Every other case (float64, float32, and bf16 with D > 128: gemma2_2b's
-// 288) runs the FMA kernels dkdv_kernel and dq_kernel, chosen statically
-// by dtype and D in launch(). 256 threads as 16 x 16; thread (ty, tx)
+// bf16 past D = 128 (SPLIT_D; gemma2_2b's 288): the bound at its layer
+// (8 batch-heads, causal, window 4096, softcap 50) is 0.196 ms at S =
+// 4096, as phase 11 trains it (6.71e7 valid pairs), and 0.586 ms at S =
+// 8192 (2.01e8), by operations. One warp cannot own 16 rows there: 16
+// keys x 288 columns of dK and dV in float32 are 288 registers a thread,
+// over the 255 a thread may have. So a pair of warps owns each 16 rows
+// (keys in dK/dV, query rows in dQ), each warp half of the accumulators'
+// columns (DC = DP / 2: 144 registers for dK and dV, 72 for dQ), and each
+// contracts half of D for the pair's scores: its DC columns of K Qᵀ and
+// V dOᵀ (Q Kᵀ and dO Vᵀ), whose partial float32 fragments pass through a
+// slot of shared memory a warp (pair_sum, a barrier of the pair's 64
+// threads; a + b and b + a are the same float, so both warps compute the
+// same P and dS bits). The products a pair makes are the function's 5,
+// plus dK's second part and dQ's recomputed S and dP, as below D = 128.
+//   - Tiles: D padded to a multiple of 32 (each warp's half in whole
+//     16-column blocks: classes 160, 192, 224, 256, 288); a dK/dV block
+//     of 8 warps owns 64 keys and walks 32 query rows a step, a dQ block
+//     of 8 warps owns 64 query rows and walks 32 keys a step. At DP = 288
+//     (rows of 296 bf16): dK/dV 2 x 64 + 2 x 2 x 32 rows = 151,552 B and
+//     32 KB of slots, dQ the same, one block an SM; 249 and 196 registers,
+//     0 spills (the tiles of D <= 128, 2 x 128 + 4 x 32 rows, would need
+//     227,840 B and leave no room for the double buffer to grow).
+//   - Chosen with kernels/flash_attention/bwd_ab.py on an H100 (PERF.md
+//     section 6), the whole backward at S = 4096 / 8192: each warp of a
+//     pair contracting all of D (7 products a pair in dK/dV, 5 in dQ, no
+//     slots, dQ walking 64 keys) 3.25 / 8.24 ms; sharing the contraction
+//     in dK/dV 3.06-3.12 / 7.74, in dQ 3.18 / 7.91, in both 2.96-3.00 /
+//     7.40 (this design); 16 query rows a dK/dV step 3.51-3.55 / 8.9; dQ
+//     unsplit (4 warps of 16 rows x 288 columns, 32 keys a step) 3.25-3.30
+//     / 8.1-8.2. The FMA kernels took 26.1-26.6 / 76.7-77.1 ms. At these
+//     tiles each warp reads its B fragments (the walked rows) from shared
+//     memory for itself: ldmatrix traffic, not the tensor cores, is the
+//     likely limit (~15x the bound).
+//
+// float64 and float32 run the FMA kernels dkdv_kernel and dq_kernel,
+// chosen statically by dtype and D in launch(). 256 threads as 16 x 16;
+// thread (ty, tx)
 // owns rows ty + 16a (a < TA) of the block's own tile and columns tx + 16c
 // (c < NC, NC = ceil(D / 16) rounded up to an instantiated size) of its
 // accumulators, and the pairs (ty + 16a, tx + 16b) of each score tile
 // (b < TB). Tiles live in shared memory in the accumulation type with rows
 // of D + 1 values (conflict-free column reads); P and dS pass through two
 // small shared tiles. Float64 takes TB = 1 (16 rows a step), so the tiles
-// of D = 288 fit the 227 KB a block may have; float32 and bf16 take TB =
-// 2. At D = 288 the tensor-core design's dK and dV rows (16 keys x 288
-// columns x 2 in float32) would take 288 registers a thread.
+// of D = 288 fit the 227 KB a block may have; float32 takes TB = 2.
 //
 // Query positions: row i of batch-head r sits at position q_offset[r] + i
 // (the forward's q_offset; null: i). Every kernel reads its batch-head's
@@ -158,11 +191,6 @@ __device__ __forceinline__ float to_acc<float, __nv_bfloat16>(__nv_bfloat16 v) {
 
 template <typename T, typename Acc>
 __device__ __forceinline__ T from_acc(Acc v) { return static_cast<T>(v); }
-template <>
-__device__ __forceinline__ __nv_bfloat16
-from_acc<__nv_bfloat16, float>(float v) {
-  return __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float ex(float x) { return expf(x); }
 __device__ __forceinline__ double ex(double x) { return exp(x); }
@@ -555,15 +583,24 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // bf16 on the tensor cores (D <= MMA_MAX_D)
 // ---------------------------------------------------------------------
 
-// a dK/dV block: KV_WARPS warps, 16 keys each; a dQ block: Q_THREADS
-// threads, 16 query rows a warp, walking Q_STEP keys a step
+// a dK/dV block: KV_WARPS warps, 16 keys each (NS warps to the same 16
+// keys past SPLIT_D); a dQ block: Q_ROWS query rows, 16 a warp (NS warps
+// to the same 16 rows past SPLIT_D), walking Q_STEP keys a step
 constexpr int KV_WARPS = 8;
 constexpr int KV_THREADS = 32 * KV_WARPS;
 constexpr int KV_KEYS = 16 * KV_WARPS;
 constexpr int Q_THREADS = 128;
 constexpr int Q_ROWS = 16 * (Q_THREADS / 32);
 constexpr int Q_STEP = 64;
-constexpr int MMA_MAX_D = 128;
+constexpr int MMA_MAX_D = MAX_D;
+// past SPLIT_D a pair of warps owns each 16 rows (keys in dK/dV, query
+// rows in dQ): each accumulates half of the columns and contracts half
+// of D for the pair's scores; the wide classes' dK/dV step (WIDE_BR
+// query rows) and dQ step (WIDE_Q_STEP keys) (the note at the top says
+// why)
+constexpr int SPLIT_D = 128;
+constexpr int WIDE_BR = 32;
+constexpr int WIDE_Q_STEP = 32;
 
 // rows of a shared bf16 tile padded to DP columns: DP + 8 elements, an odd
 // number of 16-byte chunks, so the 8 rows that one ldmatrix block reads
@@ -621,23 +658,25 @@ __device__ __forceinline__ void mma_load_a(uint32_t (&f)[DP / 16][4],
 // fragment: s = x1 y1ᵀ, dp = x2 y2ᵀ (in mma_dkdv_kernel x = (K, V), y =
 // (Q, dO), giving Sᵀ and dPᵀ; in mma_dq_kernel x = (Q, dO), y = (K, V),
 // giving S and dP). With HOLD the own rows' A fragments come from x1f,
-// x2f (mma_load_a), else from x1, x2 at every call.
-template <int DP, int NT, bool HOLD>
+// x2f (mma_load_a), else from x1, x2 at every call. The sums run over the
+// KN blocks of 16 columns from col0 (all of DP unless a share of it).
+template <int DP, int NT, bool HOLD, int KN = DP / 16>
 __device__ __forceinline__ void mma_pair_products(
     const uint32_t (&x1f)[HOLD ? DP / 16 : 1][4],
     const uint32_t (&x2f)[HOLD ? DP / 16 : 1][4],
     const __nv_bfloat16* x1, const __nv_bfloat16* x2,
     const __nv_bfloat16* y1, const __nv_bfloat16* y2, int lane,
-    float (&s)[NT][4], float (&dp)[NT][4]) {
+    float (&s)[NT][4], float (&dp)[NT][4], int col0 = 0) {
+  static_assert(!HOLD || KN == DP / 16, "held fragments cover all of DP");
   constexpr int LD = mma_ld<DP>();
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
-  const int xo = mma_bf16::a_row(lane) * LD + mma_bf16::a_col(lane);
-  const int yo = mma_bf16::b_row(lane) * LD + mma_bf16::b_col(lane);
+  const int xo = mma_bf16::a_row(lane) * LD + mma_bf16::a_col(lane) + col0;
+  const int yo = mma_bf16::b_row(lane) * LD + mma_bf16::b_col(lane) + col0;
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
+  for (int kk = 0; kk < KN; ++kk) {
     uint32_t a1[4], a2[4];
     if constexpr (HOLD) {
 #pragma unroll
@@ -662,10 +701,42 @@ __device__ __forceinline__ void mma_pair_products(
   }
 }
 
-// dK and dV of the KV_KEYS keys from k0 of batch-head blockIdx.y: warp w
-// owns keys k0 + 16w .. + 15 and walks BR query rows a step; with HOLD it
-// keeps its keys' K and V fragments in registers; CAP: with the softcap
-template <int DP, int BR, bool HOLD, bool CAP>
+// the scores' partial sums of the two warps of a pair (warp ^ 1): each
+// warp stores its own (s, dp) fragments in its slot of xs (lane-major:
+// conflict-free), waits on the pair's barrier (id 1 + the pair's index)
+// and adds its partner's. a + b and b + a are the same float, so both
+// warps hold the same bits. The slot is rewritten only after the next
+// __syncthreads of the block, when the partner has read it.
+template <int NT>
+__device__ __forceinline__ void pair_sum(float* xs, int warp, int lane,
+                                         float (&s)[NT][4],
+                                         float (&dp)[NT][4]) {
+  float* mine = xs + warp * (2 * NT * 4 * 32);
+  const float* theirs = xs + (warp ^ 1) * (2 * NT * 4 * 32);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      mine[(j * 4 + e) * 32 + lane] = s[j][e];
+      mine[((NT + j) * 4 + e) * 32 + lane] = dp[j][e];
+    }
+  asm volatile("bar.sync %0, 64;\n" :: "r"(1 + warp / 2) : "memory");
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] += theirs[(j * 4 + e) * 32 + lane];
+      dp[j][e] += theirs[((NT + j) * 4 + e) * 32 + lane];
+    }
+}
+
+// dK and dV of the KV_KEYS / NS keys from k0 of batch-head blockIdx.y:
+// warp w owns keys k0 + 16 (w / NS) .. + 15 and columns DC (w % NS) ..
+// + DC - 1 of their dK and dV (DC = DP / NS; with NS = 2 the pair forms
+// its keys' Sᵀ and dPᵀ each over its DC columns of D, summed by
+// pair_sum) and walks BR query rows a step; with HOLD it keeps its keys'
+// K and V fragments in registers; CAP: with the softcap
+template <int DP, int BR, bool HOLD, bool CAP, int NS>
 __global__ void __launch_bounds__(KV_THREADS)
 mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
@@ -680,24 +751,31 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                 float scale, int causal, int window, float softcap,
                 int vec) {
   constexpr int LD = mma_ld<DP>();
+  constexpr int KEYS = KV_KEYS / NS;  // keys of the block
+  constexpr int DC = DP / NS;         // columns of dK and dV a warp owns
   constexpr int NT = BR / 8;          // 8-row tiles of the walked rows
-  constexpr int DT = DP / 8;          // 8-column tiles of dK and dV
+  constexpr int DT = DC / 8;          // 8-column tiles of them
+  static_assert(DC % 16 == 0, "a warp's columns in 16-column blocks");
+  static_assert(NS <= 2 && (!HOLD || NS == 1), "pairs of warps at most");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + KV_KEYS * LD;
-  __nv_bfloat16* qs = vs + KV_KEYS * LD;             // 2 x BR x LD
+  __nv_bfloat16* vs = ks + KEYS * LD;
+  __nv_bfloat16* qs = vs + KEYS * LD;                // 2 x BR x LD
   __nv_bfloat16* dos = qs + 2 * BR * LD;             // 2 x BR x LD
   float* lse_s = reinterpret_cast<float*>(dos + 2 * BR * LD);  // 2 x BR
   float* del_s = lse_s + 2 * BR;                                // 2 x BR
+  float* xs = del_s + 2 * BR;          // NS = 2: KV_WARPS x 2 x BR x 16
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane / 4;
   const int t = lane % 4;
+  const int kg = warp / NS;                          // the warp's keys
+  const int c0 = DC * (warp % NS);                   // and columns
   const int64_t bh = blockIdx.y;
-  const int k0 = blockIdx.x * KV_KEYS;
-  const int kw = k0 + 16 * warp;                     // the warp's keys
+  const int k0 = blockIdx.x * KEYS;
+  const int kw = k0 + 16 * kg;
   const int off = q_offset ? q_offset[bh] : 0;       // row 0's position
   const float scale2 = scale * LOG2E;
   const __nv_bfloat16* qb = q + bh * sq * d;
@@ -706,7 +784,7 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
   const float* db = delta + bh * sq;
 
   // the query rows that see a key of the block (as dkdv_kernel)
-  const int k_last = min(k0 + KV_KEYS, skv) - 1;
+  const int k_last = min(k0 + KEYS, skv) - 1;
   int q_begin = causal ? max(0, k0 - off) : 0;
   const int q_end = window > 0 ? min(sq, k_last + window - off) : sq;
   q_begin = (q_begin / BR) * BR;
@@ -721,10 +799,10 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
       del_s[buf * BR + tid] = qt + tid < sq ? db[qt + tid] : 0.0f;
     }
   };
-  mma_stage<KV_KEYS, DP, KV_THREADS>(ks, k + bh * skv * d, k0, skv, d, vec,
-                                     tid);
-  mma_stage<KV_KEYS, DP, KV_THREADS>(vs, v + bh * skv * d, k0, skv, d, vec,
-                                     tid);
+  mma_stage<KEYS, DP, KV_THREADS>(ks, k + bh * skv * d, k0, skv, d, vec,
+                                  tid);
+  mma_stage<KEYS, DP, KV_THREADS>(vs, v + bh * skv * d, k0, skv, d, vec,
+                                  tid);
   if (q_begin < q_end) load_rows(q_begin, 0);
   dmma::commit();
 
@@ -737,14 +815,14 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
   // the warp's K and V fragments, once the first copies have landed
   dmma::wait<0>();
   __syncthreads();
-  const __nv_bfloat16* kw_s = ks + 16 * warp * LD;
-  const __nv_bfloat16* vw_s = vs + 16 * warp * LD;
+  const __nv_bfloat16* kw_s = ks + 16 * kg * LD;
+  const __nv_bfloat16* vw_s = vs + 16 * kg * LD;
   uint32_t kf[HOLD ? DP / 16 : 1][4], vf[HOLD ? DP / 16 : 1][4];
   if constexpr (HOLD) {
     mma_load_a<DP>(kf, kw_s, lane);
     mma_load_a<DP>(vf, vw_s, lane);
   }
-  const int to = mma_bf16::a_row(lane) * LD + mma_bf16::a_col(lane);
+  const int to = mma_bf16::a_row(lane) * LD + mma_bf16::a_col(lane) + c0;
   int buf = 0;
 #pragma unroll 1
   for (int qt = q_begin; qt < q_end; qt += BR, buf ^= 1) {
@@ -758,8 +836,9 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
     const float* dc = del_s + buf * BR;
 
     float s[NT][4], dp[NT][4];
-    mma_pair_products<DP, NT, HOLD>(kf, vf, kw_s, vw_s, qc, doc, lane, s,
-                                    dp);
+    mma_pair_products<DP, NT, HOLD, DC / 16>(kf, vf, kw_s, vw_s, qc, doc,
+                                             lane, s, dp, c0);
+    if constexpr (NS == 2) pair_sum<NT>(xs, warp, lane, s, dp);
 
     // Pᵀ and dSᵀ in place; the element mask only where the warp's keys
     // and the step's rows are not all valid pairs
@@ -779,8 +858,8 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                         softcap, &s[j][e], &dp[j][e]);
       }
 
-    // dV += Pᵀ dO and dK += dSᵀ Q, 16 query rows at a time; dS goes in as
-    // its bf16 rounding plus the rounding's rest
+    // dV += Pᵀ dO and dK += dSᵀ Q on the warp's columns, 16 query rows at
+    // a time; dS goes in as its bf16 rounding plus the rounding's rest
 #pragma unroll
     for (int kq = 0; kq < BR / 16; ++kq) {
       uint32_t pa[4], da[4], dr[4];
@@ -812,7 +891,7 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = 0; c < DT; ++c)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = 8 * c + 2 * t + e;
+        const int col = c0 + 8 * c + 2 * t + e;
         if (col < d) {
           // the empty rows' uniform P: dO summed over them, over Skv
           const float ex = esum ? esum[bh * d + col] / (float)skv : 0.0f;
@@ -826,11 +905,14 @@ mma_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // dQ of the Q_ROWS query rows from q0 of batch-head blockIdx.y: warp w
-// owns rows q0 + 16w .. + 15 and walks Q_STEP keys a step; with HOLD it
-// keeps its rows' Q and dO fragments in registers; CAP: with the softcap;
-// MINB blocks must fit an SM (the register budget)
-template <int DP, bool HOLD, bool CAP, int MINB>
-__global__ void __launch_bounds__(Q_THREADS, MINB)
+// owns rows q0 + 16 (w / NS) .. + 15 and columns DC (w % NS) .. + DC - 1
+// of their dQ (DC = DP / NS; with NS = 2 the pair forms its rows' S and
+// dP each over its DC columns of D, summed by pair_sum) and walks STEP
+// keys a step; with HOLD it keeps its rows' Q and dO fragments in
+// registers; CAP: with the softcap; MINB blocks must fit an SM (the
+// register budget)
+template <int DP, bool HOLD, bool CAP, int MINB, int NS, int STEP>
+__global__ void __launch_bounds__(Q_THREADS * NS, MINB)
 mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
@@ -839,24 +921,32 @@ mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
               const int* __restrict__ q_offset,
               __nv_bfloat16* __restrict__ dq, int sq, int skv, int d,
               float scale, int causal, int window, float softcap, int vec) {
+  constexpr int THREADS_Q = Q_THREADS * NS;
   constexpr int LD = mma_ld<DP>();
-  constexpr int NT = Q_STEP / 8;      // 8-key tiles of a step
-  constexpr int DT = DP / 8;          // 8-column tiles of dQ
+  constexpr int DC = DP / NS;         // columns of dQ a warp owns
+  constexpr int NT = STEP / 8;        // 8-key tiles of a step
+  constexpr int DT = DC / 8;          // 8-column tiles of dQ
+  static_assert(DC % 16 == 0, "a warp's columns in 16-column blocks");
+  static_assert(NS <= 2 && (!HOLD || NS == 1), "pairs of warps at most");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* dos = qs + Q_ROWS * LD;
-  __nv_bfloat16* ks = dos + Q_ROWS * LD;             // 2 x Q_STEP x LD
-  __nv_bfloat16* vs = ks + 2 * Q_STEP * LD;          // 2 x Q_STEP x LD
+  __nv_bfloat16* ks = dos + Q_ROWS * LD;             // 2 x STEP x LD
+  __nv_bfloat16* vs = ks + 2 * STEP * LD;            // 2 x STEP x LD
+  // NS = 2: warps x 2 x STEP x 16
+  float* xs = reinterpret_cast<float*>(vs + 2 * STEP * LD);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane / 4;
   const int t = lane % 4;
+  const int rg = warp / NS;                          // the warp's rows
+  const int c0 = DC * (warp % NS);                   // and columns
   const int64_t bh = blockIdx.y;
   // the last rows first: under a causal mask they walk the most keys
   const int q0 = (gridDim.x - 1 - blockIdx.x) * Q_ROWS;
-  const int qw = q0 + 16 * warp;                     // the warp's rows
+  const int qw = q0 + 16 * rg;
   const int off = q_offset ? q_offset[bh] : 0;       // row 0's position
   const int pw = off + qw;                           // their position
   const float scale2 = scale * LOG2E;
@@ -867,17 +957,17 @@ mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
   const int q_last = min(q0 + Q_ROWS, sq) - 1;
   int k_begin = window > 0 ? max(0, off + q0 - window + 1) : 0;
   const int k_end = causal ? min(skv, off + q_last + 1) : skv;
-  k_begin = (k_begin / Q_STEP) * Q_STEP;
+  k_begin = (k_begin / STEP) * STEP;
 
   auto load_keys = [&](int kt, int buf) {
-    mma_stage<Q_STEP, DP, Q_THREADS>(ks + buf * Q_STEP * LD, kb, kt, skv,
-                                     d, vec, tid);
-    mma_stage<Q_STEP, DP, Q_THREADS>(vs + buf * Q_STEP * LD, vb, kt, skv,
-                                     d, vec, tid);
+    mma_stage<STEP, DP, THREADS_Q>(ks + buf * STEP * LD, kb, kt, skv, d,
+                                   vec, tid);
+    mma_stage<STEP, DP, THREADS_Q>(vs + buf * STEP * LD, vb, kt, skv, d,
+                                   vec, tid);
   };
-  mma_stage<Q_ROWS, DP, Q_THREADS>(qs, q + bh * sq * d, q0, sq, d, vec,
+  mma_stage<Q_ROWS, DP, THREADS_Q>(qs, q + bh * sq * d, q0, sq, d, vec,
                                    tid);
-  mma_stage<Q_ROWS, DP, Q_THREADS>(dos, dout + bh * sq * d, q0, sq, d, vec,
+  mma_stage<Q_ROWS, DP, THREADS_Q>(dos, dout + bh * sq * d, q0, sq, d, vec,
                                    tid);
   if (k_begin < k_end) load_keys(k_begin, 0);
   dmma::commit();
@@ -900,30 +990,31 @@ mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
   // the warp's Q and dO fragments, once the first copies have landed
   dmma::wait<0>();
   __syncthreads();
-  const __nv_bfloat16* qw_s = qs + 16 * warp * LD;
-  const __nv_bfloat16* dow_s = dos + 16 * warp * LD;
+  const __nv_bfloat16* qw_s = qs + 16 * rg * LD;
+  const __nv_bfloat16* dow_s = dos + 16 * rg * LD;
   uint32_t qf[HOLD ? DP / 16 : 1][4], dof[HOLD ? DP / 16 : 1][4];
   if constexpr (HOLD) {
     mma_load_a<DP>(qf, qw_s, lane);
     mma_load_a<DP>(dof, dow_s, lane);
   }
-  const int to = mma_bf16::a_row(lane) * LD + mma_bf16::a_col(lane);
+  const int to = mma_bf16::a_row(lane) * LD + mma_bf16::a_col(lane) + c0;
   int buf = 0;
 #pragma unroll 1
-  for (int kt = k_begin; kt < k_end; kt += Q_STEP, buf ^= 1) {
+  for (int kt = k_begin; kt < k_end; kt += STEP, buf ^= 1) {
     dmma::wait<0>();            // this thread's copies of the step's keys
     __syncthreads();            // everyone's; the last step is done
-    if (kt + Q_STEP < k_end) load_keys(kt + Q_STEP, buf ^ 1);
+    if (kt + STEP < k_end) load_keys(kt + STEP, buf ^ 1);
     dmma::commit();             // the next keys' copies overlap this step
-    const __nv_bfloat16* kc = ks + buf * Q_STEP * LD;
-    const __nv_bfloat16* vc = vs + buf * Q_STEP * LD;
+    const __nv_bfloat16* kc = ks + buf * STEP * LD;
+    const __nv_bfloat16* vc = vs + buf * STEP * LD;
 
     float s[NT][4], dp[NT][4];
-    mma_pair_products<DP, NT, HOLD>(qf, dof, qw_s, dow_s, kc, vc, lane, s,
-                                    dp);
+    mma_pair_products<DP, NT, HOLD, DC / 16>(qf, dof, qw_s, dow_s, kc, vc,
+                                             lane, s, dp, c0);
+    if constexpr (NS == 2) pair_sum<NT>(xs, warp, lane, s, dp);
 
-    const bool edge = qw + 16 > sq || kt + Q_STEP > skv
-        || (causal && kt + Q_STEP - 1 > pw)
+    const bool edge = qw + 16 > sq || kt + STEP > skv
+        || (causal && kt + STEP - 1 > pw)
         || (window > 0 && kt <= pw + 15 - window);
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -937,9 +1028,9 @@ mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
                         scale, scale2, softcap, &s[j][e], &dp[j][e]);
       }
 
-    // dQ += dS K, 16 keys at a time
+    // dQ += dS K on the warp's columns, 16 keys at a time
 #pragma unroll
-    for (int kq = 0; kq < Q_STEP / 16; ++kq) {
+    for (int kq = 0; kq < STEP / 16; ++kq) {
       uint32_t da[4];
       mma_bf16::pack_a(da, dp[2 * kq], dp[2 * kq + 1]);
 #pragma unroll
@@ -961,7 +1052,7 @@ mma_dq_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = 0; c < DT; ++c)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int col = 8 * c + 2 * t + e;
+        const int col = c0 + 8 * c + 2 * t + e;
         if (col < d)
           dqb[(int64_t)r * d + col] =
               __float2bfloat16(gq[c][2 * h + e] * scale);
@@ -1019,30 +1110,39 @@ int launch_nc(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <int DP, int BR>
+// shared bytes: the tiles, lse and Δ, and with pairs of warps (NS = 2)
+// each warp's slot of pair_sum
+template <int DP, int BR, int NS>
 size_t mma_dkdv_smem() {
-  return (size_t)(2 * KV_KEYS + 4 * BR) * mma_ld<DP>()
-      * sizeof(__nv_bfloat16) + 4 * BR * sizeof(float);
+  return (size_t)(2 * KV_KEYS / NS + 4 * BR) * mma_ld<DP>()
+      * sizeof(__nv_bfloat16) + 4 * BR * sizeof(float)
+      + (NS == 2 ? KV_WARPS * 2 * BR * 16 * sizeof(float) : 0);
 }
 
-template <int DP>
+template <int DP, int STEP, int NS>
 size_t mma_dq_smem() {
-  return (size_t)(2 * Q_ROWS + 4 * Q_STEP) * mma_ld<DP>()
-      * sizeof(__nv_bfloat16);
+  return (size_t)(2 * Q_ROWS + 4 * STEP) * mma_ld<DP>()
+      * sizeof(__nv_bfloat16)
+      + (NS == 2 ? Q_THREADS / 32 * NS * 2 * STEP * 16 * sizeof(float) : 0);
 }
 
 // the tensor-core kernels of one padded head dim DP: dK/dV walking BR
-// query rows a step, dQ walking Q_STEP keys (the note at the top says why)
+// query rows a step, dQ walking STEP keys; past SPLIT_D pairs of warps
+// (the note at the top says why)
 template <int DP>
 int launch_mma(const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta,
                const void* esum, const int* q_offset, void* dq, void* dk,
                void* dv, int bh, int sq, int skv, int d, int causal,
                int window, double softcap, cudaStream_t stream) {
-  constexpr int BR = DP <= 80 ? 64 : 32;
+  constexpr bool WIDE = DP > SPLIT_D;
+  constexpr int NS = WIDE ? 2 : 1;        // warps a 16-row group
+  constexpr int BR = WIDE ? WIDE_BR : DP <= 80 ? 64 : 32;
+  constexpr int STEP = WIDE ? WIDE_Q_STEP : Q_STEP;
   constexpr bool HOLD_KV = DP <= 80;      // with the softcap: DP <= 64
   constexpr bool HOLD_Q = DP <= 32;
-  constexpr int MINB_Q = DP <= 80 ? 3 : 2;
+  constexpr int MINB_Q = DP <= 80 ? 3 : WIDE ? 1 : 2;
+  constexpr int KEYS = KV_KEYS / NS;
   using B16 = __nv_bfloat16;
   const float scale = (float)(1.0 / sqrt((double)d));
   // 16-byte copies need whole 16-byte chunks of every row
@@ -1050,14 +1150,13 @@ int launch_mma(const void* q, const void* k, const void* v,
                                  | (uintptr_t)dout) % 16 == 0;
   const bool cap = softcap > 0.0;
   auto kv_kern = cap
-      ? mma_dkdv_kernel<DP, BR, HOLD_KV && DP <= 64, true>
-      : mma_dkdv_kernel<DP, BR, HOLD_KV, false>;
-  const size_t kv_smem = mma_dkdv_smem<DP, BR>();
+      ? mma_dkdv_kernel<DP, BR, HOLD_KV && DP <= 64, true, NS>
+      : mma_dkdv_kernel<DP, BR, HOLD_KV, false, NS>;
+  const size_t kv_smem = mma_dkdv_smem<DP, BR, NS>();
   cudaError_t err = cudaFuncSetAttribute(
       kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
   if (err != cudaSuccess) return (int)err;
-  kv_kern<<<dim3((unsigned)((skv + KV_KEYS - 1) / KV_KEYS),
-                 (unsigned)bh),
+  kv_kern<<<dim3((unsigned)((skv + KEYS - 1) / KEYS), (unsigned)bh),
             KV_THREADS, kv_smem, stream>>>(
       static_cast<const B16*>(q), static_cast<const B16*>(k),
       static_cast<const B16*>(v), static_cast<const B16*>(dout),
@@ -1067,14 +1166,14 @@ int launch_mma(const void* q, const void* k, const void* v,
       (float)softcap, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  auto q_kern = cap ? mma_dq_kernel<DP, HOLD_Q, true, MINB_Q>
-                    : mma_dq_kernel<DP, HOLD_Q, false, MINB_Q>;
-  const size_t q_smem = mma_dq_smem<DP>();
+  auto q_kern = cap ? mma_dq_kernel<DP, HOLD_Q, true, MINB_Q, NS, STEP>
+                    : mma_dq_kernel<DP, HOLD_Q, false, MINB_Q, NS, STEP>;
+  const size_t q_smem = mma_dq_smem<DP, STEP, NS>();
   err = cudaFuncSetAttribute(
       q_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q_smem);
   if (err != cudaSuccess) return (int)err;
   q_kern<<<dim3((unsigned)((sq + Q_ROWS - 1) / Q_ROWS), (unsigned)bh),
-           Q_THREADS, q_smem, stream>>>(
+           Q_THREADS * NS, q_smem, stream>>>(
       static_cast<const B16*>(q), static_cast<const B16*>(k),
       static_cast<const B16*>(v), static_cast<const B16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1115,17 +1214,18 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (err != cudaSuccess) return (int)err;
   Launch fn = nullptr;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // bf16: the tensor-core kernels up to MMA_MAX_D, D padded to a
-    // multiple of 16 of at least 32; past it (gemma2_2b's 288) the FMA
-    // kernels
+    // bf16: the tensor-core kernels at every D, padded to a multiple of
+    // 16 of at least 32 up to SPLIT_D and of 32 past it (a warp's half of
+    // the columns in whole 16-column blocks)
     constexpr Launch by_dp[] = {
         launch_mma<32>, launch_mma<32>, launch_mma<48>, launch_mma<64>,
-        launch_mma<80>, launch_mma<96>, launch_mma<112>, launch_mma<128>};
+        launch_mma<80>, launch_mma<96>, launch_mma<112>, launch_mma<128>,
+        launch_mma<160>, launch_mma<160>, launch_mma<192>, launch_mma<192>,
+        launch_mma<224>, launch_mma<224>, launch_mma<256>, launch_mma<256>,
+        launch_mma<288>, launch_mma<288>};
     static_assert(sizeof(by_dp) / sizeof(by_dp[0]) == MMA_MAX_D / 16,
                   "one entry per multiple of 16");
-    fn = d <= MMA_MAX_D ? by_dp[(d + 15) / 16 - 1]
-                        : d <= 192 ? launch_nc<T, Acc, 12>
-                                   : launch_nc<T, Acc, 18>;
+    fn = by_dp[(d + 15) / 16 - 1];
   } else {
     // the register tile's width: the least instantiated ceil(D / 16)
     fn = launch_nc<T, Acc, 18>;

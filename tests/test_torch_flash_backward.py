@@ -10,7 +10,8 @@ chunks), float64 to the kernel's oracle ``attention_ref``
 (``plain_attention`` takes its scores in float32 whatever the operands,
 ``preferred_element_type``, so only the oracle is a float64 reference).
 Cases: causal, sliding window, tanh softcap, GQA, Sq != Skv
-(non-causal, as cross attention), Sq > Skv (causal). Tolerances, on the
+(non-causal, as cross attention), Sq > Skv (causal), head dims past 128
+(144 and gemma2_2b's 288). Tolerances, on the
 largest difference relative to the largest reference value: float64
 1e-10, float32 1e-5. The plain backward is also held to autograd of the
 plain forward ``flash_attention_bhsd_ref`` at float64 (1e-12).
@@ -52,6 +53,9 @@ CASES = [
     ("cross-cap", (1, 30, 18, 2, 1, 16), False, 0, 20.0),
     ("window-noncausal", (1, 40, 40, 2, 2, 8), False, 8, 0.0),
     ("causal-sq-over-skv", (1, 30, 20, 2, 1, 8), True, 0, 10.0),
+    # head dims past 128, as gemma2_2b's 288
+    ("d144-gqa-window-cap", (1, 40, 40, 4, 2, 144), True, 12, 30.0),
+    ("d288-causal-cap", (1, 24, 24, 2, 1, 288), True, 0, 50.0),
 ]
 CASE_IDS = [c[0] for c in CASES]
 # (id, (B, Sq, Skv, H, KVH, D), causal, window, softcap, q_offset: an
@@ -331,11 +335,16 @@ def cuda_device():
 
 
 # the card's cases: (B·H, Sq, Skv, D), causal, window, softcap; ragged
-# tiles, every D class, Sq != Skv both ways. The last five aim at the bf16
-# tensor-core kernels' tiles (128 keys a dK/dV block, 64 rows a step or a
-# dQ block): more than one full tile and a ragged edge on both Sq and
-# Skv, a window and a softcap at D = 128, D = 72 (padded to 80) and D =
-# 20 (rows not in 16-byte chunks)
+# tiles, every D class, Sq != Skv both ways. Five aim at the bf16
+# tensor-core kernels' tiles up to D = 128 (128 keys a dK/dV block, 64
+# rows a step or a dQ block): more than one full tile and a ragged edge
+# on both Sq and Skv, a window and a softcap at D = 128, D = 72 (padded
+# to 80) and D = 20 (rows not in 16-byte chunks). The last seven at
+# their tiles past D = 128 (64 keys a dK/dV block, 32 rows a step; 64
+# rows a dQ block, 64 keys a step; D padded to a multiple of 32): D = 288
+# over several tiles with ragged ends both ways, with and without a
+# window, softcapped; the classes' edges (129 and 160 in the class of
+# 160, 256) and D = 144; D = 138 (rows not in 16-byte chunks)
 CUDA_CASES = [((3, 100, 100, 64), True, 0, 0.0),
               ((2, 77, 130, 40), False, 0, 30.0),
               ((2, 150, 90, 80), True, 0, 0.0),
@@ -347,7 +356,14 @@ CUDA_CASES = [((3, 100, 100, 64), True, 0, 0.0),
               ((2, 129, 300, 64), False, 0, 0.0),
               ((1, 257, 257, 128), True, 64, 30.0),
               ((2, 190, 210, 72), True, 0, 0.0),
-              ((1, 100, 90, 20), False, 0, 0.0)]
+              ((1, 100, 90, 20), False, 0, 0.0),
+              ((2, 300, 277, 288), True, 0, 50.0),
+              ((2, 300, 277, 288), True, 64, 50.0),
+              ((1, 100, 120, 129), False, 0, 0.0),
+              ((1, 130, 130, 160), True, 32, 0.0),
+              ((1, 200, 230, 144), False, 48, 30.0),
+              ((1, 150, 150, 256), True, 0, 0.0),
+              ((2, 140, 170, 138), True, 0, 20.0)]
 CUDA_TOL = {"float64": 1e-8, "float32": 2e-4, "bfloat16": 2e-2}
 
 
@@ -397,12 +413,15 @@ def test_cuda_gradient_through_the_gqa_dispatch(cuda_device):
 # that have no valid key: (B·H, Sq, Skv, D), causal, window, softcap,
 # offsets (None: every row at its index). A decode-like step of four
 # rows at their own positions, a prefill chunk past its slot's start,
-# and empty rows on the tensor-core tiles (D <= 128) and past them
+# empty rows on the tensor-core tiles up to D = 128 and past them, and
+# at D = 288 an offset per batch-head that leaves the first one's last
+# rows with no key (positions 231.. past a window of 32 over 200 keys)
 OFFSET_CUDA_CASES = [((4, 1, 300, 64), True, 0, 0.0, [10, 100, 200, 299]),
                      ((2, 70, 200, 80), True, 0, 0.0, [130, 0]),
                      ((2, 150, 60, 64), True, 32, 0.0, None),
                      ((2, 130, 40, 128), False, 16, 30.0, [0, 5]),
-                     ((1, 90, 40, 288), True, 20, 50.0, None)]
+                     ((1, 90, 40, 288), True, 20, 50.0, None),
+                     ((2, 60, 200, 288), True, 32, 50.0, [180, 0])]
 
 
 @pytest.mark.cuda
@@ -432,3 +451,30 @@ def test_cuda_backward_with_offsets_and_empty_rows(cuda_device, case,
         assert not bool((diff > allowed).any()), float(diff.max())
     again = kernel.flash_attention_bhsd_bwd(q, k, v, out, do, lse, **opts)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_backward_past_128_runs_the_tensor_core_kernels(
+        cuda_device):
+    """A bf16 call at D = 288 runs mma_dkdv_kernel and mma_dq_kernel (and
+    the preamble), by their names in torch.profiler's trace, and none of
+    the FMA kernels dkdv_kernel and dq_kernel."""
+    import re
+
+    rng = np.random.default_rng(29)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(2, n, 288)))
+                   .to(cuda_device, torch.bfloat16)
+                   for n in (200, 200, 200, 200))
+    opts = dict(causal=True, window=64, softcap=50.0)
+    out, lse = kernel.flash_attention_bhsd(q, k, v, return_lse=True, **opts)
+    kernel.flash_attention_bhsd_bwd(q, k, v, out, do, lse, **opts)
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        kernel.flash_attention_bhsd_bwd(q, k, v, out, do, lse, **opts)
+        torch.cuda.synchronize()
+    ran = {m.group(1) for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           for m in [re.search(r"(\w+_kernel)\b", e.name)] if m}
+    assert {"mma_dkdv_kernel", "mma_dq_kernel"} <= ran, ran
+    assert not ran & {"dkdv_kernel", "dq_kernel"}, ran

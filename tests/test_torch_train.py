@@ -14,7 +14,8 @@ subprocess per module (``tests/torch_reference.py``).
   against ``jax.value_and_grad`` of the reference's ``loss_fn``: the loss
   within 1e-5 relative, each leaf's gradient within 1e-4 of its norm.
   The same with the config's ``remat="full"`` (periods checkpointed) and
-  ``fused_xent`` off on stablelm.
+  ``fused_xent`` off on stablelm, and with gemma2's preset widened to
+  two heads (one KV head) of gemma2_2b's head dim, 288.
 * Three steps of ``make_train_step`` (microbatch 2, AdamW) against the
   reference's jitted step: each loss within 1e-5 relative, each
   parameter leaf within 1e-4 of its norm after the third step.
@@ -55,6 +56,13 @@ STEPS_BATCH = 4
 LR = 1e-3
 DECODE_STEPS = 3
 GEN_ARCHS = ["seamless_m4t_medium", "llava_next_mistral_7b"]
+# the loss cases' config changes: 0 the smoke preset, 1 remat and the
+# unchunked loss, 2 (WIDE) two heads of gemma2_2b's head dim (the
+# attention's gradient past D = 128)
+VARIANTS = [{}, {"remat": "full", "fused_xent": False},
+            {"d_model": 576, "n_heads": 2, "kv_heads": 1, "head_dim": 288}]
+WIDE = 2
+WIDE_ARCHS = ["gemma2_2b"]
 
 _REFERENCE = PARAMS_CODE + """
 import dataclasses, json
@@ -80,11 +88,12 @@ def batch_of(prefix):
 
 
 for arch, variant in spec["loss"]:
-    kw = {"remat": "full", "fused_xent": False} if variant else {}
-    cfg = cfg_of(arch, **kw)
+    cfg = cfg_of(arch, **spec["variants"][variant])
     params = RT.init_params(cfg, jax.random.key(0))[0]
-    if not variant:
+    if variant == 0:
         flat(f"params/{arch}/float32", params)
+    elif variant == spec["wide"]:
+        flat(f"params/{arch}-{variant}/float32", params)
     batch = batch_of(f"batch/{arch}")
     loss, grads = jax.jit(jax.value_and_grad(
         lambda p: RT.loss_fn(p, batch, cfg)))(params)
@@ -201,9 +210,11 @@ def _gen_inputs(arch):
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    loss_cases = [(arch, 0) for arch in FAMILIES] + [("stablelm_3b", 1)]
+    loss_cases = [(arch, 0) for arch in FAMILIES] + [("stablelm_3b", 1)] \
+        + [(arch, WIDE) for arch in WIDE_ARCHS]
     inputs = {"spec": np.asarray(json.dumps({
-        "loss": loss_cases, "lr": LR, "gen": GEN_ARCHS}))}
+        "loss": loss_cases, "variants": VARIANTS, "wide": WIDE, "lr": LR,
+        "gen": GEN_ARCHS}))}
     for arch in FAMILIES:
         for k, v in _batch(_cfg(arch), BATCH, SEQ).items():
             inputs[f"batch/{arch}/{k}"] = v
@@ -257,6 +268,22 @@ def test_remat_and_unfused_loss_match_reference(reference):
     want = float(reference[f"loss/{arch}/1"])
     assert abs(float(loss) - want) <= 1e-5 * abs(want)
     _check_grads(reference, arch, 1, params, grads)
+
+
+@pytest.mark.parametrize("arch", WIDE_ARCHS)
+def test_wide_head_loss_and_gradients_match_reference(reference, arch):
+    """gemma2's preset at two heads of 288 (gemma2_2b's head dim; window
+    and softcaps kept): the loss and each leaf's gradient against the
+    reference's, as the families' presets are held."""
+    cfg = _cfg(arch, **VARIANTS[WIDE])
+    assert cfg.head_dim == 288 and cfg.layers == 2
+    params = reference_params(reference, f"{arch}-{WIDE}", "float32", cfg)
+    batch = _torch_batch(_batch(cfg, BATCH, SEQ))
+    loss, grads = value_and_grad(lambda p, b: T.loss_fn(p, b, cfg),
+                                 params, batch)
+    want = float(reference[f"loss/{arch}/{WIDE}"])
+    assert abs(float(loss) - want) <= 1e-5 * abs(want), (float(loss), want)
+    _check_grads(reference, arch, WIDE, params, grads)
 
 
 def test_three_train_steps_match_reference(reference):
