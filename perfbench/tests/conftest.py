@@ -1,0 +1,9 @@
+"""The benchmark's CPU tests: the repo's ``src`` and root on the path."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT), str(Path(__file__).parent)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
